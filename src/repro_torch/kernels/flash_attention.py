@@ -1,0 +1,73 @@
+"""Causal GQA prefill attention: CUDA kernel (``csrc/flash_attention.cu``),
+plain version and wrapper.
+
+Counterpart of ``repro/kernels/flash_attention.py``, in the model's
+(B, S, N, H) layout (the kernel reads it through strides; nothing is
+transposed).  The plain version is the model's ``_sdpa``
+(``repro/models/layers.py:118``): it rounds the softmax probabilities to
+the value dtype before the PV product, while the kernel keeps them in fp32,
+so the two agree exactly in fp32 and to bf16 tolerance in bf16.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def sdpa(q, k, v, *, mask, scale: float):
+    """q (B,Sq,Nq,H); k/v (B,Sk,Nkv,H); grouped heads; fp32 softmax.
+    ``mask`` broadcasts against (B, Nkv, g, Sq, Sk)."""
+    b, sq, nq, h = q.shape
+    nkv = k.shape[2]
+    hv = v.shape[-1]
+    g = nq // nkv
+    qg = q.reshape(b, sq, nkv, g, h)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, sq, nq, hv).to(v.dtype)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          scale: float | None = None):
+    """q (B,S,Nq,H); k/v (B,S,Nkv,H) -> (B,S,Nq,H)."""
+    s = q.shape[1]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    mask = None
+    if causal:
+        idx = torch.arange(s, device=q.device)
+        mask = (idx[None, :] <= idx[:, None])[None, None, None]
+    return sdpa(q, k, v, mask=mask, scale=scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None):
+    """q (B,S,Nq,H); k/v (B,S,Nkv,H) -> (B,S,Nq,H) in q's dtype.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if _build.on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    dtype = _build.kernel_dtype(q, k, v)
+    b, s, nq, h = q.shape
+    nkv = k.shape[2]
+    if (tuple(k.shape) != (b, s, nkv, h) or tuple(v.shape) != tuple(k.shape)
+            or nq % nkv or k.stride() != v.stride()):
+        raise ValueError(
+            f"flash_attention: q (B,S,Nq,H), k/v (B,S,Nkv,H) with equal "
+            f"strides; got q {tuple(q.shape)}, k {tuple(k.shape)} "
+            f"{k.stride()}, v {tuple(v.shape)} {v.stride()}")
+    for name, t in (("q", q), ("k", k)):
+        _build.check_unit_stride(f"flash_attention {name}", t)
+    out = torch.empty((b, s, nq, h), dtype=q.dtype, device=q.device)
+    if b and s:
+        _build.launch(
+            "flash_attention", "flash_attention_launch", q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, nq, nkv, h,
+            *q.stride()[:3], *k.stride()[:3], *out.stride()[:3], int(causal),
+            float(scale if scale is not None else h ** -0.5), dtype,
+            _build.stream_of(q))
+    return out

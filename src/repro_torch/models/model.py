@@ -1,0 +1,146 @@
+"""Unified model API of the port.
+
+    init_params(cfg, generator=, device=)     -> params tree
+    init_cache(cfg, batch, max_seq)           -> dense decode cache
+    init_paged_cache(cfg, blocks, block_size) -> block-pool decode cache
+    supports_paged(cfg)                       -> paged decode available?
+    apply(cfg, params, batch, mode=...)       -> (logits, cache, aux)
+    param_count(cfg)                          -> analytical N (for rooflines)
+
+Counterpart of ``repro/models/model.py``.  This slice ports the dense GQA
+decoder; the other families raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.models import transformer
+
+Params = Any
+
+
+def _family_mod(cfg):
+    if cfg.family == "hybrid":
+        raise NotImplementedError("hybrid stacks are ported in ROADMAP A8")
+    if cfg.family == "encdec":
+        raise NotImplementedError("enc-dec stacks are ported in ROADMAP A9")
+    if cfg.family == "ssm":
+        raise NotImplementedError("SSM stacks are ported in ROADMAP A7")
+    if cfg.is_moe or cfg.attn_type == "mla":
+        raise NotImplementedError("MLA and MoE stacks are ported in ROADMAP A6")
+    if cfg.mrope or cfg.embed_inputs:
+        raise NotImplementedError("the VLM stack (M-RoPE, embedding inputs) "
+                                  "is ported in ROADMAP A2")
+    return transformer
+
+
+def init_params(cfg, *, generator, device=None) -> Params:
+    return _family_mod(cfg).init_params(cfg, generator=generator,
+                                        device=device)
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=None, *, device=None):
+    return _family_mod(cfg).init_cache(cfg, batch, max_seq, dtype,
+                                       device=device)
+
+
+def cache_family(cfg) -> str | None:
+    """The cache family (a ``serving.kvcache.FAMILIES`` key) this config
+    pages under, or None when nothing resolves.  A declared
+    ``cfg.cache_family`` always wins."""
+    return transformer.cache_family(cfg)
+
+
+def supports_paged(cfg) -> bool:
+    """True when the family can run its decode cache in pooled form."""
+    return _family_mod(cfg).supports_paged(cfg)
+
+
+def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=None, *,
+                     num_slabs: int = 0, num_segments: int = 0, device=None):
+    """Pooled decode cache for the resolved cache family; the caller owns
+    block tables and lengths (see serving/kvcache.py)."""
+    return _family_mod(cfg).init_paged_cache(
+        cfg, num_blocks, block_size, dtype, num_slabs=num_slabs,
+        num_segments=num_segments, device=device)
+
+
+def paged_pool_kinds(cfg) -> dict[str, str]:
+    """Pools-dict key -> "block" | "slab" | "segment"."""
+    return _family_mod(cfg).paged_pool_kinds(cfg)
+
+
+def paged_insert_views(cfg, prefill_cache) -> dict:
+    """Prefill-cache leaves arranged like the ``init_paged_cache`` pools
+    ((L, B, ...) per leaf) for the engine's insert scatter."""
+    _family_mod(cfg)
+    return {"layers": prefill_cache["layers"]}
+
+
+def apply(cfg, params, batch, *, mode: str, cache=None):
+    return _family_mod(cfg).forward(cfg, params, batch, mode=mode, cache=cache)
+
+
+# --------------------------------------------------------------------------
+# analytical parameter counts (roofline MODEL_FLOPS = 6*N*D or 6*N_active*D)
+# --------------------------------------------------------------------------
+
+
+def _attn_params(cfg) -> int:
+    d = cfg.d_model
+    if cfg.attn_type == "mla":
+        r, pr, pn, hv, n = (cfg.kv_lora_rank, cfg.qk_rope_head_dim,
+                            cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.num_heads)
+        return (d * n * (pn + pr) + d * (r + pr) + r * n * pn + r * n * hv
+                + n * hv * d)
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return d * hd * (nq + 2 * nkv) + nq * hd * d
+
+
+def _mlp_params(d: int, f: int, mlp_type: str) -> int:
+    return (3 if mlp_type == "swiglu" else 2) * d * f
+
+
+def _mamba_params(cfg) -> int:
+    d, din, h = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
+    cdim = din + 2 * cfg.ssm_ngroups * cfg.ssm_state_dim
+    return (d * (din + cdim + h) + cfg.conv_width * cdim + cdim
+            + 3 * h + din + din * d)
+
+
+def param_count(cfg, *, active_only: bool = False) -> int:
+    d, v = cfg.d_model, cfg.vocab_size
+    total = v * d + d  # embedding + final norm
+    if not cfg.tie_embeddings:
+        total += d * v  # lm_head
+
+    if cfg.family == "hybrid":
+        g = cfg.num_layers // cfg.attn_every
+        n_mamba = cfg.num_layers - g
+        total += n_mamba * (_mamba_params(cfg) + d)
+        total += _attn_params(cfg) + _mlp_params(d, cfg.d_ff, cfg.mlp_type) + 2 * d
+        return total
+
+    if cfg.family == "encdec":
+        enc = cfg.encoder_layers * (_attn_params(cfg)
+                                    + _mlp_params(d, cfg.d_ff, cfg.mlp_type) + 2 * d)
+        dec = cfg.num_layers * (2 * _attn_params(cfg)
+                                + _mlp_params(d, cfg.d_ff, cfg.mlp_type) + 3 * d)
+        return total + enc + dec + d  # + enc_norm
+
+    if cfg.family == "ssm":
+        return total + cfg.num_layers * (_mamba_params(cfg) + d)
+
+    # dense / moe / vlm decoder
+    for i in range(cfg.num_layers):
+        total += _attn_params(cfg) + 2 * d
+        if cfg.is_moe and i >= cfg.first_dense_layers:
+            routed = cfg.num_experts_per_tok if active_only else cfg.num_experts
+            total += routed * _mlp_params(d, cfg.moe_d_ff, "swiglu")
+            total += cfg.num_shared_experts * _mlp_params(d, cfg.moe_d_ff, "swiglu")
+            total += d * cfg.num_experts  # router
+        else:
+            total += _mlp_params(d, cfg.d_ff, cfg.mlp_type)
+    return total

@@ -1,0 +1,41 @@
+"""Weights for the port: the bridge from the reference's parameters, and
+native random init.
+
+``params_from_numpy`` takes the reference pytree already converted to
+numpy (``jax.tree.map(np.asarray, params)``) and returns the same tree of
+tensors in the same layouts (stacked ``layers`` leaves keep their leading L
+axis; ``wq`` stays (d, nq, hd), ``wo`` (nq, hd, d)), so both packages run
+on identical weights.  ``init_params`` draws the reference's distributions
+from a ``torch.Generator`` (not its numbers).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.model import init_params  # noqa: F401
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a, order="C")  # a writable copy: jax arrays are read-only
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, from jax arrays
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_numpy(tree, *, device=None, dtype: torch.dtype | None = None):
+    """Same tree (dicts, lists, tuples) with every numpy leaf a tensor on
+    ``device``, cast to ``dtype`` when given."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        t = _tensor(np.asarray(node)).to(device)
+        return t.to(dtype) if dtype is not None else t
+
+    return conv(tree)
