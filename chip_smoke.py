@@ -8,19 +8,29 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. card: name and power limit (nvidia-smi);
-2. build: compile the CUDA kernels from ``src/repro_torch/csrc``;
+2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+   per source, all in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's full-width shapes, in fp32 and bf16 (ragged lengths,
-   scratch-block table lanes, length 0, prefill buckets 8 and 256), then
-   its median time beside the plain version's, the library call's and its
-   bound;
-4. main path, fp32: full-width internlm2-1.8b (random weights from a seed)
+   its path's full-width shapes, in fp32 and bf16 -- the attention kernels
+   and rmsnorm at internlm2-1.8b widths (ragged lengths, scratch-block
+   table lanes, length 0, prefill buckets 8 and 256), the SSD kernels at
+   mamba2-780m widths (chunks of 5, 200 and 256, slab ids permuted and
+   repeated) -- then its median time beside the plain version's, the
+   library call's (where one PyTorch call computes the same function) and
+   its bound;
+4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
    servers -- must give the greedy tokens of unbatched ``generate``, use
    both servers and leak no KV block;
-5. main path, bf16 (the config's dtype): the same traffic, timed;
-6. launch counts of every kernel over phases 4-5 (each must be non-zero),
-   then one JSON line describing every kernel;
+5. GQA path, bf16 (the config's dtype): the same traffic, timed, and a
+   profile of one 4-row paged decode step;
+4b. SSM path, fp32: full-width mamba2-780m served the same way through
+   slab-paged decode: greedy tokens equal unbatched ``generate``'s, both
+   servers used, no slab leaked, decode calls recorded as ``decode@ssm``;
+5b. SSM path, bf16: the same traffic, timed, and a profile of one 4-row
+   slab-paged decode step;
+6. launch counts of every kernel over phases 4-5b (each must be
+   non-zero), then one JSON line describing every kernel;
 7. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -46,6 +56,7 @@ MAX_SEQ = 512
 PROMPT_LENS = (5, 40, 100, 200)
 STEPS = 32
 BUCKETS = (8, 64, 128, 256)
+NUM_SLABS = 2 * 4 + 2  # the engine's slab pool at max_batch 4
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 # published H100 SXM peaks (dense): HBM bytes/s and flop/s by input type
 HBM_BYTES_S = 3.35e12
@@ -61,6 +72,10 @@ KERNELS = {
     "paged_decode_attention": (
         "src/repro_torch/csrc/paged_decode_attention.cu",
         "src/repro/kernels/paged_decode_attention.py:62"),
+    "ssd_intra": ("src/repro_torch/csrc/ssd_intra.cu",
+                  "src/repro/kernels/ssd_scan.py:66"),
+    "ssd_slab_decode": ("src/repro_torch/csrc/ssd_slab_decode.cu",
+                        "src/repro/kernels/ssd_scan.py:118"),
 }
 
 
@@ -302,7 +317,142 @@ class KernelChecks:
             print(f"time {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']:.4f} ms, bound {b:.5f} ms ({by})")
-        self.rows = rows
+        self.rows.update(rows)
+
+    # -- the SSD kernels at mamba2-780m widths ------------------------------
+    def ssd_views(self, cfg, rows, s, dtype):
+        """The model's views for one prefill of ``rows`` x ``s`` tokens in
+        chunks of min(256, s): x (M,H,Q,P) and B/C (M,Q,N) cut from an
+        (rows, s, conv_dim) activation, dt/dA (M,H,Q) permuted from
+        (rows, s, H) fp32.  dA lies on a grid of 2**-10 so that cumsum(dA)
+        is exact in any order: the kernel sums it sequentially, the plain
+        version with torch.cumsum, and exp(seg_i - seg_j) would turn their
+        last-bit differences into errors above the fp32 tolerance."""
+        from repro_torch.models.ssm import conv_dim
+
+        h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state_dim
+        q = min(256, s)
+        m = rows * (s // q)
+        xbc = self.randn(rows, s, conv_dim(cfg), dtype=dtype)
+        dt = torch.nn.functional.softplus(self.randn(rows, s, h))
+        a = -torch.linspace(1.0, 16.0, h, device=self.dev)
+        da = torch.round(dt * a * 1024) / 1024
+        d_in = h * p
+        x = xbc[..., :d_in].reshape(m, q, h, p).permute(0, 2, 1, 3)
+        b = xbc[..., d_in:d_in + n].reshape(m, q, n)
+        c = xbc[..., d_in + n:].reshape(m, q, n)
+        return (x, dt.reshape(m, q, h).permute(0, 2, 1),
+                da.reshape(m, q, h).permute(0, 2, 1), b, c)
+
+    def slab_inputs(self, cfg, rows, dtype):
+        """One decode step's views: x (B,H,P) and B/C (B,1,N) cut from a
+        (rows, conv_dim) activation, dt (B,H) fp32, A (H,), and a slab pool
+        of the engine's size."""
+        from repro_torch.models.ssm import conv_dim
+
+        h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state_dim
+        pool = self.randn(NUM_SLABS, h, p, n)
+        xbc = self.randn(rows, conv_dim(cfg), dtype=dtype)
+        dt = torch.nn.functional.softplus(self.randn(rows, 1, h))[:, 0]
+        a = -torch.linspace(1.0, 16.0, h, device=self.dev)
+        d_in = h * p
+        return (pool, xbc[:, :d_in].view(rows, h, p),
+                dt, a, xbc[:, d_in:d_in + n].view(rows, 1, n),
+                xbc[:, d_in + n:].view(rows, 1, n))
+
+    def run_ssm(self, cfg):
+        from repro_torch.kernels.ssd_scan import (
+            ssd_intra, ssd_intra_plain, ssd_slab_decode,
+            ssd_slab_decode_plain)
+
+        for dt in (torch.float32, torch.bfloat16):
+            # prefill chunks: 4 rows of 5, 2 rows of 200, 2 rows of 512
+            # (two chunks of 256 each)
+            for rows, s in ((4, 5), (2, 200), (2, 512)):
+                args = self.ssd_views(cfg, rows, s, dt)
+                y, st = ssd_intra(*args)
+                y_want, st_want = ssd_intra_plain(*args)
+                m, q = args[0].shape[0], args[0].shape[2]
+                e = max(self.check("ssd_intra", f"M={m} Q={q} y", y, y_want,
+                                   dt),
+                        self.check("ssd_intra", f"M={m} Q={q} state", st,
+                                   st_want, dt))
+                self.errors["ssd_intra"] = max(
+                    self.errors.get("ssd_intra", 0), e)
+            # decode: 1, 2, 4 rows; permuted slab ids, one repeated with its
+            # row's inputs (as the engine's padding rows repeat row 0)
+            for slabs in ([6], [7, 2], [9, 3, 5, 3]):
+                pool, x, dtv, a, b, c = self.slab_inputs(cfg, len(slabs), dt)
+                if len(slabs) == 4:
+                    for t in (x, dtv, b, c):
+                        t[3] = t[1]
+                ids = torch.tensor(slabs, dtype=torch.int32, device=self.dev)
+                y, st = ssd_slab_decode(pool, ids, x, dtv, a, b, c)
+                y_want, st_want = ssd_slab_decode_plain(pool, ids, x, dtv, a,
+                                                        b, c)
+                e = max(self.check("ssd_slab_decode", f"slabs {slabs} y", y,
+                                   y_want, dt),
+                        self.check("ssd_slab_decode", f"slabs {slabs} state",
+                                   st, st_want, torch.float32))
+                self.errors["ssd_slab_decode"] = max(
+                    self.errors.get("ssd_slab_decode", 0), e)
+                new = pool.clone()
+                new.index_copy_(0, ids.long(), st)
+                rest = [i for i in range(NUM_SLABS) if i not in slabs]
+                torch.cuda.synchronize()
+                if not torch.equal(new[rest], pool[rest]):
+                    raise SmokeFailure("ssd_slab_decode: the scatter changed "
+                                       "a slab no row addresses")
+                if not torch.equal(new[ids.long()], st):
+                    raise SmokeFailure("ssd_slab_decode: a repeated slab id "
+                                       "did not give identical states")
+                print(f"check ssd_slab_decode [slabs {slabs}] "
+                      f"{str(dt)[6:]}: untouched slabs bit-identical ok")
+        self.time_ssm(cfg)
+
+    def time_ssm(self, cfg):
+        """Times at the SSM path's shapes in bf16 (the config's dtype):
+        one 256-token prefill row, one 4-row decode step."""
+        from repro_torch.kernels.ssd_scan import (
+            ssd_intra, ssd_intra_plain, ssd_slab_decode,
+            ssd_slab_decode_plain)
+
+        dt, el = torch.bfloat16, 2
+        h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state_dim
+        rows = {}
+        args = self.ssd_views(cfg, 1, 256, dt)
+        q = 256
+        pairs = q * (q + 1) // 2
+        # bytes: x, B, C in bf16 and dt, dA fp32 read once; y and the chunk
+        # state written once in fp32.  Operations: C B^T on the causal
+        # half, the decayed scores times x, and the chunk state.
+        nbytes = (q * h * p * el + 2 * q * h * 4 + 2 * q * n * el
+                  + q * h * p * 4 + h * n * p * 4)
+        flops = 2 * pairs * n + 2 * h * pairs * p + 2 * h * q * n * p
+        rows["ssd_intra"] = dict(
+            shape=f"x (1,{h},{q},{p}), B/C (1,{q},{n}), one 256-token row",
+            ms=time_ms(lambda: ssd_intra(*args)),
+            plain_ms=time_ms(lambda: ssd_intra_plain(*args)),
+            library_ms=None, bound=bound_ms(nbytes, flops, dt))
+        pool, x, dtv, a, b, c = self.slab_inputs(cfg, 4, dt)
+        ids = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=self.dev)
+        state = 4 * h * p * n
+        # bytes: 4 rows' fp32 states read once and written once, plus x,
+        # y, B, C, dt; operations ~5 per state element (decay, update,
+        # the product with C and its sum)
+        nbytes = 2 * state * 4 + 2 * 4 * h * p * el + 2 * 4 * n * el + 4 * h * 4
+        rows["ssd_slab_decode"] = dict(
+            shape=f"pool ({NUM_SLABS},{h},{p},{n}) fp32, 4 rows",
+            ms=time_ms(lambda: ssd_slab_decode(pool, ids, x, dtv, a, b, c)),
+            plain_ms=time_ms(lambda: ssd_slab_decode_plain(
+                pool, ids, x, dtv, a, b, c)),
+            library_ms=None, bound=bound_ms(nbytes, 5 * state, torch.float32))
+        for name, r in rows.items():
+            b_ms, by = r["bound"]
+            print(f"time {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, library: no single "
+                  f"PyTorch call, bound {b_ms:.5f} ms ({by})")
+        self.rows.update(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -356,23 +506,26 @@ def serve_batched(cfg, params, prompts, dev):
         for t in threads:
             t.join(timeout=900)
         wall_s = time.monotonic() - t0
+        launches = dict(_build.launches)
         if errors:
             raise errors[0]
         if any(t.is_alive() for t in threads):
             raise SmokeFailure("a stream did not finish")
         usage = eng.kv_usage()
-        calls = [m for s in eng.pool.servers for m in s.stats.batch_meta
-                 if m["kind"] == "decode"]
+        meta = [m for s in eng.pool.servers for m in s.stats.batch_meta]
+        calls = [m for m in meta if m["kind"] == eng._decode_kind]
         return dict(results=results, servers=servers, usage=usage,
                     wall_s=wall_s, warm_s=warm_s, precompile=rep,
-                    launches=dict(_build.launches), decode_calls=calls)
+                    launches=launches, decode_calls=calls,
+                    kinds={m["kind"] for m in meta})
     finally:
         eng.close()
 
 
 def serve_unbatched(cfg, params, prompts, dev):
     """The reference: each stream alone through unbatched ``generate``
-    (dense cache, decode_attention).  Returns (results, launches)."""
+    (dense cache; decode_attention or the SSD step over ids 0..B-1).
+    Returns (results, launches)."""
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import ServeEngine
 
@@ -400,53 +553,131 @@ def check_outputs(run, prompts):
         raise SmokeFailure(f"leaked KV resources: {run['usage']}")
 
 
-def main_path(dev, card):
-    from repro_torch.configs.registry import get_config
+def check_tokens(tag, run, ref, prompts):
+    for name in prompts:
+        got, want = run["results"][name].tokens, ref[name].tokens
+        same = got == want
+        print(f"{tag} {name} prompt {prompts[name].shape[1]}: batched "
+              f"tokens {'==' if same else '!='} unbatched "
+              f"(first {got[:8]})")
+        if not same:
+            raise SmokeFailure(f"{tag} {name}: batched {got} != unbatched "
+                               f"{want}")
+    print(f"{tag}: servers used {sorted(run['servers'])}, kv_usage "
+          f"{run['usage']}, precompiled {run['precompile'].compiled} cells, "
+          f"call kinds {sorted(run['kinds'])}")
+
+
+def init_params(cfg, dev, tag):
     from repro_torch.models import model as M
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.monotonic()
+    params = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"{tag}: init {M.param_count(cfg) / 1e9:.3f} B params "
+          f"({cfg.dtype}) in {time.monotonic() - t0:.1f} s")
+    return params
+
+
+def gqa_path(dev, card):
+    """Phases 4-5: internlm2-1.8b; returns the launch counts."""
+    from repro_torch.configs.registry import get_config
 
     base = get_config("internlm2_1_8b")
     prompts = _prompts(base.vocab_size)
 
     # phase 4: fp32, batched tokens must equal unbatched generate's
     cfg32 = dataclasses.replace(base, dtype="float32")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    t0 = time.monotonic()
-    params = M.init_params(cfg32, generator=gen, device=dev)
-    torch.cuda.synchronize()
-    print(f"main fp32: init {M.param_count(cfg32) / 1e9:.3f} B params in "
-          f"{time.monotonic() - t0:.1f} s")
+    params = init_params(cfg32, dev, "main fp32")
     run = serve_batched(cfg32, params, prompts, dev)
     ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
     counts = Counter(run["launches"]) + Counter(ref_launches)
     check_outputs(run, prompts)
-    for name in prompts:
-        got, want = run["results"][name].tokens, ref[name].tokens
-        same = got == want
-        print(f"main fp32 {name} prompt {prompts[name].shape[1]}: batched "
-              f"tokens {'==' if same else '!='} unbatched "
-              f"(first {got[:8]})")
-        if not same:
-            raise SmokeFailure(f"{name}: batched {got} != unbatched {want}")
-    print(f"main fp32: servers used {sorted(run['servers'])}, kv_usage "
-          f"{run['usage']}, precompiled {run['precompile'].compiled} cells")
-    report_latency("fp32", run, card)
+    check_tokens("main fp32", run, ref, prompts)
+    report_latency("main fp32", run, card)
     del params, run, ref
     torch.cuda.empty_cache()
 
     # phase 5: bf16, timed
-    cfg16 = base
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = M.init_params(cfg16, generator=gen, device=dev)
-    torch.cuda.synchronize()
-    run = serve_batched(cfg16, params, prompts, dev)
+    params = init_params(base, dev, "main bf16")
+    run = serve_batched(base, params, prompts, dev)
     counts += Counter(run["launches"])
     check_outputs(run, prompts)
-    report_latency("bf16", run, card)
+    report_latency("main bf16", run, card)
     for name, res in run["results"].items():
         print(f"main bf16 {name} tokens (information only): {res.tokens}")
     del run
-    step_profile(cfg16, params, dev, card)
-    return dict(counts)
+    step_profile(base, params, dev, card, "step profile",
+                 "decode_step_profile.txt")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def first_logits_gap(cfg, params, prompts, dev):
+    """Largest |batched - unbatched| first-step logit: each prompt prefilled
+    as the batched path does (padded to its bucket, with its length) and
+    alone at its exact length."""
+    from repro_torch.models import model as M
+
+    gap = 0.0
+    with torch.inference_mode():
+        for prompt in prompts.values():
+            n = prompt.shape[1]
+            bucket = min(b for b in BUCKETS if b >= n)
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :n] = prompt[0]
+            lb, _, _ = M.apply(cfg, params, {
+                "tokens": torch.as_tensor(padded, device=dev),
+                "lengths": torch.tensor([n], dtype=torch.int32, device=dev)},
+                mode="prefill")
+            lu, _, _ = M.apply(cfg, params, {
+                "tokens": torch.as_tensor(prompt, device=dev)}, mode="prefill")
+            gap = max(gap, (lb[0, n - 1] - lu[0, -1]).abs().max().item())
+    return gap
+
+
+def ssm_path(dev, card):
+    """Phases 4b-5b: mamba2-780m through slab-paged decode; returns the
+    launch counts."""
+    from repro_torch.configs.registry import get_config
+
+    base = get_config("mamba2_780m")
+    prompts = _prompts(base.vocab_size)
+
+    # phase 4b: fp32, batched tokens must equal unbatched generate's
+    cfg32 = dataclasses.replace(base, dtype="float32")
+    params = init_params(cfg32, dev, "ssm fp32")
+    run = serve_batched(cfg32, params, prompts, dev)
+    ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
+    counts = Counter(run["launches"]) + Counter(ref_launches)
+    check_outputs(run, prompts)
+    if {c["kind"] for c in run["decode_calls"]} != {"decode@ssm"} or not (
+            run["decode_calls"]):
+        raise SmokeFailure(f"SSM decode calls recorded as {run['kinds']}")
+    check_tokens("ssm fp32", run, ref, prompts)
+    print(f"ssm fp32: max |batched - unbatched| first-step logit "
+          f"{first_logits_gap(cfg32, params, prompts, dev):.3e} "
+          f"(information only)")
+    report_latency("ssm fp32", run, card)
+    del params, run, ref
+    torch.cuda.empty_cache()
+
+    # phase 5b: bf16, timed
+    params = init_params(base, dev, "ssm bf16")
+    run = serve_batched(base, params, prompts, dev)
+    counts += Counter(run["launches"])
+    check_outputs(run, prompts)
+    report_latency("ssm bf16", run, card)
+    for name, res in run["results"].items():
+        print(f"ssm bf16 {name} tokens (information only): {res.tokens}")
+    del run
+    step_profile(base, params, dev, card, "ssm step profile",
+                 "ssm_decode_step_profile.txt")
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def report_latency(tag, run, card):
@@ -456,46 +687,58 @@ def report_latency(tag, run, card):
     p50 = steps[len(steps) // 2]
     p99 = steps[min(len(steps) - 1, int(round(0.99 * (len(steps) - 1))))]
     tokens = sum(len(r.tokens) for r in run["results"].values())
-    print(f"main {tag} [{card}]: prefill latency ms per stream "
+    print(f"{tag} [{card}]: prefill latency ms per stream "
           f"{[round(x, 3) for x in prefill]}")
-    print(f"main {tag} [{card}]: decode step latency p50 {p50:.3f} ms, "
+    print(f"{tag} [{card}]: decode step latency p50 {p50:.3f} ms, "
           f"p99 {p99:.3f} ms over {len(steps)} steps")
-    print(f"main {tag} [{card}]: {tokens} tokens in {run['wall_s']:.3f} s = "
+    print(f"{tag} [{card}]: {tokens} tokens in {run['wall_s']:.3f} s = "
           f"{tokens / run['wall_s']:.1f} tokens/s (4 streams, 2 servers, "
           f"precompile {run['warm_s']:.1f} s not counted)")
     calls = run["decode_calls"]
     dev_ms = sorted(m["seconds"] * 1e3 for m in calls)
-    print(f"main {tag} [{card}]: {len(calls)} decode device calls, "
+    print(f"{tag} [{card}]: {len(calls)} decode device calls, "
           f"{sum(m['rows'] for m in calls) / len(calls):.2f} rows per call, "
           f"device call p50 {dev_ms[len(dev_ms) // 2]:.3f} ms (server thread, "
           f"launch to stream sync)")
 
 
-def step_profile(cfg, params, dev, card):
+def decode_step_cache(cfg, dev):
+    """The pools and per-call cache entries of one 4-row paged decode step
+    at phase 5's final lengths: block tables over the block pools (GQA) or
+    slab ids 1-4 over the slab pools (SSM).  Returns (step cache, width)."""
+    from repro_torch.models import model as M
+
+    lengths = torch.tensor([p + STEPS for p in PROMPT_LENS],
+                           dtype=torch.int32, device=dev)
+    if M.paged_pool_kinds(cfg)["layers"] == "slab":
+        pools = M.init_paged_cache(cfg, 0, BLOCK, num_slabs=NUM_SLABS,
+                                   device=dev)
+        ids = torch.arange(1, 5, dtype=torch.int32, device=dev)
+        return dict(pools, pos=lengths, slab_ids=ids), 0
+    nb_row = MAX_SEQ // BLOCK
+    pools = M.init_paged_cache(cfg, 4 * nb_row + 1, BLOCK, device=dev)
+    need = -(-(int(lengths.max()) + 1) // BLOCK)
+    w = 1 << (need - 1).bit_length()
+    tables = (1 + torch.arange(4, device=dev)[:, None] * nb_row
+              + torch.arange(w, device=dev)[None, :]).to(torch.int32)
+    return dict(pools, pos=lengths, block_tables=tables), w
+
+
+def step_profile(cfg, params, dev, card, tag, outfile):
     """Where one decode step's time goes: the model's paged decode step
     alone (no engine, no threads) on 4 rows at phase 5's final lengths --
     CUDA-event time per step, host time to enqueue it, and the device time
     of each kernel from one torch.profiler window of 5 steps (the full
-    table goes to chiprun_out/decode_step_profile.txt)."""
+    table goes to chiprun_out/<outfile>)."""
     from repro_torch.models import model as M
 
-    nb_row = MAX_SEQ // BLOCK
-    pools = M.init_paged_cache(cfg, 4 * nb_row + 1, BLOCK, device=dev)
-    lengths = [p + STEPS for p in PROMPT_LENS]
-    need = -(-(max(lengths) + 1) // BLOCK)
-    w = 1 << (need - 1).bit_length()
-    pack = np.zeros((4, 4 + w), np.int32)
-    pack[:, 0] = 1
-    pack[:, 1] = lengths
-    pack[:, 4:] = 1 + np.arange(4)[:, None] * nb_row + np.arange(w)[None, :]
-    packed = torch.as_tensor(pack, device=dev)
+    cache, w = decode_step_cache(cfg, dev)
+    tokens = torch.ones((4, 1), dtype=torch.int32, device=dev)
 
     def step():
         with torch.inference_mode():
-            cache = dict(pools, pos=packed[:, 1],
-                         block_tables=packed[:, 4:].contiguous())
-            M.apply(cfg, params, {"tokens": packed[:, :1]}, mode="decode",
-                    cache=cache)
+            M.apply(cfg, params, {"tokens": tokens}, mode="decode",
+                    cache=dict(cache))
 
     step_ms = time_ms(step, iters=10, reps=3)
     torch.cuda.synchronize()
@@ -520,17 +763,17 @@ def step_profile(cfg, params, dev, card):
                       if dev_us(e) > 0 and e.self_cpu_time_total == 0),
                      key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / 5
-    print(f"step profile [{card}] bf16, 4 rows, W={w}, lengths {lengths}: "
-          f"{step_ms:.3f} ms per step (CUDA events), host enqueue "
-          f"{host_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
-          f"{max(0.0, 1 - busy_ms / step_ms):.3f}")
+    lengths = [p + STEPS for p in PROMPT_LENS]
+    print(f"{tag} [{card}] {cfg.name} {cfg.dtype}, 4 rows, W={w}, lengths "
+          f"{lengths}: {step_ms:.3f} ms per step (CUDA events), host "
+          f"enqueue {host_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle "
+          f"share {max(0.0, 1 - busy_ms / step_ms):.3f}")
     for e in kernels[:8]:
-        print(f"step profile: {dev_us(e) / 1e3 / 5:8.4f} ms/step "
+        print(f"{tag}: {dev_us(e) / 1e3 / 5:8.4f} ms/step "
               f"{e.count // 5:5d} calls/step  {e.key[:90]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "decode_step_profile.txt").write_text(
-        events.table(sort_by=key, row_limit=60))
+    (out / outfile).write_text(events.table(sort_by=key, row_limit=60))
 
 
 def main() -> int:
@@ -549,16 +792,17 @@ def main() -> int:
     print(card)
     build_s = _build.build()                                    # phase 2
     _build.library()
-    print(f"build: {build_s:.1f} s (one nvcc call, "
-          f"{len(list(_build.CSRC.glob('*.cu')))} sources)")
+    print(f"build: {build_s:.1f} s (one nvcc per source, in parallel, "
+          f"{len(list(_build.CSRC.glob('*.cu')))} sources, then one link)")
 
-    cfg = get_config("internlm2_1_8b")
     checks = KernelChecks(dev)                                  # phase 3
-    checks.run(cfg)
+    checks.run(get_config("internlm2_1_8b"))
+    checks.run_ssm(get_config("mamba2_780m"))
 
-    counts = main_path(dev, card)                               # phases 4-5
+    counts = gqa_path(dev, card)                                # phases 4-5
+    counts += ssm_path(dev, card)                               # phases 4b-5b
 
-    print(f"launches over phases 4-5: {counts}")                # phase 6
+    print(f"launches over phases 4-5b: {dict(counts)}")         # phase 6
     missing = [k for k in KERNELS if not counts.get(k)]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")

@@ -1,8 +1,9 @@
 """Build, load and launch the port's CUDA kernels.
 
-Every ``repro_torch/csrc/*.cu`` is compiled by ONE ``nvcc`` call into a
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so the build takes seconds, not minutes).  The build runs at first
+Every ``repro_torch/csrc/*.cu`` is compiled by its own ``nvcc`` process,
+all started together, and the objects are linked into ONE shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
+the build takes seconds, not minutes).  The build runs at first
 use -- never at import, so every module imports on a machine without
 ``nvcc`` or a card -- and lands in ``kernels/_build/`` (git-ignored) under a
 name that hashes the sources, so a stale library is never loaded.
@@ -28,7 +29,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 # storage dtypes the kernels take (dtype codes of csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,6 +44,11 @@ SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                _I, _F, _I, _P],
+    "ssd_intra_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         ctypes.POINTER(_L), _I, _P],
+    "ssd_slab_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],
 }
 
 # kernel name -> launches since the last reset (a launch counts only once
@@ -84,14 +90,32 @@ def _build_locked() -> float:
     out = _library_path()
     if out.exists():
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    objs = BUILD_DIR / f"objects-{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    procs = []
+    for src in _sources():
+        obj = objs / f"{src.stem}.o"
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, _, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in procs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr}")
     os.replace(tmp, out)
+    shutil.rmtree(objs)
     return time.monotonic() - t0
 
 

@@ -2,14 +2,14 @@
 
     init_params(cfg, generator=, device=)     -> params tree
     init_cache(cfg, batch, max_seq)           -> dense decode cache
-    init_paged_cache(cfg, blocks, block_size) -> block-pool decode cache
+    init_paged_cache(cfg, blocks, block_size) -> block- or slab-pool cache
     supports_paged(cfg)                       -> paged decode available?
     apply(cfg, params, batch, mode=...)       -> (logits, cache, aux)
     param_count(cfg)                          -> analytical N (for rooflines)
 
-Counterpart of ``repro/models/model.py``.  This slice ports the dense GQA
-decoder; the other families raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Counterpart of ``repro/models/model.py``.  The port has the dense GQA
+decoder and the pure-SSM (Mamba-2) stack; the other families raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -26,8 +26,6 @@ def _family_mod(cfg):
         raise NotImplementedError("hybrid stacks are ported in ROADMAP A8")
     if cfg.family == "encdec":
         raise NotImplementedError("enc-dec stacks are ported in ROADMAP A9")
-    if cfg.family == "ssm":
-        raise NotImplementedError("SSM stacks are ported in ROADMAP A7")
     if cfg.is_moe or cfg.attn_type == "mla":
         raise NotImplementedError("MLA and MoE stacks are ported in ROADMAP A6")
     if cfg.mrope or cfg.embed_inputs:

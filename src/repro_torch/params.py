@@ -25,17 +25,25 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+# leaves the reference keeps fp32 whatever the config's dtype
+# (repro/models/ssm.py, init_mamba2)
+FP32_LEAVES = frozenset({"A_log", "dt_bias", "ssm_D"})
+
+
 def params_from_numpy(tree, *, device=None, dtype: torch.dtype | None = None):
     """Same tree (dicts, lists, tuples) with every numpy leaf a tensor on
-    ``device``, cast to ``dtype`` when given."""
+    ``device``, cast to ``dtype`` when given -- except the leaves named in
+    ``FP32_LEAVES``, which stay fp32."""
     device = resolve_device(device)
 
-    def conv(node):
+    def conv(node, key=None):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return type(node)(conv(v) for v in node)
+            return type(node)(conv(v, key) for v in node)
         t = _tensor(np.asarray(node)).to(device)
-        return t.to(dtype) if dtype is not None else t
+        if dtype is None:
+            return t
+        return t.to(torch.float32 if key in FP32_LEAVES else dtype)
 
     return conv(tree)

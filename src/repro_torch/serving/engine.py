@@ -3,9 +3,9 @@ of a PyTorch inference runtime -- a multi-server pool with continuous,
 paged, length-aware decode batching.
 
 Counterpart of ``repro/serving/engine.py`` (see its docstring for the
-architecture).  This slice ports the main path, ``batching=True,
-paged=True`` on the GQA cache family, and the unbatched ``generate`` path
-that serves as its reference:
+architecture).  The port has the main path, ``batching=True,
+paged=True`` -- family-generic: GQA KV block pools and SSM state-slab
+pools -- and the unbatched ``generate`` path that serves as its reference:
 
   client streams --admit--> PoolAdmissionController (Eqs (1)-(6) per
         |                   device partition)
@@ -21,14 +21,16 @@ How the reference's device mechanisms map onto PyTorch:
     thread-local, so they are entered in the callable, never around the
     client), and the stream is synchronized before the call is timed --
     the counterpart of ``jax.block_until_ready``;
-  * buffer donation becomes in-place updates: a server's block pools are
-    allocated once and every insert and decode step writes into them;
+  * buffer donation becomes in-place updates: a server's block or slab
+    pools are allocated once and every insert and decode step writes into
+    them;
   * there is no tracing, but the warm-cell discipline stays: ``precompile``
     runs every (rows, width) decode cell and (rows, bucket) prefill cell
     once per server, and a cell first hit mid-traffic is bumped up to the
     cheapest warm cell that covers it (widening is sound: extra width lanes
     read the scratch block past each row's length, extra rows duplicate
-    row 0 and write identical values).
+    row 0 and write identical values).  Slab-only families have no gather
+    width: their one width bucket is 0.
 
 Out of this slice, each raising ``NotImplementedError``: the masked-dense
 batched layout and fault tolerance, migration, work stealing and elastic
@@ -52,7 +54,7 @@ from repro_torch.core.dispatch.pool import ServerPool
 from repro_torch.core.task_model import GpuSegment, Task
 from repro_torch.models import model as M
 from repro_torch.runtime.straggler import DeadlineAwarePolicy
-from repro_torch.serving.kvcache import PagedKVCacheManager
+from repro_torch.serving.kvcache import FAMILIES, PagedKVCacheManager
 
 
 def _pow2_ladder(cap: int) -> tuple[int, ...]:
@@ -113,25 +115,33 @@ class _SlotState:
 
 
 class _PagedState:
-    """Per-server paged-cache state: the host-side block allocator plus the
-    device pools.  ``mgr``/``lock`` are touched from client threads at job
-    start/end; ``pools`` and the staging buffer only from the server's own
-    thread (serialized with its batches)."""
+    """Per-server paged-cache state: the host-side allocator (blocks, state
+    slabs, shared segments -- whichever kinds the cache family uses) plus
+    the device pools.  ``mgr``/``lock`` are touched from client threads at
+    job start/end; ``pools`` and the staging buffer only from the server's
+    own thread (serialized with its batches)."""
 
     def __init__(self, num_blocks: int, block_size: int, max_batch: int,
-                 max_seq: int, *, family: str = "gqa"):
+                 max_seq: int, *, family: str = "gqa", num_slabs: int = 0,
+                 num_segments: int = 0):
         self.mgr = PagedKVCacheManager(num_blocks=num_blocks,
-                                       block_size=block_size, family=family)
+                                       block_size=block_size,
+                                       num_slabs=num_slabs,
+                                       num_segments=num_segments,
+                                       family=family)
         self.lock = threading.Lock()
-        self.nb_max = max_seq // block_size  # table width covering max_seq
-        # one block is held back as the scratch target of padded table
-        # lanes; nothing ever reads its content
+        # table width covering max_seq (0 for slab-only families)
+        self.nb_max = (max_seq // block_size
+                       if FAMILIES[family].uses_blocks else 0)
+        # one resource of each kind the family uses is held back as the
+        # scratch target of padded lanes and unused staging columns;
+        # nothing ever reads its content
         self.mgr.allocate("__scratch__", 1)
-        self.scratch_block = self.mgr.seqs["__scratch__"].blocks[0]
-        # slab and segment columns of the staging row carry scratch ids
-        # (GQA has neither)
-        self.scratch_slab = 0
-        self.scratch_seg = 0
+        scratch = self.mgr.seqs["__scratch__"]
+        self.scratch_block = scratch.blocks[0] if scratch.blocks else 0
+        self.scratch_slab = scratch.slab if scratch.slab is not None else 0
+        self.scratch_seg = (scratch.segment if scratch.segment is not None
+                            else 0)
         self.pools = None  # allocated once, on the server's thread
         # preallocated staging for the compacted decode batch, packed into
         # ONE int32 array so each step pays a single host->device copy:
@@ -156,10 +166,20 @@ class ServeEngine:
         if paged and not M.supports_paged(cfg):
             raise ValueError(f"paged decode unsupported for {cfg.family}/"
                              f"{cfg.attn_type}")
-        if paged and max_seq % kv_block_size:
+        # pool kinds of the model's cache family ({} when not paged):
+        # "block" -> KV block pool, "slab" -> fixed-size state slab
+        self._pool_kinds = M.paged_pool_kinds(cfg) if paged else {}
+        self._cache_kinds = set(self._pool_kinds.values())
+        if "block" in self._cache_kinds and max_seq % kv_block_size:
             raise ValueError(f"max_seq={max_seq} must be a multiple of "
                              f"kv_block_size={kv_block_size} for the paged "
                              "layout")
+        # family-tagged cost-model phases: GQA keeps the untagged names,
+        # other families get their own fit groups
+        self._family = (M.cache_family(cfg) or "gqa") if paged else "gqa"
+        tag = "" if self._family == "gqa" else "@" + self._family
+        self._decode_kind = "decode" + tag
+        self._prefill_kind = "prefill" + tag
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -168,7 +188,6 @@ class ServeEngine:
         self.max_batch = max_batch
         self.cost_model = cost_model
         self.kv_block_size = kv_block_size
-        self._pool_kinds = M.paged_pool_kinds(cfg) if paged else {}
         self.pool = ServerPool(num_servers, ordering=ordering,
                                batching=batching, max_batch=max_batch,
                                name="serve-engine")
@@ -204,14 +223,22 @@ class ServeEngine:
         self._paged: list[_PagedState] = []
         if batching:
             self._slots = [_SlotState(max_batch) for _ in range(num_servers)]
+            uses_blocks = "block" in self._cache_kinds
             # default block pool: every slot can hold a max_seq sequence,
-            # plus the scratch block
-            num_blocks = kv_blocks or (max_batch * (max_seq // kv_block_size)
-                                       + 1)
+            # plus the scratch block (slab-only families carry no blocks)
+            num_blocks = ((kv_blocks or max_batch * (max_seq // kv_block_size)
+                           + 1) if uses_blocks else 0)
+            # slabs: one per slot, doubled as in the reference (room for a
+            # migration's source and destination), plus scratch
+            num_slabs = 2 * max_batch + 2 if "slab" in self._cache_kinds else 0
             self._paged = [_PagedState(num_blocks, kv_block_size, max_batch,
-                                       max_seq, family=M.cache_family(cfg))
+                                       max_seq, family=self._family,
+                                       num_slabs=num_slabs)
                            for _ in range(num_servers)]
-            self.width_buckets = _pow2_ladder(self._paged[0].nb_max)
+            # slab-only families have no gather width: the single 0 bucket
+            # keeps every bucket_up() call well-defined
+            self.width_buckets = (_pow2_ladder(self._paged[0].nb_max)
+                                  if uses_blocks else (0,))
 
     # -- device calls --------------------------------------------------------
     def _on_device(self, si: int, fn):
@@ -302,8 +329,8 @@ class ServeEngine:
 
         self.prefill_buckets = autotune_buckets(
             lengths or [1], _pow2_ladder(self.max_seq),
-            max_buckets=max_buckets, cost_of=priced("prefill", 1))
-        if self.paged:
+            max_buckets=max_buckets, cost_of=priced(self._prefill_kind, 1))
+        if self.paged and self._paged[0].nb_max:
             bs = self.kv_block_size
             nb_max = self._paged[0].nb_max
             # widths are driven by each stream's FINAL length (the widest
@@ -312,10 +339,10 @@ class ServeEngine:
                      for l in lengths] or [1]
             wmodel = None
             if model is not None:
-                probe = model.predict("decode", 1, nb_max)
+                probe = model.predict(self._decode_kind, 1, nb_max)
                 if math.isfinite(probe):
                     wmodel = lambda bucket, value: model.predict(
-                        "decode", 1, bucket)
+                        self._decode_kind, 1, bucket)
             self.width_buckets = autotune_buckets(
                 needs, _pow2_ladder(nb_max), max_buckets=max_buckets,
                 cost_of=wmodel)
@@ -323,50 +350,65 @@ class ServeEngine:
         self._warm_prefill.clear()
         return self.prefill_buckets, self.width_buckets
 
-    # -- batched decode internals (paged pools) -----------------------------
+    # -- batched decode internals (paged pools, family-generic) -------------
     def _make_pools(self, state):
         return M.init_paged_cache(self.cfg, state.mgr.num_blocks,
-                                  state.mgr.block_size, device=self.device)
+                                  state.mgr.block_size,
+                                  num_slabs=state.mgr.num_slabs,
+                                  num_segments=state.mgr.num_segments,
+                                  device=self.device)
 
     def _insert_paged_impl(self, pools, cache, src_row: int,
-                           table: np.ndarray) -> None:
-        """Scatter row ``src_row`` of a prefill cache into the pools at
-        ``table`` (nb_max entries; lanes past the sequence's reserved blocks
-        point at the scratch block and carry all-zero rows, so duplicate
-        scatter lanes stay deterministic)."""
+                           table: np.ndarray, slab: int, seg: int) -> None:
+        """Copy row ``src_row`` of a prefill cache into the pools, per pool
+        kind: "block" leaves scatter at ``table`` (nb_max entries; lanes
+        past the sequence's reserved blocks point at the scratch block and
+        carry all-zero rows, so duplicate scatter lanes stay
+        deterministic); "slab" leaves land in row ``slab`` (the SSM cache
+        has no sequence axis: one row, one slab)."""
         bs = self.kv_block_size
         views = M.paged_insert_views(self.cfg, cache)
-        idx = self._tensor(table).long()
-        for key in self._pool_kinds:
+        idx = self._tensor(table).long() if "block" in self._cache_kinds \
+            else None
+        for key, kind in self._pool_kinds.items():
             for pool, leaf in zip(pools[key], views[key]):
-                # leaf (L, B, max_seq, ...) -> rows (L, nb_max, bs, ...)
-                rows = leaf[:, src_row].reshape(leaf.shape[0], -1, bs,
-                                                *leaf.shape[3:])
-                pool[:, idx] = rows.to(pool.dtype)
+                if kind == "block":
+                    # leaf (L, B, max_seq, ...) -> rows (L, nb_max, bs, ...)
+                    rows = leaf[:, src_row].reshape(leaf.shape[0], -1, bs,
+                                                    *leaf.shape[3:])
+                    pool[:, idx] = rows.to(pool.dtype)
+                else:  # "slab"
+                    pool[:, slab] = leaf[:, src_row].to(pool.dtype)
 
     def _decode_paged_impl(self, packed: torch.Tensor, pools):
         """One compacted paged decode step.  ``packed`` (n, 4+W) int32 rows
-        are [token, length, slab, segment, block_table...]; the table width
-        W addresses only the blocks the live rows need.  Rows write their
-        new KV into their own blocks in place (disjoint by construction).
-        Returns the (n, 1, V) fp32 logits."""
+        are [token, length, slab, segment, block_table...] -- one header
+        for every family; the columns a family does not use carry scratch
+        ids and are never read.  The table width W addresses only the
+        blocks the live rows need.  Rows write their new KV or state into
+        their own blocks or slabs in place.  Returns the (n, 1, V) fp32
+        logits."""
         cache = dict(pools)
         cache["pos"] = packed[:, 1]
-        cache["block_tables"] = packed[:, 4:].contiguous()
+        if "block" in self._cache_kinds:
+            cache["block_tables"] = packed[:, 4:].contiguous()
+        if "slab" in self._cache_kinds:
+            cache["slab_ids"] = packed[:, 2].contiguous()
         logits, _, _ = M.apply(self.cfg, self.params,
                                {"tokens": packed[:, :1]}, mode="decode",
                                cache=cache)
         return logits
 
     def _insert_slot_paged(self, si: int, cache, src_row: int,
-                           table: np.ndarray) -> None:
+                           table: np.ndarray, slab: int, seg: int) -> None:
         """Runs on server ``si``'s thread (serialized with its batches)."""
         state = self._paged[si]
 
         def insert():
             if state.pools is None:
                 state.pools = self._make_pools(state)
-            self._insert_paged_impl(state.pools, cache, src_row, table)
+            self._insert_paged_impl(state.pools, cache, src_row, table, slab,
+                                    seg)
 
         self._on_device(si, insert)
 
@@ -376,14 +418,17 @@ class ServeEngine:
         length bucketing happen here: only the live rows enter the device
         call (padded to a row bucket by duplicating row 0 -- duplicate
         scatter lanes write identical values), and the block-table gather
-        is truncated to the width bucket that covers the longest live row."""
+        is truncated to the width bucket that covers the longest live row
+        (0 for slab-only families: no gather axis at all)."""
 
         def run(payloads):
             state = self._paged[si]
             bs = state.mgr.block_size
             n = len(payloads)
             n_pad = bucket_up(n, self._row_buckets)
-            need = max(-(-(length + 1) // bs) for _, _, length, _, _ in payloads)
+            need = (max(-(-(length + 1) // bs)
+                        for _, _, length, _, _ in payloads)
+                    if state.nb_max else 0)
             w = bucket_up(need, self.width_buckets)
             # a cold cell mid-traffic bumps up to the cheapest warm cell
             # that covers it; with no warm cover it runs cold
@@ -417,18 +462,20 @@ class ServeEngine:
             if cold:  # now run: later hits on this cell are warm
                 self._warm_decode.add((n_pad, w))
             self.pool.servers[si].record_meta(
-                kind="decode", rows=n, padded=n_pad, width=w,
+                kind=self._decode_kind, rows=n, padded=n_pad, width=w,
                 compacted=n_pad < self.max_batch, seconds=dt, cold=cold)
             return [rows[i] for i in range(n)]
 
         return run
 
     def _paged_reserve(self, si: int, name: str, prompt_len: int,
-                       steps: int, bucket: int) -> tuple[str, np.ndarray]:
-        """Reserve every block the job will touch up front (reject early
+                       steps: int, bucket: int
+                       ) -> tuple[str, np.ndarray, int, int]:
+        """Reserve every resource the job will touch up front (reject early
         rather than stall mid-generation), including the bucketed-prefill
         pad region, whose padding-token KV must land in owned blocks.
-        Returns (seq_id, full-width block table)."""
+        Returns (seq_id, full-width block table, slab id, segment id); the
+        kinds the family does not use come back as the scratch ids."""
         state = self._paged[si]
         with self._kv_lock:
             self._seq_counter += 1
@@ -441,12 +488,16 @@ class ServeEngine:
             except Exception:
                 state.mgr.free_seq(seq_id)
                 raise
-            blocks = state.mgr.seqs[seq_id].blocks
+            alloc = state.mgr.seqs[seq_id]
             table = np.full((state.nb_max,), state.scratch_block, np.int32)
-            table[: len(blocks)] = blocks
+            table[: len(alloc.blocks)] = alloc.blocks
+            slab = (alloc.slab if alloc.slab is not None
+                    else state.scratch_slab)
+            seg = (alloc.segment if alloc.segment is not None
+                   else state.scratch_seg)
         with self._kv_lock:
             self._held.setdefault(name, set()).add((si, seq_id))
-        return seq_id, table
+        return seq_id, table, slab, seg
 
     def _paged_release(self, si, seq_id) -> None:
         """Free ``seq_id``'s blocks on server ``si`` (``si`` None: the
@@ -501,7 +552,7 @@ class ServeEngine:
             if cold:
                 self._warm_prefill.add((n_pad, bucket))
             self.pool.servers[si].record_meta(
-                kind="prefill", rows=n, padded=n_pad, bucket=bucket,
+                kind=self._prefill_kind, rows=n, padded=n_pad, bucket=bucket,
                 seconds=dt, cold=cold)
             return [(rows[i], cache, i) for i in range(n)]
 
@@ -531,14 +582,16 @@ class ServeEngine:
         reachable_d = [(r, w) for r in rows_ladder for w in self.width_buckets]
         fb_d = (rows_ladder[-1], self.width_buckets[-1])
         plan_d = [c for c in reachable_d
-                  if hot is None or c == fb_d or ("decode", *c) in hot]
+                  if hot is None or c == fb_d
+                  or (self._decode_kind, *c) in hot]
         todo_d = [c for c in plan_d if c not in self._warm_decode]
         buckets = sorted({bucket_up(b, self.prefill_buckets)
                           for b in prompt_buckets})
         reachable_p = [(r, b) for b in buckets for r in rows_ladder]
         fb_p = (rows_ladder[-1], buckets[-1]) if buckets else None
         plan_p = [c for c in reachable_p
-                  if hot is None or c == fb_p or ("prefill", *c) in hot]
+                  if hot is None or c == fb_p
+                  or (self._prefill_kind, *c) in hot]
         todo_p = [c for c in plan_p if c not in self._warm_prefill]
         for si, server in enumerate(self.pool.servers):
             server.submit(lambda si=si: self._precompile_server(
@@ -559,7 +612,8 @@ class ServeEngine:
                 state.pools = self._make_pools(state)
             for rows, w in decode_cells:
                 # dummy batch: every row writes token 0 at offset 0 of the
-                # scratch block (identical duplicates)
+                # scratch block or into the scratch slab (identical
+                # duplicates)
                 pack = np.zeros((rows, 4 + w), np.int32)
                 pack[:, 2] = state.scratch_slab
                 pack[:, 3] = state.scratch_seg
@@ -569,7 +623,8 @@ class ServeEngine:
             for rows, bucket in prefill_cells:
                 _, cache, _ = self._prefill(np.zeros((rows, bucket), np.int32),
                                             np.ones((rows,), np.int32))
-                self._insert_paged_impl(state.pools, cache, 0, table)
+                self._insert_paged_impl(state.pools, cache, 0, table,
+                                        state.scratch_slab, state.scratch_seg)
 
         self._on_device(si, warm)
 
@@ -656,8 +711,8 @@ class ServeEngine:
             if warm:
                 bucket = warm[0]
         server = self.pool.servers[si]
-        slab, seg = self._paged[si].scratch_slab, self._paged[si].scratch_seg
-        seq_id, table = self._paged_reserve(si, name, true_len, steps, bucket)
+        seq_id, table, slab, seg = self._paged_reserve(si, name, true_len,
+                                                       steps, bucket)
         try:
             slot = self._acquire_slot(si)
             try:
@@ -668,7 +723,8 @@ class ServeEngine:
                     batch_key=("prefill", si, bucket), priority=prio,
                     name=f"{name}/prefill").wait()
                 server.submit(
-                    lambda: self._insert_slot_paged(si, cache, src_row, table),
+                    lambda: self._insert_slot_paged(si, cache, src_row, table,
+                                                    slab, seg),
                     priority=prio, name=f"{name}/insert").wait()
                 res.prefill_latency_s = time.monotonic() - t0
                 self.straggler.observe(name, res.prefill_latency_s * 1e3)
@@ -726,14 +782,16 @@ class ServeEngine:
     # -- occupancy and teardown ---------------------------------------------
     def kv_usage(self) -> dict:
         """Per-kind pooled-cache occupancy across every manager -- {"blocks",
-        "slabs", "segments"} -- excluding each server's scratch block.
+        "slabs", "segments"} -- excluding each server's scratch resources.
         Every count must return to zero once all streams drain."""
         usage = {"blocks": self.kv.blocks_in_use if self.kv is not None
                  else 0, "slabs": 0, "segments": 0}
         for st in self._paged:
-            usage["blocks"] += st.mgr.blocks_in_use - 1
-            usage["slabs"] += st.mgr.slabs_in_use
-            usage["segments"] += st.mgr.segments_in_use
+            scratch = st.mgr.seqs["__scratch__"]
+            usage["blocks"] += st.mgr.blocks_in_use - len(scratch.blocks)
+            usage["slabs"] += st.mgr.slabs_in_use - (scratch.slab is not None)
+            usage["segments"] += (st.mgr.segments_in_use
+                                  - (scratch.segment is not None))
         return usage
 
     def kv_blocks_in_use(self) -> int:

@@ -7,8 +7,9 @@ with the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Shapes are the main path's widths (Nq=16, Nkv=8, H=128, D=2048, block
-16); tolerances those of test_kernels.py (fp32 1e-5, bf16 2e-2, atol and
+Shapes are the main paths' widths (internlm2-1.8b: Nq=16, Nkv=8, H=128,
+D=2048, block 16; mamba2-780m: 48 SSM heads of P=64, N=128, conv_dim
+3328); tolerances those of test_kernels.py (fp32 1e-5, bf16 2e-2, atol and
 rtol).
 """
 
@@ -23,6 +24,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.ssd_scan import (ssd_intra, ssd_intra_plain,
+                                          ssd_slab_decode,
+                                          ssd_slab_decode_plain)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -152,6 +156,157 @@ def test_engine_on_the_card(cuda):
         assert eng.kv_blocks_in_use() == 0
         for name in ("rmsnorm", "flash_attention", "decode_attention",
                      "paged_decode_attention"):
+            assert _build.launches[name] > 0, name
+    finally:
+        eng.close()
+
+
+# mamba2-780m widths
+SSM_H, SSM_P, SSM_N, SSM_CDIM = 48, 64, 128, 3328
+
+
+def _ssd_inputs(seed, dtype, rows, s, device):
+    """The model's strided views for ssd_intra at chunk = s: x (M,H,Q,P)
+    and B/C (M,Q,N) cut from an (rows, s, conv_dim) activation, dt/dA
+    (M,H,Q) permuted from (rows, s, H) fp32.  dA lies on a grid of 2**-10,
+    so cumsum(dA) is exact in any order: the kernel sums it sequentially,
+    torch.cumsum on the card in parallel, and exp(seg_i - seg_j) would
+    amplify their last-bit differences past the fp32 tolerance."""
+    gen = torch.Generator().manual_seed(seed)
+    xbc = torch.randn((rows, s, SSM_CDIM), generator=gen).to(
+        getattr(torch, dtype)).to(device)
+    dt = torch.nn.functional.softplus(torch.randn((rows, s, SSM_H),
+                                                  generator=gen)).to(device)
+    a = -torch.linspace(1.0, 16.0, SSM_H, device=device) * 0.01
+    d_in = SSM_H * SSM_P
+    x = xbc[..., :d_in].view(rows, s, SSM_H, SSM_P).permute(0, 2, 1, 3)
+    b = xbc[..., d_in:d_in + SSM_N]
+    c = xbc[..., d_in + SSM_N:]
+    da = torch.round(dt * a * 1024) / 1024
+    return x, dt.permute(0, 2, 1), da.permute(0, 2, 1), b, c
+
+
+@pytest.mark.cuda
+class TestCudaSSDKernels:
+    """ssd_intra and ssd_slab_decode against their plain versions on the
+    card, at mamba2-780m widths."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("rows,q", [(4, 5), (3, 200), (4, 256), (2, 64)])
+    def test_ssd_intra(self, cuda, dtype, rows, q):
+        x, dt, da, b, c = _ssd_inputs(30, dtype, rows, q, cuda)
+        y, s = ssd_intra(x, dt, da, b, c)
+        y_want, s_want = ssd_intra_plain(x, dt, da, b, c)
+        assert y.dtype == s.dtype == torch.float32
+        _close(y, y_want, dtype)
+        _close(s, s_want, dtype)
+
+    def test_ssd_intra_padding_adds_exact_zeros(self, cuda):
+        """dt = 0 past a row's length: the bucketed chunk's y rows and state
+        equal the exact-length chunk's bit for bit."""
+        x, dt, da, b, c = _ssd_inputs(31, "float32", 1, 64, cuda)
+        dt, da = dt.clone(), da.clone()
+        dt[..., 37:] = 0.0
+        da[..., 37:] = 0.0
+        y_pad, s_pad = ssd_intra(x, dt, da, b, c)
+        y, s = ssd_intra(x[:, :, :37], dt[..., :37], da[..., :37],
+                         b[:, :37], c[:, :37])
+        assert torch.equal(y_pad[:, :, :37], y)
+        assert torch.equal(s_pad, s)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("slabs", [[7], [5, 2], [9, 3, 3, 1]])
+    def test_ssd_slab_decode(self, cuda, dtype, slabs):
+        gen = torch.Generator().manual_seed(32)
+        rows, ns = len(slabs), 10
+        pool = torch.randn((ns, SSM_H, SSM_P, SSM_N), generator=gen).to(cuda)
+        xbc = torch.randn((rows, SSM_CDIM), generator=gen).to(
+            getattr(torch, dtype)).to(cuda)
+        d_in = SSM_H * SSM_P
+        x = xbc[:, :d_in].view(rows, SSM_H, SSM_P)
+        b = xbc[:, d_in:d_in + SSM_N].view(rows, 1, SSM_N)
+        c = xbc[:, d_in + SSM_N:].view(rows, 1, SSM_N)
+        dt = torch.nn.functional.softplus(
+            torch.randn((rows, 1, SSM_H), generator=gen)).to(cuda)[:, 0]
+        a = -torch.linspace(1.0, 16.0, SSM_H, device=cuda)
+        for row in range(1, rows):  # a repeated id repeats its row, as
+            if slabs[row] in slabs[:row]:  # padding rows do
+                first = slabs.index(slabs[row])
+                xbc[row], dt[row] = xbc[first], dt[first]
+        ids = torch.tensor(slabs, dtype=torch.int32, device=cuda)
+        y, states = ssd_slab_decode(pool, ids, x, dt, a, b, c)
+        y_want, s_want = ssd_slab_decode_plain(pool, ids, x, dt, a, b, c)
+        _close(y, y_want, dtype)
+        _close(states, s_want, "float32")
+        new_pool = pool.clone()
+        new_pool.index_copy_(0, ids.long(), states)
+        rest = [i for i in range(ns) if i not in slabs]
+        assert torch.equal(new_pool[rest], pool[rest])
+        assert torch.equal(new_pool[ids.long()], states)
+
+    def test_ssd_launches_are_counted(self, cuda):
+        x, dt, da, b, c = _ssd_inputs(33, "float32", 1, 8, cuda)
+        _build.reset_launches()
+        ssd_intra(x, dt, da, b, c)
+        assert _build.launches["ssd_intra"] == 1
+
+
+@pytest.mark.cuda
+def test_ssm_engine_on_the_card(cuda, monkeypatch):
+    """The SSM path on the card at reduced size: the slab-paged batched
+    engine gives unbatched generate's fp32 tokens, leaks no slab, and its
+    prefill and both decode paths run the SSD kernels -- the plain versions
+    are never called."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine, StreamSpec
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain SSD version called on the card")
+
+    monkeypatch.setattr(ssd_scan, "ssd_intra_plain", refuse)
+    monkeypatch.setattr(ssd_scan, "ssd_slab_decode_plain", refuse)
+    cfg = dataclasses.replace(get_config("mamba2_780m").reduced(),
+                              dtype="float32")
+    params = M.init_params(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                           device=cuda)
+    prompts = {f"s{i}": (np.arange(1, n + 1, dtype=np.int32)[None] * 7) % 128
+               for i, n in enumerate([3, 5, 9, 17])}
+    spec = lambda n, p: StreamSpec(name=n, priority=p, period_ms=8000.0,
+                                   deadline_ms=8000.0, prefill_ms=50.0,
+                                   decode_ms=5.0, decode_steps=6)
+    ref = ServeEngine(cfg, params, max_seq=32, device=cuda)
+    _build.reset_launches()
+    want = {}
+    for i, n in enumerate(prompts):
+        assert ref.admit(spec(n, 4 - i)).admitted
+        want[n] = ref.generate(n, prompts[n], steps=6).tokens
+    ref.close()
+    assert _build.launches["ssd_slab_decode"] == 4 * 6 * cfg.num_layers
+    eng = ServeEngine(cfg, params, max_seq=32, num_servers=2, batching=True,
+                      max_batch=4, paged=True, device=cuda)
+    try:
+        eng.precompile(prompt_buckets=(4, 8, 16, 32))
+        _build.reset_launches()
+        for i, n in enumerate(prompts):
+            assert eng.admit(spec(n, 4 - i)).admitted
+        got = {}
+        threads = [threading.Thread(
+            target=lambda n=n: got.__setitem__(n, eng.generate(
+                n, prompts[n], steps=6))) for n in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert {n: r.tokens for n, r in got.items()} == want
+        assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
+        for name in ("rmsnorm", "ssd_intra", "ssd_slab_decode"):
             assert _build.launches[name] > 0, name
     finally:
         eng.close()
