@@ -15,9 +15,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and rmsnorm at internlm2-1.8b widths (ragged lengths, scratch-block
    table lanes, length 0, prefill buckets 8 and 256), the SSD kernels at
    mamba2-780m widths (chunks of 5, 200 and 256, slab ids permuted and
-   repeated) -- then its median time beside the plain version's, the
-   library call's (where one PyTorch call computes the same function) and
-   its bound;
+   repeated), the MLA decode kernel and flash attention with a value width
+   of its own at deepseek-v2-lite-16b widths (latent pools, identity-table
+   view, head-group sizes) -- then its median time beside the plain
+   version's, the library call's (where one PyTorch call computes the same
+   function) and its bound;
 4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
    servers -- must give the greedy tokens of unbatched ``generate``, use
@@ -29,7 +31,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    servers used, no slab leaked, decode calls recorded as ``decode@ssm``;
 5b. SSM path, bf16: the same traffic, timed, and a profile of one 4-row
    slab-paged decode step;
-6. launch counts of every kernel over phases 4-5b (each must be
+4c. MLA + MoE path, fp32: full-width deepseek-v2-lite-16b served the same
+   way through MLA latent block pools (the dense prefix layer in pools of
+   its own): greedy tokens equal unbatched ``generate``'s, both servers
+   used, no block leaked, decode calls recorded as ``decode@mla``, peak
+   device memory printed (the depth is cut only if the fp32 weights do not
+   fit, and the cut is printed);
+5c. MLA + MoE path, bf16: the same traffic at full depth, timed, and a
+   profile of one 4-row paged decode step;
+6. launch counts of every kernel over phases 4-5c (each must be
    non-zero), then one JSON line describing every kernel;
 7. last line: ``{"ok": true, "device": {...}}``.
 """
@@ -76,7 +86,13 @@ KERNELS = {
                   "src/repro/kernels/ssd_scan.py:66"),
     "ssd_slab_decode": ("src/repro_torch/csrc/ssd_slab_decode.cu",
                         "src/repro/kernels/ssd_scan.py:118"),
+    "paged_mla_decode_attention": (
+        "src/repro_torch/csrc/paged_mla_decode_attention.cu",
+        "src/repro/kernels/paged_decode_attention.py:142"),
 }
+# device memory kept free beside the fp32 MLA weights: pools, the prefill
+# activations of 4 x 256 tokens through every expert, logits
+MLA_FP32_HEADROOM = 12 * 2**30
 
 
 class SmokeFailure(RuntimeError):
@@ -317,6 +333,158 @@ class KernelChecks:
             print(f"time {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']:.4f} ms, bound {b:.5f} ms ({by})")
+        self.rows.update(rows)
+
+    # -- the MLA kernels at deepseek-v2-lite-16b widths -----------------------
+    def mla_inputs(self, cfg, lengths, dtype, w):
+        """q_lat/q_rope of one decode step and latent pools of the engine's
+        size, scratch block 0 full of garbage no row may read, tables with
+        each row's live blocks drawn without replacement."""
+        nq, r, pr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        nb = 4 * (MAX_SEQ // BLOCK) + 1
+        b = len(lengths)
+        ckv = self.randn(nb, BLOCK, r, dtype=dtype)
+        krope = self.randn(nb, BLOCK, pr, dtype=dtype)
+        ckv[0], krope[0] = 1e4, -1e4
+        return (self.randn(b, nq, r, dtype=dtype),
+                self.randn(b, nq, pr, dtype=dtype), ckv, krope,
+                self.table(lengths, w, nb),
+                torch.tensor(lengths, dtype=torch.int32, device=self.dev))
+
+    def run_mla(self, cfg):
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_plain)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_mla_decode_attention, paged_mla_decode_attention_plain)
+
+        nq, r, pr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        hk, hv = cfg.qk_nope_head_dim + pr, cfg.v_head_dim
+        scale = hk ** -0.5
+        lengths = [p + STEPS + 1 for p in PROMPT_LENS]  # 38 .. 233
+        w_max = 1 << (-(-max(lengths) // BLOCK) - 1).bit_length()  # W 16
+        name = "paged_mla_decode_attention"
+        for dt in (torch.float32, torch.bfloat16):
+            ql, qr, ckv, krope, tables, lens = self.mla_inputs(cfg, lengths,
+                                                               dt, w_max)
+            got = paged_mla_decode_attention(ql, qr, ckv, krope, tables, lens,
+                                             scale=scale)
+            e = self.check(name, f"lengths={lengths} W={w_max} scratch lanes",
+                           got, paged_mla_decode_attention_plain(
+                               ql, qr, ckv, krope, tables, lens, scale=scale),
+                           dt)
+            self.errors[name] = max(self.errors.get(name, 0), e)
+            zero = torch.tensor([0, 5], dtype=torch.int32, device=self.dev)
+            out0 = paged_mla_decode_attention(ql[:2], qr[:2], ckv, krope,
+                                              tables[:2], zero, scale=scale)
+            self.check(name, "length 0 -> 0", out0[0],
+                       torch.zeros_like(out0[0]), dt)
+            # the dense cache of unbatched decode, viewed as a block pool
+            # with the identity table, must give the paged result exactly
+            b = len(lengths)
+            ident = (torch.arange(b, device=self.dev)[:, None] * w_max
+                     + torch.arange(w_max, device=self.dev)[None, :]
+                     ).to(torch.int32)
+            dense = paged_mla_decode_attention(
+                ql, qr, ckv[tables.long()].reshape(-1, BLOCK, r),
+                krope[tables.long()].reshape(-1, BLOCK, pr), ident, lens,
+                scale=scale)
+            grouped = paged_mla_decode_attention(ql, qr, ckv, krope, tables,
+                                                 lens, scale=scale,
+                                                 heads_per_block=4)
+            torch.cuda.synchronize()
+            for case, other in (("identity-table dense view", dense),
+                                ("4 heads per block vs 16", grouped)):
+                if not torch.equal(other, got):
+                    raise SmokeFailure(f"{name}: {case} differs from the "
+                                       "paged result")
+                print(f"check {name} [{case}] {str(dt)[6:]}: bit-identical ok")
+            # MLA prefill: flash with q/k of width 192, v of width 128
+            for bq, s in ((4, 8), (2, 256)):
+                q = self.randn(bq, s, nq, hk, dtype=dt)
+                k = self.randn(bq, s, nq, hk, dtype=dt)
+                v = self.randn(bq, s, nq, hv, dtype=dt)
+                e = self.check("flash_attention", f"MLA B={bq} S={s} "
+                               f"Hk={hk} Hv={hv}",
+                               flash_attention(q, k, v, scale=scale),
+                               flash_attention_plain(q, k, v, scale=scale), dt)
+                self.errors["flash_attention"] = max(
+                    self.errors["flash_attention"], e)
+        self.time_mla(cfg)
+
+    def time_mla(self, cfg):
+        """Times at the MLA path's shapes in bf16 (the config's dtype): one
+        4-row decode step at the main path's final lengths, one 256-token
+        prefill row."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_plain)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_mla_decode_attention, paged_mla_decode_attention_plain)
+
+        dt, el = torch.bfloat16, 2
+        nq, r, pr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        hk, hv = cfg.qk_nope_head_dim + pr, cfg.v_head_dim
+        scale = hk ** -0.5
+        lengths = [p + STEPS + 1 for p in PROMPT_LENS]
+        live = sum(lengths)
+        w_cols = -(-max(lengths) // BLOCK)
+        w_cols = 1 << (w_cols - 1).bit_length()  # the engine's pow2 width
+        ql, qr, ckv, krope, tables, lens = self.mla_inputs(cfg, lengths, dt,
+                                                           w_cols)
+        # SDPA on the pre-gathered view (the gather is not timed): key
+        # concat(c_kv, k_rope) and value c_kv, one kv head for all queries
+        kg = torch.cat([ckv[tables.long()], krope[tables.long()]], dim=-1
+                       ).reshape(4, 1, -1, r + pr)
+        vg = ckv[tables.long()].reshape(4, 1, -1, r)
+        qg = torch.cat([ql, qr], dim=-1)[:, :, None]
+        mask = (torch.arange(w_cols * BLOCK, device=self.dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        rows = {}
+        rows["paged_mla_decode_attention"] = dict(
+            shape=f"q_lat (4,{nq},{r}), pools ({ckv.shape[0]},{BLOCK},{r})/"
+                  f"(.,.,{pr}), W={w_cols}, lengths {lengths}",
+            ms=time_ms(lambda: paged_mla_decode_attention(
+                ql, qr, ckv, krope, tables, lens, scale=scale)),
+            plain_ms=time_ms(lambda: paged_mla_decode_attention_plain(
+                ql, qr, ckv, krope, tables, lens, scale=scale)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True)),
+            # each live position's latent and rope row read once; q in, o
+            # out; QK over R + PR and PV over R per head and position
+            bound=bound_ms(live * (r + pr) * el + 4 * nq * (2 * r + pr) * el
+                           + tables.numel() * 4 + 16,
+                           2 * nq * (2 * r + pr) * live, dt))
+        s = 256
+        q = self.randn(1, s, nq, hk, dtype=dt)
+        k = self.randn(1, s, nq, hk, dtype=dt)
+        v = self.randn(1, s, nq, hv, dtype=dt)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = s * (s + 1) // 2
+        rows["flash_attention@mla"] = dict(
+            shape=f"q/k (1,{s},{nq},{hk}), v (1,{s},{nq},{hv}) causal",
+            ms=time_ms(lambda: flash_attention(q, k, v, scale=scale)),
+            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v,
+                                                           scale=scale)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale)),
+            bound=bound_ms((2 * q.numel() + v.numel() + s * nq * hv) * el,
+                           2 * nq * (hk + hv) * pairs, dt))
+        for name, row in rows.items():
+            b_ms, by = row["bound"]
+            print(f"time {name} bf16 {row['shape']}: kernel {row['ms']:.4f} "
+                  f"ms, plain {row['plain_ms']:.4f} ms, library "
+                  f"{row['library_ms']:.4f} ms (SDPA), bound {b_ms:.5f} ms "
+                  f"({by})")
+        # the group size is a launch parameter: more blocks, each tile read
+        # once per group (information for the kernel's redesign)
+        for g in (4, 1):
+            ms = time_ms(lambda: paged_mla_decode_attention(
+                ql, qr, ckv, krope, tables, lens, scale=scale,
+                heads_per_block=g))
+            print(f"time paged_mla_decode_attention bf16 {g} heads per block "
+                  f"({4 * nq // g} blocks): kernel {ms:.4f} ms "
+                  f"(information only)")
         self.rows.update(rows)
 
     # -- the SSD kernels at mamba2-780m widths ------------------------------
@@ -680,6 +848,74 @@ def ssm_path(dev, card):
     return counts
 
 
+def fp32_depth(base, dev) -> int:
+    """The most layers of ``base`` whose fp32 weights fit beside
+    MLA_FP32_HEADROOM in the card's free memory (all of them, on an 80 GB
+    card)."""
+    from repro_torch.models import model as M
+
+    free, _ = torch.cuda.mem_get_info(dev)
+    n = base.num_layers
+    while n > base.first_dense_layers + 1 and 4 * M.param_count(
+            dataclasses.replace(base, num_layers=n)) + MLA_FP32_HEADROOM > free:
+        n -= 1
+    return n
+
+
+def mla_path(dev, card):
+    """Phases 4c-5c: deepseek-v2-lite-16b through MLA latent block pools;
+    returns the launch counts."""
+    from repro_torch.configs.registry import get_config
+
+    base = get_config("deepseek_v2_lite_16b")
+    prompts = _prompts(base.vocab_size)
+
+    # phase 4c: fp32, batched tokens must equal unbatched generate's
+    depth = fp32_depth(base, dev)
+    if depth < base.num_layers:
+        print(f"mla fp32: depth cut to {depth} of {base.num_layers} layers "
+              f"(the fp32 weights of all layers do not fit)")
+    cfg32 = dataclasses.replace(base, dtype="float32", num_layers=depth)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg32, dev, f"mla fp32 ({depth} layers)")
+    run = serve_batched(cfg32, params, prompts, dev)
+    ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
+    counts = Counter(run["launches"]) + Counter(ref_launches)
+    check_outputs(run, prompts)
+    if {c["kind"] for c in run["decode_calls"]} != {"decode@mla"} or not (
+            run["decode_calls"]):
+        raise SmokeFailure(f"MLA decode calls recorded as {run['kinds']}")
+    check_tokens("mla fp32", run, ref, prompts)
+    print(f"mla fp32: max |batched - unbatched| first-step logit "
+          f"{first_logits_gap(cfg32, params, prompts, dev):.3e} "
+          f"(information only)")
+    report_latency("mla fp32", run, card)
+    print(f"mla fp32 [{card}]: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    del params, run, ref
+    torch.cuda.empty_cache()
+
+    # phase 5c: bf16, timed, at full depth
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(base, dev, "mla bf16")
+    run = serve_batched(base, params, prompts, dev)
+    counts += Counter(run["launches"])
+    check_outputs(run, prompts)
+    report_latency("mla bf16", run, card)
+    print(f"mla bf16 [{card}]: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    for name, res in run["results"].items():
+        print(f"mla bf16 {name} tokens (information only): {res.tokens}")
+    del run
+    step_profile(base, params, dev, card, "mla step profile",
+                 "mla_decode_step_profile.txt")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def report_latency(tag, run, card):
     prefill = [r.prefill_latency_s * 1e3 for r in run["results"].values()]
     steps = sorted(x * 1e3 for r in run["results"].values()
@@ -704,8 +940,9 @@ def report_latency(tag, run, card):
 
 def decode_step_cache(cfg, dev):
     """The pools and per-call cache entries of one 4-row paged decode step
-    at phase 5's final lengths: block tables over the block pools (GQA) or
-    slab ids 1-4 over the slab pools (SSM).  Returns (step cache, width)."""
+    at phase 5's final lengths: block tables over the block pools (GQA,
+    MLA; the prefix layer's pools share them) or slab ids 1-4 over the slab
+    pools (SSM).  Returns (step cache, width)."""
     from repro_torch.models import model as M
 
     lengths = torch.tensor([p + STEPS for p in PROMPT_LENS],
@@ -798,11 +1035,13 @@ def main() -> int:
     checks = KernelChecks(dev)                                  # phase 3
     checks.run(get_config("internlm2_1_8b"))
     checks.run_ssm(get_config("mamba2_780m"))
+    checks.run_mla(get_config("deepseek_v2_lite_16b"))
 
     counts = gqa_path(dev, card)                                # phases 4-5
     counts += ssm_path(dev, card)                               # phases 4b-5b
+    counts += mla_path(dev, card)                               # phases 4c-5c
 
-    print(f"launches over phases 4-5b: {dict(counts)}")         # phase 6
+    print(f"launches over phases 4-5c: {dict(counts)}")         # phase 6
     missing = [k for k in KERNELS if not counts.get(k)]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")

@@ -41,8 +41,11 @@ SIGNATURES = {
                                 _L, _L, _L, _I, _F, _I, _P],
     "paged_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _L, _L, _L, _F, _I, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _L, _L, _L, _L, _L, _L, _L, _L, _L,
+    "paged_mla_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                          _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                                          _F, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                _I, _F, _I, _P],
     "ssd_intra_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_L), _I, _P],

@@ -3,7 +3,8 @@ plain version and wrapper.
 
 Counterpart of ``repro/kernels/flash_attention.py``, in the model's
 (B, S, N, H) layout (the kernel reads it through strides; nothing is
-transposed).  The plain version is the model's ``_sdpa``
+transposed).  The value width may differ from the query/key width: MLA
+prefill attends with H = qk_nope + qk_rope and Hv = v_head_dim.  The plain version is the model's ``_sdpa``
 (``repro/models/layers.py:118``): it rounds the softmax probabilities to
 the value dtype before the PV product, while the kernel keeps them in fp32,
 so the two agree exactly in fp32 and to bf16 tolerance in bf16.
@@ -35,7 +36,7 @@ def sdpa(q, k, v, *, mask, scale: float):
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           scale: float | None = None):
-    """q (B,S,Nq,H); k/v (B,S,Nkv,H) -> (B,S,Nq,H)."""
+    """q (B,S,Nq,H); k (B,S,Nkv,H); v (B,S,Nkv,Hv) -> (B,S,Nq,Hv)."""
     s = q.shape[1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     mask = None
@@ -47,27 +48,28 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
-    """q (B,S,Nq,H); k/v (B,S,Nkv,H) -> (B,S,Nq,H) in q's dtype.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    """q (B,S,Nq,H); k (B,S,Nkv,H); v (B,S,Nkv,Hv) -> (B,S,Nq,Hv) in q's
+    dtype.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     dtype = _build.kernel_dtype(q, k, v)
     b, s, nq, h = q.shape
-    nkv = k.shape[2]
-    if (tuple(k.shape) != (b, s, nkv, h) or tuple(v.shape) != tuple(k.shape)
-            or nq % nkv or k.stride() != v.stride()):
+    nkv, hv = k.shape[2], v.shape[-1]
+    if (tuple(k.shape) != (b, s, nkv, h) or tuple(v.shape) != (b, s, nkv, hv)
+            or nq % nkv):
         raise ValueError(
-            f"flash_attention: q (B,S,Nq,H), k/v (B,S,Nkv,H) with equal "
-            f"strides; got q {tuple(q.shape)}, k {tuple(k.shape)} "
-            f"{k.stride()}, v {tuple(v.shape)} {v.stride()}")
-    for name, t in (("q", q), ("k", k)):
+            f"flash_attention: q (B,S,Nq,H), k (B,S,Nkv,H), v (B,S,Nkv,Hv); "
+            f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_unit_stride(f"flash_attention {name}", t)
-    out = torch.empty((b, s, nq, h), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s, nq, hv), dtype=q.dtype, device=q.device)
     if b and s:
         _build.launch(
             "flash_attention", "flash_attention_launch", q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, nq, nkv, h,
-            *q.stride()[:3], *k.stride()[:3], *out.stride()[:3], int(causal),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, nq, nkv, h, hv,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(causal),
             float(scale if scale is not None else h ** -0.5), dtype,
             _build.stream_of(q))
     return out

@@ -1,13 +1,16 @@
-"""Shared model layers of the port, GQA subset: norms, rotary embeddings,
-attention and MLPs.
+"""Shared model layers of the port: norms, rotary embeddings, attention
+(GQA/MQA and MLA with absorbed decode) and MLPs.
 
 Counterpart of ``repro/models/layers.py``.  Parameters are plain dicts of
 tensors in the reference layouts (``wq``/``wk``/``wv`` (d, n, hd), ``wo``
-(n, hd, d)).  Attention runs on the port's kernels: causal prefill on
-``flash_attention``, paged decode on ``paged_decode_attention``, dense
-decode on ``decode_attention``, and every norm on ``rmsnorm``; on CPU
-tensors each takes its plain version.  Decode caches and pools are updated
-in place.  MLA, M-RoPE and sinusoidal positions come with later slices.
+(n, hd, d); MLA's ``w_dkv`` (d, r + pr), ``w_uk`` (r, n, pn), ``w_uv``
+(r, n, hv)).  Attention runs on the port's kernels: causal prefill on
+``flash_attention``; GQA paged decode on ``paged_decode_attention`` and
+dense decode on ``decode_attention``; MLA decode, paged and dense alike, on
+``paged_mla_decode_attention``; every norm on ``rmsnorm``.  On CPU tensors
+each takes its plain version.  Decode caches and pools are updated in
+place.  M-RoPE and sinusoidal positions come with later slices (ROADMAP A2,
+A9).
 """
 
 from __future__ import annotations
@@ -18,10 +21,12 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (DEFAULT_BLOCK_K,
+                                                  decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import sdpa as _sdpa  # noqa: F401
-from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention, paged_mla_decode_attention)
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 Params = dict[str, Any]
@@ -169,6 +174,114 @@ def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None):
     nq = out.shape[2]
     out = torch.matmul(out.reshape(b, s, nq * hd),
                        p["wo"].reshape(nq * hd, -1))
+    return out, new_cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# --------------------------------------------------------------------------
+
+
+def init_mla(cfg, generator, dtype, device) -> Params:
+    d, n = cfg.d_model, cfg.num_heads
+    r, pr, pn, hv = (cfg.kv_lora_rank, cfg.qk_rope_head_dim,
+                     cfg.qk_nope_head_dim, cfg.v_head_dim)
+    return {
+        "wq": dense_init(generator, (d, n, pn + pr), dtype, device),
+        # latent + shared rope key
+        "w_dkv": dense_init(generator, (d, r + pr), dtype, device),
+        "w_uk": dense_init(generator, (r, n, pn), dtype, device),
+        "w_uv": dense_init(generator, (r, n, hv), dtype, device),
+        "wo": dense_init(generator, (n, hv, d), dtype, device,
+                         scale=1.0 / math.sqrt(n * hv)),
+    }
+
+
+def _per_head(x, w):
+    """x (B, N, a) and w (a, N, c) -> (B, N, c): one product per head,
+    batched over N on the weight's own layout (no copy of w)."""
+    return torch.bmm(x.transpose(0, 1), w.transpose(0, 1)).transpose(0, 1)
+
+
+def _identity_tables(b: int, smax: int, bk: int, device):
+    """Block tables that view a dense (B, Smax, ...) cache as a pool of
+    (B * Smax / bk) blocks of bk positions: row b owns blocks b*W..b*W+W-1."""
+    w = smax // bk
+    return (torch.arange(b, device=device)[:, None] * w
+            + torch.arange(w, device=device)[None, :]).to(torch.int32)
+
+
+def mla_attention(cfg, p: Params, x, *, positions, cache=None,
+                  layer_cache=None):
+    """MLA: KV compressed to a ``kv_lora_rank`` latent plus one shared
+    rotary key; the cache stores only (c_kv, k_rope).
+
+    Training/prefill: ``layer_cache is None`` -> causal attention with the
+    decompressed keys (width qk_nope + qk_rope) and values (v_head_dim) on
+    the flash kernel; ``cache == 'build'`` also returns (c_kv, k_rope).
+    Paged decode: ``layer_cache = (ckv_stack, krope_stack, lidx, tables,
+    pos)`` with latent pools (L, NB, BS, r) / (L, NB, BS, pr) shared across
+    rows.  Dense decode: ``layer_cache = (ckv_cache, krope_cache, pos)``
+    (B, Smax, r) / (B, Smax, pr), viewed as a block pool with an identity
+    table.  Both decode branches write the new row in place and run the
+    absorbed formulation (queries projected into the latent space) on the
+    same kernel, so they do the same arithmetic per row.
+    """
+    b, s, _ = x.shape
+    n = cfg.num_heads
+    r, pr, pn = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.qk_nope_head_dim
+    # the model's scale: the QK head dim, not the kernel's (r + pr) default
+    scale = 1.0 / math.sqrt(pn + pr)
+
+    q = _project(x, p["wq"])  # (B, S, N, pn + pr)
+    q_nope, q_rope = q[..., :pn], q[..., pn:]
+    ckv_full = torch.matmul(x, p["w_dkv"])  # (B, S, r + pr)
+    c_kv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
+
+    cos, sin = rope_cos_sin(positions, pr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if layer_cache is None:
+        k_nope = _project(c_kv, p["w_uk"])
+        v = _project(c_kv, p["w_uv"])
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, n, pr)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(qq, k, v, causal=True, scale=scale)
+        # c_kv is a view into ckv_full: the cache keeps a contiguous copy,
+        # which dense decode views as a block pool
+        new_cache = (c_kv.contiguous(), k_rope) if cache == "build" else None
+        out = out.reshape(b, s, -1)
+    else:
+        if len(layer_cache) == 5:
+            # Rows never share a tail block (copy-on-write forks), so the
+            # scatter is row-disjoint; padding rows duplicate row 0.
+            ckv_stack, krope_stack, lidx, tables, pos = layer_cache
+            ckv_pool, krope_pool = ckv_stack[lidx], krope_stack[lidx]
+            new_cache = (ckv_stack, krope_stack)
+        else:  # dense (B, Smax, ...) caches viewed as (B*Smax/bk, bk, ...)
+            ckv_cache, krope_cache, pos = layer_cache
+            new_cache = (ckv_cache, krope_cache)
+            smax = ckv_cache.shape[1]
+            bk = math.gcd(smax, DEFAULT_BLOCK_K)
+            tables = _identity_tables(b, smax, bk, x.device)
+            ckv_pool = ckv_cache.view(-1, bk, r)
+            krope_pool = krope_cache.view(-1, bk, pr)
+        bs_blk = ckv_pool.shape[1]
+        pos_l = pos.long()
+        blk = tables.long()[torch.arange(b, device=x.device), pos_l // bs_blk]
+        off = pos_l % bs_blk
+        ckv_pool.index_put_((blk, off), c_kv[:, 0].to(ckv_pool.dtype))
+        krope_pool.index_put_((blk, off), k_rope[:, 0].to(krope_pool.dtype))
+        # absorbed decode: q_nope @ w_uk -> latent space, in x's dtype
+        q_lat = _per_head(q_nope[:, 0], p["w_uk"].permute(2, 1, 0)).contiguous()
+        o_lat = paged_mla_decode_attention(
+            q_lat, q_rope[:, 0].contiguous(), ckv_pool, krope_pool, tables,
+            (pos + 1).to(torch.int32), scale=scale)
+        out = _per_head(o_lat, p["w_uv"]).reshape(b, s, -1)
+
+    out = torch.matmul(out, p["wo"].reshape(-1, p["wo"].shape[-1]))
     return out, new_cache
 
 

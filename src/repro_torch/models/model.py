@@ -8,13 +8,16 @@
     param_count(cfg)                          -> analytical N (for rooflines)
 
 Counterpart of ``repro/models/model.py``.  The port has the dense GQA
-decoder and the pure-SSM (Mamba-2) stack; the other families raise
+decoder, the MoE decoder (GQA or MLA attention, with dense prefix layers)
+and the pure-SSM (Mamba-2) stack; the other families raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 from typing import Any
+
+import torch
 
 from repro_torch.models import transformer
 
@@ -26,8 +29,6 @@ def _family_mod(cfg):
         raise NotImplementedError("hybrid stacks are ported in ROADMAP A8")
     if cfg.family == "encdec":
         raise NotImplementedError("enc-dec stacks are ported in ROADMAP A9")
-    if cfg.is_moe or cfg.attn_type == "mla":
-        raise NotImplementedError("MLA and MoE stacks are ported in ROADMAP A6")
     if cfg.mrope or cfg.embed_inputs:
         raise NotImplementedError("the VLM stack (M-RoPE, embedding inputs) "
                                   "is ported in ROADMAP A2")
@@ -72,9 +73,14 @@ def paged_pool_kinds(cfg) -> dict[str, str]:
 
 def paged_insert_views(cfg, prefill_cache) -> dict:
     """Prefill-cache leaves arranged like the ``init_paged_cache`` pools
-    ((L, B, ...) per leaf) for the engine's insert scatter."""
+    ((L, B, ...) per leaf; the prefix layers' tuples stacked along a new
+    leading axis) for the engine's insert scatter."""
     _family_mod(cfg)
-    return {"layers": prefill_cache["layers"]}
+    views = {"layers": prefill_cache["layers"]}
+    if "first_layers" in prefill_cache:
+        views["first_layers"] = tuple(
+            torch.stack(leaves) for leaves in zip(*prefill_cache["first_layers"]))
+    return views
 
 
 def apply(cfg, params, batch, *, mode: str, cache=None):

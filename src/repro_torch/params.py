@@ -26,8 +26,8 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 
 # leaves the reference keeps fp32 whatever the config's dtype
-# (repro/models/ssm.py, init_mamba2)
-FP32_LEAVES = frozenset({"A_log", "dt_bias", "ssm_D"})
+# (repro/models/ssm.py, init_mamba2; repro/models/moe.py, init_moe)
+FP32_LEAVES = frozenset({"A_log", "dt_bias", "ssm_D", "router"})
 
 
 def params_from_numpy(tree, *, device=None, dtype: torch.dtype | None = None):

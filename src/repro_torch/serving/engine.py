@@ -4,8 +4,10 @@ paged, length-aware decode batching.
 
 Counterpart of ``repro/serving/engine.py`` (see its docstring for the
 architecture).  The port has the main path, ``batching=True,
-paged=True`` -- family-generic: GQA KV block pools and SSM state-slab
-pools -- and the unbatched ``generate`` path that serves as its reference:
+paged=True`` -- family-generic: GQA KV block pools, MLA latent block
+pools (plus the MoE prefix layer's pools on the same block tables) and SSM
+state-slab pools -- and the unbatched ``generate`` path that serves as its
+reference:
 
   client streams --admit--> PoolAdmissionController (Eqs (1)-(6) per
         |                   device partition)

@@ -9,8 +9,9 @@ with the card:
 
 Shapes are the main paths' widths (internlm2-1.8b: Nq=16, Nkv=8, H=128,
 D=2048, block 16; mamba2-780m: 48 SSM heads of P=64, N=128, conv_dim
-3328); tolerances those of test_kernels.py (fp32 1e-5, bf16 2e-2, atol and
-rtol).
+3328; deepseek-v2-lite-16b: 16 heads, latent R=512, rope PR=64, QK width
+192, V width 128); tolerances those of test_kernels.py (fp32 1e-5, bf16
+2e-2, atol and rtol).
 """
 
 import pytest
@@ -22,7 +23,8 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (
-    paged_decode_attention, paged_decode_attention_plain)
+    paged_decode_attention, paged_decode_attention_plain,
+    paged_mla_decode_attention, paged_mla_decode_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 from repro_torch.kernels.ssd_scan import (ssd_intra, ssd_intra_plain,
                                           ssd_slab_decode,
@@ -307,6 +309,181 @@ def test_ssm_engine_on_the_card(cuda, monkeypatch):
         assert {n: r.tokens for n, r in got.items()} == want
         assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
         for name in ("rmsnorm", "ssd_intra", "ssd_slab_decode"):
+            assert _build.launches[name] > 0, name
+    finally:
+        eng.close()
+
+
+# deepseek-v2-lite-16b widths
+MLA_NQ, MLA_R, MLA_PR, MLA_QK, MLA_V = 16, 512, 64, 192, 128
+
+
+def _mla_inputs(seed, dtype, lengths, device, nb=129, w=16):
+    """q_lat, q_rope, latent pools (nb, 16, R) / (nb, 16, PR) with scratch
+    block 0 full of 1e4, tables whose live blocks are drawn without
+    replacement and whose lanes past them point at block 0."""
+    q_lat, q_rope, ckv, krope = _inputs(
+        seed, dtype, (len(lengths), MLA_NQ, MLA_R),
+        (len(lengths), MLA_NQ, MLA_PR), (nb, 16, MLA_R), (nb, 16, MLA_PR),
+        device=device)
+    ckv[0], krope[0] = 1e4, 1e4
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    tables = torch.zeros((len(lengths), w), dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(lengths):
+        tables[i, : -(-n // 16)] = perm[used: used + -(-n // 16)]
+        used += -(-n // 16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q_lat, q_rope, ckv, krope, tables.to(device), lens
+
+
+@pytest.mark.cuda
+class TestCudaMLAKernels:
+    """paged_mla_decode_attention and flash attention with a value width
+    different from the key width, at deepseek-v2-lite-16b widths."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_paged_mla_decode_attention(self, cuda, dtype):
+        q_lat, q_rope, ckv, krope, tables, lens = _mla_inputs(
+            40, dtype, [0, 38, 101, 233], cuda)
+        scale = MLA_QK ** -0.5
+        got = paged_mla_decode_attention(q_lat, q_rope, ckv, krope, tables,
+                                         lens, scale=scale)
+        want = paged_mla_decode_attention_plain(q_lat, q_rope, ckv, krope,
+                                                tables, lens, scale=scale)
+        _close(got[1:], want[1:], dtype)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+    def test_identity_table_view_equals_paged(self, cuda):
+        """The dense (B, Smax, R) cache viewed as (B*Smax/16, 16, R) with
+        the identity table gives the paged result bit for bit."""
+        q_lat, q_rope, ckv, krope, tables, lens = _mla_inputs(
+            41, "bfloat16", [38, 101, 233, 17], cuda)
+        paged = paged_mla_decode_attention(q_lat, q_rope, ckv, krope, tables,
+                                           lens)
+        b, w = tables.shape
+        dense_ckv = ckv[tables.long()].reshape(b * w, 16, MLA_R)
+        dense_kr = krope[tables.long()].reshape(b * w, 16, MLA_PR)
+        ident = (torch.arange(b, device=cuda)[:, None] * w
+                 + torch.arange(w, device=cuda)[None, :]).to(torch.int32)
+        dense = paged_mla_decode_attention(q_lat, q_rope, dense_ckv, dense_kr,
+                                           ident, lens)
+        assert torch.equal(dense, paged)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_head_group_size_changes_no_bit(self, cuda, dtype):
+        q_lat, q_rope, ckv, krope, tables, lens = _mla_inputs(
+            42, dtype, [5, 233, 64, 1], cuda)
+        outs = [paged_mla_decode_attention(q_lat, q_rope, ckv, krope, tables,
+                                           lens, heads_per_block=g)
+                for g in (16, 8, 4, 1)]
+        for out in outs[1:]:
+            assert torch.equal(out, outs[0])
+
+    def test_cuda_tensors_launch_or_raise(self, cuda, monkeypatch):
+        from repro_torch.kernels import paged_decode_attention as pda
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("plain MLA version called on the card")
+
+        monkeypatch.setattr(pda, "paged_mla_decode_attention_plain", refuse)
+        q_lat, q_rope, ckv, krope, tables, lens = _mla_inputs(
+            43, "float32", [3, 20], cuda)
+        _build.reset_launches()
+        pda.paged_mla_decode_attention(q_lat, q_rope, ckv, krope, tables,
+                                       lens)
+        torch.cuda.synchronize()
+        assert _build.launches["paged_mla_decode_attention"] == 1
+        with pytest.raises(ValueError):  # strided queries are refused
+            pda.paged_mla_decode_attention(q_lat.transpose(0, 1), q_rope,
+                                           ckv, krope, tables, lens)
+        with pytest.raises(ValueError):  # a group that does not divide Nq
+            pda.paged_mla_decode_attention(q_lat, q_rope, ckv, krope, tables,
+                                           lens, heads_per_block=3)
+        with pytest.raises(TypeError):  # mixed dtypes
+            pda.paged_mla_decode_attention(q_lat.half(), q_rope, ckv, krope,
+                                           tables, lens)
+        assert _build.launches["paged_mla_decode_attention"] == 1
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("s", [8, 40, 256])
+    def test_flash_value_width(self, cuda, dtype, s):
+        q, k, v = _inputs(44, dtype, (2, s, MLA_NQ, MLA_QK),
+                          (2, s, MLA_NQ, MLA_QK), (2, s, MLA_NQ, MLA_V),
+                          device=cuda)
+        scale = MLA_QK ** -0.5
+        got = flash_attention(q, k, v, scale=scale)
+        assert tuple(got.shape) == (2, s, MLA_NQ, MLA_V)
+        _close(got, flash_attention_plain(q, k, v, scale=scale), dtype)
+
+    def test_flash_reads_v_through_its_own_strides(self, cuda):
+        """Hv == H (the GQA case): v as a strided view of a wider tensor
+        gives the result of its contiguous copy bit for bit."""
+        q, k, wide = _inputs(45, "bfloat16", (2, 40, 16, 128), (2, 40, 8, 128),
+                             (2, 40, 8, 256), device=cuda)
+        v = wide[..., 64:192]
+        got = flash_attention(q, k, v)
+        assert torch.equal(got, flash_attention(q, k, v.contiguous()))
+        _close(got, flash_attention_plain(q, k, v), "bfloat16")
+
+
+@pytest.mark.cuda
+def test_mla_engine_on_the_card(cuda, monkeypatch):
+    """The MLA path on the card at reduced size: the paged batched engine
+    gives unbatched generate's fp32 tokens, leaks no block, and its decode
+    runs the MLA kernel in both the paged and the dense path -- the plain
+    version is never called."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine, StreamSpec
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain MLA version called on the card")
+
+    monkeypatch.setattr(pda, "paged_mla_decode_attention_plain", refuse)
+    cfg = dataclasses.replace(get_config("deepseek_v2_lite_16b").reduced(),
+                              dtype="float32")
+    params = M.init_params(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                           device=cuda)
+    prompts = {f"s{i}": (np.arange(1, n + 1, dtype=np.int32)[None] * 7) % 128
+               for i, n in enumerate([3, 5, 9, 17])}
+    spec = lambda n, p: StreamSpec(name=n, priority=p, period_ms=8000.0,
+                                   deadline_ms=8000.0, prefill_ms=50.0,
+                                   decode_ms=5.0, decode_steps=6)
+    ref = ServeEngine(cfg, params, max_seq=32, device=cuda)
+    _build.reset_launches()
+    want = {}
+    for i, n in enumerate(prompts):
+        assert ref.admit(spec(n, 4 - i)).admitted
+        want[n] = ref.generate(n, prompts[n], steps=6).tokens
+    ref.close()
+    assert (_build.launches["paged_mla_decode_attention"]
+            == 4 * 6 * cfg.num_layers)
+    eng = ServeEngine(cfg, params, max_seq=32, num_servers=2, batching=True,
+                      max_batch=4, paged=True, device=cuda)
+    try:
+        eng.precompile(prompt_buckets=(4, 8, 16, 32))
+        _build.reset_launches()
+        for i, n in enumerate(prompts):
+            assert eng.admit(spec(n, 4 - i)).admitted
+        got = {}
+        threads = [threading.Thread(
+            target=lambda n=n: got.__setitem__(n, eng.generate(
+                n, prompts[n], steps=6))) for n in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert {n: r.tokens for n, r in got.items()} == want
+        assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
+        for name in ("rmsnorm", "flash_attention",
+                     "paged_mla_decode_attention"):
             assert _build.launches[name] > 0, name
     finally:
         eng.close()
