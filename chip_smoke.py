@@ -16,10 +16,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    table lanes, length 0, prefill buckets 8 and 256), the SSD kernels at
    mamba2-780m widths (chunks of 5, 200 and 256, slab ids permuted and
    repeated), the MLA decode kernel and flash attention with a value width
-   of its own at deepseek-v2-lite-16b widths (latent pools, identity-table
-   view, head-group sizes) -- then its median time beside the plain
-   version's, the library call's (where one PyTorch call computes the same
-   function) and its bound;
+   of its own at deepseek-v2-lite-16b widths (latent pools, lengths on both
+   sides of every KV split boundary, identity-table views of width 16 and
+   32) -- then its median time beside the plain version's, the library
+   call's (where one PyTorch call computes the same function) and its
+   bound, each kernel's and library call's device time per call from one
+   profiler window, a ranking by device time against the library call,
+   and two timings for information (flash at the batched prefill bucket,
+   the MLA kernel over a 32-block table);
 4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
    servers -- must give the greedy tokens of unbatched ``generate``, use
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -126,6 +131,66 @@ def time_ms(fn, *, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
+def device_kernels(prof):
+    """The device activity rows (kernels, copies) of a torch.profiler
+    window -- they have no host time of their own; operator rows repeat
+    their kernels' device time -- and the attribute that holds their
+    device time in microseconds."""
+    events = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    rows = [e for e in events
+            if getattr(e, key) > 0 and e.self_cpu_time_total == 0]
+    return events, key, rows
+
+
+def device_ms(fn, *, iters: int = 50, tries: int = 3) -> float:
+    """Device time per call of ``fn``: the summed device time of every
+    kernel that ``iters`` back-to-back calls launched, from one
+    torch.profiler window (the host's issue rate does not enter).  A
+    window that recorded no device activity at all is taken again; NaN
+    (not measured) if every one of ``tries`` windows came back empty."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        _, key, rows = device_kernels(prof)
+        total_us = sum(getattr(e, key) for e in rows)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    return float("nan")
+
+
+def timed(fn, plain, library, bound, shape) -> dict:
+    """One row of phase 3's timings: CUDA-event and device time of the
+    kernel and of the library call, event time of the plain version."""
+    return dict(shape=shape, ms=time_ms(fn), device_ms=device_ms(fn),
+                plain_ms=time_ms(plain),
+                library_ms=None if library is None else time_ms(library),
+                library_device_ms=(None if library is None
+                                   else device_ms(library)),
+                bound=bound)
+
+
+def print_rows(rows: dict, library_name: str) -> None:
+    for name, r in rows.items():
+        b_ms, by = r["bound"]
+        lib = (f"library {r['library_ms']:.4f} ms event / "
+               f"{r['library_device_ms']:.4f} ms device ({library_name})"
+               if r["library_ms"] is not None
+               else "library: no single PyTorch call")
+        print(f"time {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms event"
+              f" / {r['device_ms']:.4f} ms device, plain {r['plain_ms']:.4f}"
+              f" ms, {lib}, bound {b_ms:.5f} ms ({by})")
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -198,8 +263,8 @@ class KernelChecks:
                 e = self.check("rmsnorm", f"x{shape}", rmsnorm(x, w, eps),
                                rmsnorm_plain(x, w, eps), dt)
                 self.errors["rmsnorm"] = max(self.errors.get("rmsnorm", 0), e)
-            # flash: prefill buckets 8 and 256, and a ragged 40 tokens
-            for b, s in ((4, 8), (2, 256), (1, 40)):
+            # flash: prefill buckets 8, 64 and 256, ragged 40 and 100
+            for b, s in ((4, 8), (4, 64), (2, 256), (1, 40), (1, 100)):
                 q = self.randn(b, s, nq, h, dtype=dt)
                 k = self.randn(b, s, nkv, h, dtype=dt)
                 v = self.randn(b, s, nkv, h, dtype=dt)
@@ -266,12 +331,10 @@ class KernelChecks:
         x = self.randn(4, 1, d, dtype=dt)
         w = (self.randn(d) * 0.1 + 1.0).to(dt)
         n = x.numel()
-        rows["rmsnorm"] = dict(
-            shape=f"x (4,1,{d})",
-            ms=time_ms(lambda: rmsnorm(x, w, eps)),
-            plain_ms=time_ms(lambda: rmsnorm_plain(x, w, eps)),
-            library_ms=time_ms(lambda: F.rms_norm(x, (d,), w, eps)),
-            bound=bound_ms((2 * n + d) * el, 4 * n, dt))
+        rows["rmsnorm"] = timed(
+            lambda: rmsnorm(x, w, eps), lambda: rmsnorm_plain(x, w, eps),
+            lambda: F.rms_norm(x, (d,), w, eps),
+            bound_ms((2 * n + d) * el, 4 * n, dt), f"x (4,1,{d})")
 
         # flash on one 256-token prefill
         s = 256
@@ -280,14 +343,13 @@ class KernelChecks:
         v = self.randn(1, s, nkv, h, dtype=dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         pairs = s * (s + 1) // 2
-        rows["flash_attention"] = dict(
-            shape=f"q (1,{s},{nq},{h}) causal",
-            ms=time_ms(lambda: flash_attention(q, k, v)),
-            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            bound=bound_ms((2 * q.numel() + 2 * k.numel()) * el,
-                           4 * nq * h * pairs, dt))
+        rows["flash_attention"] = timed(
+            lambda: flash_attention(q, k, v),
+            lambda: flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            bound_ms((2 * q.numel() + 2 * k.numel()) * el,
+                     4 * nq * h * pairs, dt), f"q (1,{s},{nq},{h}) causal")
 
         # decode at the main path's end: lengths of 4 streams after 32 steps
         lengths = [p + STEPS + 1 for p in PROMPT_LENS]
@@ -300,15 +362,15 @@ class KernelChecks:
                 < lens[:, None])[:, None, None, :]
         kv_bytes = 2 * live * nkv * h * el
         q_bytes = 2 * q.numel() * el + 4 * 4
-        rows["decode_attention"] = dict(
-            shape=f"q (4,{nq},{h}), cache (4,{MAX_SEQ},{nkv},{h}), "
-                  f"lengths {lengths}",
-            ms=time_ms(lambda: decode_attention(q, kc, vc, lens)),
-            plain_ms=time_ms(lambda: decode_attention_plain(q, kc, vc, lens)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        rows["decode_attention"] = timed(
+            lambda: decode_attention(q, kc, vc, lens),
+            lambda: decode_attention_plain(q, kc, vc, lens),
+            lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                attn_mask=mask, enable_gqa=True)),
-            bound=bound_ms(kv_bytes + q_bytes, 4 * nq * h * live, dt))
+                attn_mask=mask, enable_gqa=True),
+            bound_ms(kv_bytes + q_bytes, 4 * nq * h * live, dt),
+            f"q (4,{nq},{h}), cache (4,{MAX_SEQ},{nkv},{h}), "
+            f"lengths {lengths}")
 
         w_cols = -(-max(lengths) // BLOCK)
         w_cols = 1 << (w_cols - 1).bit_length()  # the engine's pow2 width
@@ -318,22 +380,31 @@ class KernelChecks:
         kg = kp[tables.long()].reshape(4, -1, nkv, h).transpose(1, 2)
         vg = vp[tables.long()].reshape(4, -1, nkv, h).transpose(1, 2)
         gmask = mask[..., : w_cols * BLOCK]
-        rows["paged_decode_attention"] = dict(
-            shape=f"q (4,{nq},{h}), pool ({nb},{BLOCK},{nkv},{h}), "
-                  f"W={w_cols}, lengths {lengths}",
-            ms=time_ms(lambda: paged_decode_attention(q, kp, vp, tables, lens)),
-            plain_ms=time_ms(lambda: paged_decode_attention_plain(
-                q, kp, vp, tables, lens)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kg, vg, attn_mask=gmask, enable_gqa=True)),
-            bound=bound_ms(kv_bytes + q_bytes + tables.numel() * 4,
-                           4 * nq * h * live, dt))
-        for name, r in rows.items():
-            b, by = r["bound"]
-            print(f"time {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f} ms, library "
-                  f"{r['library_ms']:.4f} ms, bound {b:.5f} ms ({by})")
+        rows["paged_decode_attention"] = timed(
+            lambda: paged_decode_attention(q, kp, vp, tables, lens),
+            lambda: paged_decode_attention_plain(q, kp, vp, tables, lens),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kg, vg, attn_mask=gmask, enable_gqa=True),
+            bound_ms(kv_bytes + q_bytes + tables.numel() * 4,
+                     4 * nq * h * live, dt),
+            f"q (4,{nq},{h}), pool ({nb},{BLOCK},{nkv},{h}), "
+            f"W={w_cols}, lengths {lengths}")
+        print_rows(rows, "F.rms_norm / SDPA")
         self.rows.update(rows)
+
+        # information only: flash at the batched prefill bucket (4, 256)
+        q = self.randn(4, 256, nq, h, dtype=dt)
+        k = self.randn(4, 256, nkv, h, dtype=dt)
+        v = self.randn(4, 256, nkv, h, dtype=dt)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        info = timed(lambda: flash_attention(q, k, v),
+                     lambda: flash_attention_plain(q, k, v),
+                     lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True, enable_gqa=True),
+                     bound_ms((2 * q.numel() + 2 * k.numel()) * el,
+                              4 * 4 * nq * h * (256 * 257 // 2), dt),
+                     f"q (4,256,{nq},{h}) causal (information only)")
+        print_rows({"flash_attention": info}, "SDPA")
 
     # -- the MLA kernels at deepseek-v2-lite-16b widths -----------------------
     def mla_inputs(self, cfg, lengths, dtype, w):
@@ -355,7 +426,8 @@ class KernelChecks:
         from repro_torch.kernels.flash_attention import (
             flash_attention, flash_attention_plain)
         from repro_torch.kernels.paged_decode_attention import (
-            paged_mla_decode_attention, paged_mla_decode_attention_plain)
+            MLA_TILES_PER_SPLIT, paged_mla_decode_attention,
+            paged_mla_decode_attention_plain)
 
         nq, r, pr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
         hk, hv = cfg.qk_nope_head_dim + pr, cfg.v_head_dim
@@ -378,28 +450,43 @@ class KernelChecks:
                                               tables[:2], zero, scale=scale)
             self.check(name, "length 0 -> 0", out0[0],
                        torch.zeros_like(out0[0]), dt)
+            # lengths on both sides of every KV split boundary of a W-16
+            # table (splits of MLA_TILES_PER_SPLIT blocks), 1, 15-17, 256
+            edge = BLOCK * MLA_TILES_PER_SPLIT
+            edges = sorted({1, 15, 16, 17, w_max * BLOCK} | {
+                n for j in range(1, w_max // MLA_TILES_PER_SPLIT)
+                for n in (j * edge - 1, j * edge, j * edge + 1)})
+            for lo in range(0, len(edges), 4):
+                part = edges[lo:lo + 4]
+                args = self.mla_inputs(cfg, part, dt, w_max)
+                e = self.check(name, f"split edges lengths={part}",
+                               paged_mla_decode_attention(*args, scale=scale),
+                               paged_mla_decode_attention_plain(
+                                   *args, scale=scale), dt)
+                self.errors[name] = max(self.errors[name], e)
             # the dense cache of unbatched decode, viewed as a block pool
-            # with the identity table, must give the paged result exactly
+            # with the identity table, must give the paged result exactly,
+            # at the batched width 16 and at the unbatched cache's 32
             b = len(lengths)
-            ident = (torch.arange(b, device=self.dev)[:, None] * w_max
-                     + torch.arange(w_max, device=self.dev)[None, :]
-                     ).to(torch.int32)
-            dense = paged_mla_decode_attention(
-                ql, qr, ckv[tables.long()].reshape(-1, BLOCK, r),
-                krope[tables.long()].reshape(-1, BLOCK, pr), ident, lens,
-                scale=scale)
-            grouped = paged_mla_decode_attention(ql, qr, ckv, krope, tables,
-                                                 lens, scale=scale,
-                                                 heads_per_block=4)
-            torch.cuda.synchronize()
-            for case, other in (("identity-table dense view", dense),
-                                ("4 heads per block vs 16", grouped)):
-                if not torch.equal(other, got):
+            for w in (w_max, 2 * w_max):
+                lanes = torch.zeros((b, w), dtype=torch.int32,
+                                    device=self.dev)
+                lanes[:, :w_max] = tables  # past them: the scratch block
+                ident = (torch.arange(b, device=self.dev)[:, None] * w
+                         + torch.arange(w, device=self.dev)[None, :]
+                         ).to(torch.int32)
+                dense = paged_mla_decode_attention(
+                    ql, qr, ckv[lanes.long()].reshape(-1, BLOCK, r),
+                    krope[lanes.long()].reshape(-1, BLOCK, pr), ident, lens,
+                    scale=scale)
+                torch.cuda.synchronize()
+                case = f"identity-table dense view W={w}"
+                if not torch.equal(dense, got):
                     raise SmokeFailure(f"{name}: {case} differs from the "
                                        "paged result")
                 print(f"check {name} [{case}] {str(dt)[6:]}: bit-identical ok")
             # MLA prefill: flash with q/k of width 192, v of width 128
-            for bq, s in ((4, 8), (2, 256)):
+            for bq, s in ((4, 8), (4, 64), (2, 256), (1, 100)):
                 q = self.randn(bq, s, nq, hk, dtype=dt)
                 k = self.randn(bq, s, nq, hk, dtype=dt)
                 v = self.randn(bq, s, nq, hv, dtype=dt)
@@ -441,51 +528,80 @@ class KernelChecks:
         mask = (torch.arange(w_cols * BLOCK, device=self.dev)[None, :]
                 < lens[:, None])[:, None, None, :]
         rows = {}
-        rows["paged_mla_decode_attention"] = dict(
-            shape=f"q_lat (4,{nq},{r}), pools ({ckv.shape[0]},{BLOCK},{r})/"
-                  f"(.,.,{pr}), W={w_cols}, lengths {lengths}",
-            ms=time_ms(lambda: paged_mla_decode_attention(
-                ql, qr, ckv, krope, tables, lens, scale=scale)),
-            plain_ms=time_ms(lambda: paged_mla_decode_attention_plain(
-                ql, qr, ckv, krope, tables, lens, scale=scale)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qg, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True)),
+        rows["paged_mla_decode_attention"] = timed(
+            lambda: paged_mla_decode_attention(ql, qr, ckv, krope, tables,
+                                               lens, scale=scale),
+            lambda: paged_mla_decode_attention_plain(
+                ql, qr, ckv, krope, tables, lens, scale=scale),
+            lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True),
             # each live position's latent and rope row read once; q in, o
             # out; QK over R + PR and PV over R per head and position
-            bound=bound_ms(live * (r + pr) * el + 4 * nq * (2 * r + pr) * el
-                           + tables.numel() * 4 + 16,
-                           2 * nq * (2 * r + pr) * live, dt))
+            bound_ms(live * (r + pr) * el + 4 * nq * (2 * r + pr) * el
+                     + tables.numel() * 4 + 16,
+                     2 * nq * (2 * r + pr) * live, dt),
+            f"q_lat (4,{nq},{r}), pools ({ckv.shape[0]},{BLOCK},{r})/"
+            f"(.,.,{pr}), W={w_cols}, lengths {lengths}")
         s = 256
         q = self.randn(1, s, nq, hk, dtype=dt)
         k = self.randn(1, s, nq, hk, dtype=dt)
         v = self.randn(1, s, nq, hv, dtype=dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         pairs = s * (s + 1) // 2
-        rows["flash_attention@mla"] = dict(
-            shape=f"q/k (1,{s},{nq},{hk}), v (1,{s},{nq},{hv}) causal",
-            ms=time_ms(lambda: flash_attention(q, k, v, scale=scale)),
-            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v,
-                                                           scale=scale)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=scale)),
-            bound=bound_ms((2 * q.numel() + v.numel() + s * nq * hv) * el,
-                           2 * nq * (hk + hv) * pairs, dt))
-        for name, row in rows.items():
-            b_ms, by = row["bound"]
-            print(f"time {name} bf16 {row['shape']}: kernel {row['ms']:.4f} "
-                  f"ms, plain {row['plain_ms']:.4f} ms, library "
-                  f"{row['library_ms']:.4f} ms (SDPA), bound {b_ms:.5f} ms "
-                  f"({by})")
-        # the group size is a launch parameter: more blocks, each tile read
-        # once per group (information for the kernel's redesign)
-        for g in (4, 1):
-            ms = time_ms(lambda: paged_mla_decode_attention(
-                ql, qr, ckv, krope, tables, lens, scale=scale,
-                heads_per_block=g))
-            print(f"time paged_mla_decode_attention bf16 {g} heads per block "
-                  f"({4 * nq // g} blocks): kernel {ms:.4f} ms "
-                  f"(information only)")
+        rows["flash_attention@mla"] = timed(
+            lambda: flash_attention(q, k, v, scale=scale),
+            lambda: flash_attention_plain(q, k, v, scale=scale),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale),
+            bound_ms((2 * q.numel() + v.numel() + s * nq * hv) * el,
+                     2 * nq * (hk + hv) * pairs, dt),
+            f"q/k (1,{s},{nq},{hk}), v (1,{s},{nq},{hv}) causal")
+        print_rows(rows, "SDPA")
         self.rows.update(rows)
+
+        # information only: a 32-block table (4 rows, lengths up to 512)
+        lengths = [130, 260, 390, MAX_SEQ]
+        live = sum(lengths)
+        w_cols = MAX_SEQ // BLOCK
+        ql, qr, ckv, krope, tables, lens = self.mla_inputs(cfg, lengths, dt,
+                                                           w_cols)
+        kg = torch.cat([ckv[tables.long()], krope[tables.long()]], dim=-1
+                       ).reshape(4, 1, -1, r + pr)
+        vg = ckv[tables.long()].reshape(4, 1, -1, r)
+        qg = torch.cat([ql, qr], dim=-1)[:, :, None]
+        mask = (torch.arange(w_cols * BLOCK, device=self.dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        info = timed(
+            lambda: paged_mla_decode_attention(ql, qr, ckv, krope, tables,
+                                               lens, scale=scale),
+            lambda: paged_mla_decode_attention_plain(
+                ql, qr, ckv, krope, tables, lens, scale=scale),
+            lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True),
+            bound_ms(live * (r + pr) * el + 4 * nq * (2 * r + pr) * el
+                     + tables.numel() * 4 + 16,
+                     2 * nq * (2 * r + pr) * live, dt),
+            f"W={w_cols}, lengths {lengths} (information only)")
+        print_rows({"paged_mla_decode_attention": info}, "SDPA")
+
+    def rank(self) -> None:
+        """Phase 3's timings ranked by device time: against the library
+        call where one exists (largest factor first), then the rest by
+        device time over bound."""
+        def has_lib(r):  # a library call whose device time was measured
+            return r["library_device_ms"] is not None and math.isfinite(
+                r["library_device_ms"]) and r["library_device_ms"] > 0
+
+        with_lib = sorted(
+            ((r["device_ms"] / r["library_device_ms"], n)
+             for n, r in self.rows.items() if has_lib(r)), reverse=True)
+        rest = sorted(((r["device_ms"] / r["bound"][0], n)
+                       for n, r in self.rows.items() if not has_lib(r)),
+                      reverse=True)
+        print("rank by device time vs library: " + ", ".join(
+            f"{n} {x:.2f}x" for x, n in with_lib))
+        print("rank by device time vs bound (no library call): " + ", ".join(
+            f"{n} {x:.0f}x" for x, n in rest))
 
     # -- the SSD kernels at mamba2-780m widths ------------------------------
     def ssd_views(self, cfg, rows, s, dtype):
@@ -597,11 +713,10 @@ class KernelChecks:
         nbytes = (q * h * p * el + 2 * q * h * 4 + 2 * q * n * el
                   + q * h * p * 4 + h * n * p * 4)
         flops = 2 * pairs * n + 2 * h * pairs * p + 2 * h * q * n * p
-        rows["ssd_intra"] = dict(
-            shape=f"x (1,{h},{q},{p}), B/C (1,{q},{n}), one 256-token row",
-            ms=time_ms(lambda: ssd_intra(*args)),
-            plain_ms=time_ms(lambda: ssd_intra_plain(*args)),
-            library_ms=None, bound=bound_ms(nbytes, flops, dt))
+        rows["ssd_intra"] = timed(
+            lambda: ssd_intra(*args), lambda: ssd_intra_plain(*args), None,
+            bound_ms(nbytes, flops, dt),
+            f"x (1,{h},{q},{p}), B/C (1,{q},{n}), one 256-token row")
         pool, x, dtv, a, b, c = self.slab_inputs(cfg, 4, dt)
         ids = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=self.dev)
         state = 4 * h * p * n
@@ -609,17 +724,12 @@ class KernelChecks:
         # y, B, C, dt; operations ~5 per state element (decay, update,
         # the product with C and its sum)
         nbytes = 2 * state * 4 + 2 * 4 * h * p * el + 2 * 4 * n * el + 4 * h * 4
-        rows["ssd_slab_decode"] = dict(
-            shape=f"pool ({NUM_SLABS},{h},{p},{n}) fp32, 4 rows",
-            ms=time_ms(lambda: ssd_slab_decode(pool, ids, x, dtv, a, b, c)),
-            plain_ms=time_ms(lambda: ssd_slab_decode_plain(
-                pool, ids, x, dtv, a, b, c)),
-            library_ms=None, bound=bound_ms(nbytes, 5 * state, torch.float32))
-        for name, r in rows.items():
-            b_ms, by = r["bound"]
-            print(f"time {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f} ms, library: no single "
-                  f"PyTorch call, bound {b_ms:.5f} ms ({by})")
+        rows["ssd_slab_decode"] = timed(
+            lambda: ssd_slab_decode(pool, ids, x, dtv, a, b, c),
+            lambda: ssd_slab_decode_plain(pool, ids, x, dtv, a, b, c), None,
+            bound_ms(nbytes, 5 * state, torch.float32),
+            f"pool ({NUM_SLABS},{h},{p},{n}) fp32, 4 rows")
+        print_rows(rows, "")
         self.rows.update(rows)
 
 
@@ -989,16 +1099,9 @@ def step_profile(cfg, params, dev, card, tag, outfile):
         for _ in range(5):
             step()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    key = ("self_device_time_total"
-           if hasattr(events[0], "self_device_time_total")
-           else "self_cuda_time_total")
+    events, key, kernels = device_kernels(prof)
     dev_us = lambda e: getattr(e, key)
-    # device activity rows (kernels, copies) have no host time of their
-    # own; operator rows repeat their kernels' device time
-    kernels = sorted((e for e in events
-                      if dev_us(e) > 0 and e.self_cpu_time_total == 0),
-                     key=dev_us, reverse=True)
+    kernels.sort(key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / 5
     lengths = [p + STEPS for p in PROMPT_LENS]
     print(f"{tag} [{card}] {cfg.name} {cfg.dtype}, 4 rows, W={w}, lengths "
@@ -1036,6 +1139,7 @@ def main() -> int:
     checks.run(get_config("internlm2_1_8b"))
     checks.run_ssm(get_config("mamba2_780m"))
     checks.run_mla(get_config("deepseek_v2_lite_16b"))
+    checks.rank()
 
     counts = gqa_path(dev, card)                                # phases 4-5
     counts += ssm_path(dev, card)                               # phases 4b-5b

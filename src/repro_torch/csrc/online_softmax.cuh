@@ -1,10 +1,14 @@
-// Online-softmax recurrence shared by the attention kernels (flash prefill,
-// dense decode, paged decode).
+// Online-softmax recurrence of the CUDA-core attention kernels, in shared
+// memory: the decode pair (decode_attention.cu and paged_decode_attention.cu,
+// every dtype, through decode_sweep below) and the fp32 paths of
+// flash_attention.cu and paged_mla_decode_attention.cu.  Their bf16 paths
+// run on the tensor cores and keep the same recurrence in registers
+// (flash_tc_kernel, mla_tc_kernel).
 //
 // Counterpart of online_softmax_init / _block / _finalize in
-// src/repro/kernels/decode_attention.py:38-63.  All three kernels sweep KV
-// one tile at a time and differ only in how a tile is addressed, so they
-// keep the same per-row arithmetic: a running max m, a denominator l and an
+// src/repro/kernels/decode_attention.py:38-63.  Its users sweep KV one
+// tile at a time and differ only in how a tile is addressed, so they keep
+// the same per-row arithmetic: a running max m, a denominator l and an
 // fp32 accumulator acc per query row, masking with -1e30 and dividing by
 // max(l, 1e-30) at the end (a row that saw no tile finalizes to 0, not NaN).
 //

@@ -41,9 +41,9 @@ SIGNATURES = {
                                 _L, _L, _L, _I, _F, _I, _P],
     "paged_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _L, _L, _L, _F, _I, _P],
-    "paged_mla_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                          _I, _I, _I, _I, _I, _L, _L, _L, _L,
-                                          _F, _I, _P],
+    "paged_mla_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _I, _I,
+                                          _L, _L, _L, _L, _F, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                _I, _F, _I, _P],
@@ -191,6 +191,19 @@ def check_unit_stride(name: str, t: torch.Tensor) -> None:
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: the last axis must be unit-stride, got "
                          f"strides {t.stride()}")
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """The tensor-core kernels copy 16 bytes at a time: ``t``'s base and
+    the strides of its axes but the last (unit) one must be multiples of 16
+    bytes (an axis of size 1 is never stepped, so its stride is free)."""
+    el = t.element_size()
+    strides = [st for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
+    if t.data_ptr() % 16 or any(st * el % 16 for st in strides):
+        raise ValueError(f"{name}: base and strides must be 16-byte aligned, "
+                         f"got base {t.data_ptr():#x} % 16 = "
+                         f"{t.data_ptr() % 16}, strides {t.stride()} of "
+                         f"{el}-byte elements")
 
 
 def check_index(name: str, t: torch.Tensor, shape: tuple) -> None:

@@ -5,9 +5,13 @@ Counterpart of ``repro/kernels/flash_attention.py``, in the model's
 (B, S, N, H) layout (the kernel reads it through strides; nothing is
 transposed).  The value width may differ from the query/key width: MLA
 prefill attends with H = qk_nope + qk_rope and Hv = v_head_dim.  The plain version is the model's ``_sdpa``
-(``repro/models/layers.py:118``): it rounds the softmax probabilities to
-the value dtype before the PV product, while the kernel keeps them in fp32,
-so the two agree exactly in fp32 and to bf16 tolerance in bf16.
+(``repro/models/layers.py:118``): it rounds the normalised softmax
+probabilities to the value dtype before the PV product.  The kernel has
+two versions, chosen by dtype: fp32 runs on the CUDA cores and keeps the
+probabilities in fp32 (agreeing with the plain version to 1e-5); bf16 runs
+on the tensor cores and rounds the unnormalised probabilities to bf16
+(agreeing to the bf16 tolerance), for the head widths in
+:data:`TENSOR_CORE_WIDTHS` only and with 16-byte aligned operands.
 """
 
 from __future__ import annotations
@@ -15,6 +19,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+
+# (H, Hv) pairs the bf16 tensor-core kernel is instantiated for
+# (csrc/flash_attention.cu): the repo's attention configs' head widths --
+# internlm2, llama3, granite, qwen (128), whisper (64), zamba2 (112) and
+# MLA prefill (192 / 128)
+TENSOR_CORE_WIDTHS = frozenset({(64, 64), (112, 112), (128, 128),
+                                (192, 128)})
 
 
 def sdpa(q, k, v, *, mask, scale: float):
@@ -50,7 +61,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
     """q (B,S,Nq,H); k (B,S,Nkv,H); v (B,S,Nkv,Hv) -> (B,S,Nq,Hv) in q's
     dtype.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel, which in bf16 raises ``ValueError`` for an (H, Hv) outside
+    :data:`TENSOR_CORE_WIDTHS` or an operand whose base or strides are not
+    16-byte aligned."""
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     dtype = _build.kernel_dtype(q, k, v)
@@ -63,6 +76,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
             f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_unit_stride(f"flash_attention {name}", t)
+        if q.dtype == torch.bfloat16:
+            _build.check_aligned(f"flash_attention {name}", t)
+    if q.dtype == torch.bfloat16 and (h, hv) not in TENSOR_CORE_WIDTHS:
+        raise ValueError(
+            f"flash_attention: no bf16 kernel for head widths (H, Hv) = "
+            f"({h}, {hv}); instantiated: {sorted(TENSOR_CORE_WIDTHS)}")
     out = torch.empty((b, s, nq, hv), dtype=q.dtype, device=q.device)
     if b and s:
         _build.launch(

@@ -20,10 +20,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (TENSOR_CORE_WIDTHS,
+                                                 flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (
-    paged_decode_attention, paged_decode_attention_plain,
+    MLA_TILES_PER_SPLIT, paged_decode_attention, paged_decode_attention_plain,
     paged_mla_decode_attention, paged_mla_decode_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 from repro_torch.kernels.ssd_scan import (ssd_intra, ssd_intra_plain,
@@ -66,12 +67,52 @@ class TestCudaKernels:
         _close(rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5), dtype)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("s", [8, 40, 256])
-    def test_flash_attention(self, cuda, dtype, s):
-        q, k, v = _inputs(21, dtype, (2, s, 16, 128), (2, s, 8, 128),
-                          (2, s, 8, 128), device=cuda)
+    @pytest.mark.parametrize("b", [1, 4])
+    @pytest.mark.parametrize("s", [8, 40, 64, 100, 256])
+    def test_flash_attention(self, cuda, dtype, b, s):
+        """GQA g = 2; S at the prefill buckets, a ragged 40 and 100, and
+        one whole 64-row tile (the bf16 kernel's tile)."""
+        q, k, v = _inputs(21, dtype, (b, s, 16, 128), (b, s, 8, 128),
+                          (b, s, 8, 128), device=cuda)
         _close(flash_attention(q, k, v), flash_attention_plain(q, k, v),
                dtype)
+
+    @pytest.mark.parametrize("b", [2, 8])
+    def test_flash_non_causal(self, cuda, b):
+        q, k, v = _inputs(25, "bfloat16", (b, 100, 16, 128), (b, 100, 8, 128),
+                          (b, 100, 8, 128), device=cuda)
+        _close(flash_attention(q, k, v, causal=False, scale=0.1),
+               flash_attention_plain(q, k, v, causal=False, scale=0.1),
+               "bfloat16")
+
+    @pytest.mark.parametrize("widths", sorted(TENSOR_CORE_WIDTHS))
+    @pytest.mark.parametrize("b,s", [(1, 200), (4, 256)])
+    def test_flash_every_instantiated_width(self, cuda, widths, b, s):
+        """Each (H, Hv) of the bf16 kernel, at one prefill row (a grid that
+        leaves SMs idle: 8 warps, key halves) and at the batched bucket
+        (4 warps)."""
+        h, hv = widths
+        q, k, v = _inputs(28, "bfloat16", (b, s, 16, h), (b, s, 8, h),
+                          (b, s, 8, hv), device=cuda)
+        _close(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+               "bfloat16")
+
+    def test_flash_refuses_what_the_tensor_cores_cannot_take(self, cuda):
+        """bf16 needs 16-byte aligned operands and an instantiated (H, Hv);
+        fp32 (the CUDA-core kernel) takes both."""
+        q, k, wide = _inputs(26, "bfloat16", (1, 40, 16, 128),
+                             (1, 40, 8, 128), (1, 40, 8, 256), device=cuda)
+        _build.reset_launches()
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention(q, k, wide[..., 4:132])  # base 8 bytes off
+        q96, k96, v96 = _inputs(27, "bfloat16", (1, 40, 4, 96),
+                                (1, 40, 4, 96), (1, 40, 4, 96), device=cuda)
+        with pytest.raises(ValueError, match="no bf16 kernel"):
+            flash_attention(q96, k96, v96)
+        assert _build.launches["flash_attention"] == 0
+        q32, k32, v32 = (t.float() for t in (q96, k96, v96))
+        _close(flash_attention(q32, k32, v32),
+               flash_attention_plain(q32, k32, v32), "float32")
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_decode_attention(self, cuda, dtype):
@@ -371,14 +412,63 @@ class TestCudaMLAKernels:
         assert torch.equal(dense, paged)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    def test_head_group_size_changes_no_bit(self, cuda, dtype):
+    def test_lengths_across_split_boundaries(self, cuda, dtype):
+        """Lengths 0, 1, one block +- 1, every split boundary of a W-16
+        table +- 1 (splits of MLA_TILES_PER_SPLIT blocks), and W * 16."""
+        edge = 16 * MLA_TILES_PER_SPLIT
+        lengths = sorted({0, 1, 15, 16, 17, 16 * 16}
+                         | {n for k in range(1, 16 // MLA_TILES_PER_SPLIT)
+                            for n in (k * edge - 1, k * edge, k * edge + 1)})
+        nb = 1 + sum(-(-n // 16) for n in lengths)
         q_lat, q_rope, ckv, krope, tables, lens = _mla_inputs(
-            42, dtype, [5, 233, 64, 1], cuda)
-        outs = [paged_mla_decode_attention(q_lat, q_rope, ckv, krope, tables,
-                                           lens, heads_per_block=g)
-                for g in (16, 8, 4, 1)]
-        for out in outs[1:]:
-            assert torch.equal(out, outs[0])
+            42, dtype, lengths, cuda, nb=nb)
+        scale = MLA_QK ** -0.5
+        got = paged_mla_decode_attention(q_lat, q_rope, ckv, krope, tables,
+                                         lens, scale=scale)
+        want = paged_mla_decode_attention_plain(q_lat, q_rope, ckv, krope,
+                                                tables, lens, scale=scale)
+        _close(got[1:], want[1:], dtype)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [16, 32])
+    def test_dense_view_of_any_width_equals_paged(self, cuda, dtype, w):
+        """Batched decode's width-16 table and unbatched decode's dense
+        cache (B, W*16, R) under the identity table, at W 16 and 32, give
+        the same bits: splits follow block indices, never the width."""
+        q_lat, q_rope, ckv, krope, tables, lens = _mla_inputs(
+            46, dtype, [38, 101, 233, 17], cuda)
+        paged = paged_mla_decode_attention(q_lat, q_rope, ckv, krope, tables,
+                                           lens)
+        b = tables.shape[0]
+        lanes = torch.zeros((b, w), dtype=torch.int32, device=cuda)
+        lanes[:, :16] = tables  # lanes past the live blocks: scratch block 0
+        dense_ckv = ckv[lanes.long()].reshape(b * w, 16, MLA_R)
+        dense_kr = krope[lanes.long()].reshape(b * w, 16, MLA_PR)
+        ident = (torch.arange(b, device=cuda)[:, None] * w
+                 + torch.arange(w, device=cuda)[None, :]).to(torch.int32)
+        dense = paged_mla_decode_attention(q_lat, q_rope, dense_ckv, dense_kr,
+                                           ident, lens)
+        assert torch.equal(dense, paged)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_two_streams_at_once_equal_one_after_the_other(self, cuda,
+                                                           dtype):
+        """Each call takes its scratch on the caller's stream: two calls in
+        flight on two streams give the bits of the same calls in turn."""
+        one = _mla_inputs(47, dtype, [233, 38, 101, 64], cuda)
+        two = _mla_inputs(48, dtype, [17, 200, 0, 129], cuda)
+        want = [paged_mla_decode_attention(*args) for args in (one, two)]
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        got = []
+        for _ in range(3):
+            for stream, args in zip(streams, (one, two)):
+                with torch.cuda.stream(stream):
+                    got.append(paged_mla_decode_attention(*args))
+        torch.cuda.synchronize()
+        for i, out in enumerate(got):
+            assert torch.equal(out, want[i % 2])
 
     def test_cuda_tensors_launch_or_raise(self, cuda, monkeypatch):
         from repro_torch.kernels import paged_decode_attention as pda
@@ -397,23 +487,26 @@ class TestCudaMLAKernels:
         with pytest.raises(ValueError):  # strided queries are refused
             pda.paged_mla_decode_attention(q_lat.transpose(0, 1), q_rope,
                                            ckv, krope, tables, lens)
-        with pytest.raises(ValueError):  # a group that does not divide Nq
-            pda.paged_mla_decode_attention(q_lat, q_rope, ckv, krope, tables,
-                                           lens, heads_per_block=3)
+        with pytest.raises(ValueError):  # bf16 at widths with no kernel
+            pda.paged_mla_decode_attention(
+                q_lat[..., :256].contiguous().bfloat16(), q_rope.bfloat16(),
+                ckv[..., :256].contiguous().bfloat16(), krope.bfloat16(),
+                tables, lens)
         with pytest.raises(TypeError):  # mixed dtypes
             pda.paged_mla_decode_attention(q_lat.half(), q_rope, ckv, krope,
                                            tables, lens)
         assert _build.launches["paged_mla_decode_attention"] == 1
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("s", [8, 40, 256])
-    def test_flash_value_width(self, cuda, dtype, s):
-        q, k, v = _inputs(44, dtype, (2, s, MLA_NQ, MLA_QK),
-                          (2, s, MLA_NQ, MLA_QK), (2, s, MLA_NQ, MLA_V),
+    @pytest.mark.parametrize("b", [1, 4])
+    @pytest.mark.parametrize("s", [8, 40, 64, 100, 256])
+    def test_flash_value_width(self, cuda, dtype, b, s):
+        q, k, v = _inputs(44, dtype, (b, s, MLA_NQ, MLA_QK),
+                          (b, s, MLA_NQ, MLA_QK), (b, s, MLA_NQ, MLA_V),
                           device=cuda)
         scale = MLA_QK ** -0.5
         got = flash_attention(q, k, v, scale=scale)
-        assert tuple(got.shape) == (2, s, MLA_NQ, MLA_V)
+        assert tuple(got.shape) == (b, s, MLA_NQ, MLA_V)
         _close(got, flash_attention_plain(q, k, v, scale=scale), dtype)
 
     def test_flash_reads_v_through_its_own_strides(self, cuda):

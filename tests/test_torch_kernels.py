@@ -258,3 +258,44 @@ class TestWrappers:
             rmsnorm(x, w, 1e-5)
         with pytest.raises(ValueError, match="several devices"):
             rmsnorm(torch.zeros(2, 8), w, 1e-5)
+
+
+class TestTensorCoreContracts:
+    """Host-side contracts of the bf16 tensor-core kernels, on the CPU:
+    which head widths have a flash instantiation, and which operands the
+    16-byte copies accept."""
+
+    def test_flash_widths_cover_every_attention_config(self):
+        from repro_torch.configs.registry import get_config, list_configs
+        from repro_torch.kernels.flash_attention import TENSOR_CORE_WIDTHS
+
+        for name in list_configs():
+            cfg = get_config(name)
+            if cfg.attn_type == "mla":
+                widths = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                          cfg.v_head_dim)
+            elif cfg.num_heads:
+                widths = (cfg.head_dim, cfg.head_dim)
+            else:
+                continue
+            assert widths in TENSOR_CORE_WIDTHS, name
+
+    def test_aligned_views_pass(self):
+        wide = torch.zeros((2, 40, 8, 256), dtype=torch.bfloat16)
+        _build.check_aligned("wide", wide)
+        _build.check_aligned("v", wide[..., 64:192])  # 128-byte offset
+        # an axis of size 1 is never stepped: its stride is free
+        _build.check_aligned("b1", wide[:1].as_strided((1, 40, 8, 128),
+                                                       (3, 2048, 256, 1)))
+
+    @pytest.mark.parametrize("start", [1, 4])  # 2- and 8-byte offsets
+    def test_misaligned_base_raises(self, start):
+        wide = torch.zeros((2, 40, 8, 256), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="16-byte"):
+            _build.check_aligned("v", wide[..., start:start + 128])
+
+    def test_misaligned_stride_raises(self):
+        odd = torch.zeros((40, 8, 132), dtype=torch.bfloat16)[..., :128]
+        with pytest.raises(ValueError, match="16-byte"):
+            _build.check_aligned("v", odd)
+

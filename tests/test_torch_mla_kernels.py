@@ -25,6 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (
+    MLA_TILES_PER_SPLIT, mla_scratch_shapes, mla_splits,
     paged_mla_decode_attention, paged_mla_decode_attention_plain)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -152,13 +153,104 @@ class TestPagedMLADecodeAttention:
     def test_cpu_takes_the_plain_version_and_counts_nothing(self):
         pairs, tables = _make(46, 1, 2, 16, 8, 4, 16, 2, "float32")
         _build.reset_launches()
-        got, _ = _both(pairs, tables, np.array([17], np.int32),
-                       heads_per_block=1)
+        got, _ = _both(pairs, tables, np.array([17], np.int32))
         want = paged_mla_decode_attention_plain(
             *(t for _, t in pairs), torch.from_numpy(tables),
             torch.tensor([17], dtype=torch.int32))
         assert torch.equal(got, want)
         assert sum(_build.launches.values()) == 0
+
+
+def _split_merge(q_lat, q_rope, ckv_pool, krope_pool, tables, lengths,
+                 scale):
+    """The CUDA kernel's algorithm in torch, fp32: split s of a row walks
+    the row's blocks [s*T, (s+1)*T) with its own softmax state (max m,
+    denominator l, unnormalised accumulator), and the merge combines the
+    live splits of the row in split order."""
+    b, w = tables.shape
+    bs, r = ckv_pool.shape[1], ckv_pool.shape[2]
+    out = torch.zeros(q_lat.shape, dtype=torch.float32)
+    for row in range(b):
+        n = min(int(lengths[row]), w * bs)
+        ntiles = -(-n // bs)
+        parts = []
+        for s in range(mla_splits(w)):
+            t0 = s * MLA_TILES_PER_SPLIT
+            if t0 >= ntiles:
+                break
+            blocks = tables[row, t0:min(t0 + MLA_TILES_PER_SPLIT, ntiles)]
+            ckv = ckv_pool[blocks.long()].reshape(-1, r).float()
+            kr = krope_pool[blocks.long()].reshape(ckv.shape[0], -1).float()
+            pos = torch.arange(t0 * bs, t0 * bs + ckv.shape[0])
+            sc = (q_lat[row].float() @ ckv.T + q_rope[row].float() @ kr.T
+                  ) * scale
+            sc = torch.where(pos[None] < n, sc, torch.tensor(-1e30))
+            m = sc.max(-1).values
+            p = torch.exp(sc - m[:, None])
+            parts.append((m, p.sum(-1), p @ ckv))
+        if parts:
+            mx = torch.stack([m for m, _, _ in parts]).max(0).values
+            acc = torch.zeros_like(parts[0][2])
+            den = torch.zeros_like(mx)
+            for m, l, a in parts:
+                wt = torch.exp(m - mx)
+                den = den + l * wt
+                acc = acc + a * wt[:, None]
+            out[row] = acc / den.clamp_min(1e-30)[:, None]
+    return out
+
+
+class TestMLASplitPlan:
+    """The host side of the kernel's split KV sweep: the grid's split count
+    and scratch shapes, and the split-and-merge arithmetic (emulated in
+    torch) against the plain version and the reference oracle."""
+
+    @pytest.mark.parametrize("width,splits", [
+        (0, 0), (1, 1), (MLA_TILES_PER_SPLIT, 1), (MLA_TILES_PER_SPLIT + 1, 2),
+        (16, -(-16 // MLA_TILES_PER_SPLIT)), (32, -(-32 // MLA_TILES_PER_SPLIT)),
+    ])
+    def test_splits_follow_the_width_alone(self, width, splits):
+        assert mla_splits(width) == splits
+
+    def test_scratch_shapes(self):
+        ns = mla_splits(16)
+        assert mla_scratch_shapes(4, 16, 512, 16) == ((4, ns, 16, 512),
+                                                      (4, ns, 16, 2))
+        assert mla_scratch_shapes(2, 4, 32, 0) == ((2, 0, 4, 32),
+                                                   (2, 0, 4, 2))
+
+    @pytest.mark.parametrize("lengths", [
+        [1, 15, 16, 17],
+        [16 * MLA_TILES_PER_SPLIT - 1, 16 * MLA_TILES_PER_SPLIT,
+         16 * MLA_TILES_PER_SPLIT + 1, 16 * 2 * MLA_TILES_PER_SPLIT + 1],
+        [63, 64, 65, 16 * 8],
+    ])
+    def test_split_merge_matches_plain_and_ref(self, lengths):
+        b, nq, r, pr, bs, w = 4, 4, 32, 8, 16, 8
+        pairs, tables = _make(48, b, nq, r, pr, b * w, bs, w, "float32")
+        lens = np.array(lengths, np.int32)
+        got, args = _both(pairs, tables, lens, scale=24 ** -0.5)
+        ts = [t for _, t in pairs]
+        emulated = _split_merge(*ts, torch.from_numpy(tables),
+                                torch.from_numpy(lens), 24 ** -0.5)
+        _close(emulated, got, "float32")
+        _close(emulated, ref.paged_mla_decode_attention_ref(
+            *args, scale=24 ** -0.5), "float32")
+
+    def test_split_merge_ignores_the_table_width(self):
+        """A wider table (the unbatched dense cache's) adds splits that
+        exit at once: each row's splits and merge are the same, bit for
+        bit; a row of length 0 merges nothing and gives 0."""
+        b, nq, r, pr, bs, w = 3, 2, 32, 8, 16, 4
+        pairs, tables = _make(49, b, nq, r, pr, 4 * w, bs, w, "float32")
+        ts = [t for _, t in pairs]
+        wide = np.concatenate([tables, np.zeros_like(tables)], axis=1)
+        lens = torch.tensor([0, 33, w * bs], dtype=torch.int32)
+        narrow_out = _split_merge(*ts, torch.from_numpy(tables), lens, 0.2)
+        wide_out = _split_merge(*ts, torch.from_numpy(wide), lens, 0.2)
+        assert mla_splits(2 * w) > mla_splits(w)
+        assert torch.equal(narrow_out, wide_out)
+        assert torch.equal(narrow_out[0], torch.zeros_like(narrow_out[0]))
 
 
 class TestFlashValueWidth:
