@@ -9,11 +9,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. card: name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   per source, all in parallel);
+   per source, all in parallel) and, beside the build, the GQA decode pair's
+   sources alone to cubins: registers and spills (``-Xptxas -v``) and the
+   ``HMMA`` count (``cuobjdump -sass``) of every kernel; a bf16 decode
+   kernel without ``HMMA`` fails;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's full-width shapes, in fp32 and bf16 -- the attention kernels
    and rmsnorm at internlm2-1.8b widths (ragged lengths, scratch-block
-   table lanes, length 0, prefill buckets 8 and 256), the SSD kernels at
+   table lanes, length 0, prefill buckets 8 and 256; the GQA decode pair
+   at lengths on both sides of every KV split boundary, and paged decode
+   through tables of width 16 and 32 bit-identical to dense decode of the
+   same rows), the SSD kernels at
    mamba2-780m widths (chunks of 5, 200 and 256, slab ids permuted and
    repeated), the MLA decode kernel and flash attention with a value width
    of its own at deepseek-v2-lite-16b widths (latent pools, lengths on both
@@ -22,8 +28,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    call's (where one PyTorch call computes the same function) and its
    bound, each kernel's and library call's device time per call from one
    profiler window, a ranking by device time against the library call,
-   and two timings for information (flash at the batched prefill bucket,
-   the MLA kernel over a 32-block table);
+   and timings for information (the GQA decode pair over a 32-block table
+   and the whole cache, flash at the batched prefill bucket, the MLA kernel
+   over a 32-block table);
 4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
    servers -- must give the greedy tokens of unbatched ``generate``, use
@@ -111,6 +118,78 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# sources whose bf16 kernels must run on the tensor cores, reported in
+# phase 2: registers and spills (ptxas -v), HMMA instructions (cuobjdump)
+SASS_SOURCES = ("decode_attention.cu", "paged_decode_attention.cu")
+
+
+def start_sass_report(csrc: pathlib.Path, nvcc: str):
+    """Compiles each of SASS_SOURCES alone to a cubin with the build's
+    target and -Xptxas -v (started, not waited for: it runs beside the
+    build).  Returns the processes for :func:`sass_report`."""
+    from repro_torch.kernels import _build
+
+    out = ROOT / "chiprun_out" / "sass"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    return [(name, out / f"{name}.cubin", subprocess.Popen(
+        [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o",
+         str(out / f"{name}.cubin"), str(csrc / name)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name in SASS_SOURCES]
+
+
+def sass_report(procs, nvcc: str) -> None:
+    """Per kernel of each cubin: registers, spill bytes and HMMA count.
+    Fails if a bf16 decode kernel (decode_tc_kernel) holds no HMMA."""
+    import re
+
+    tools = pathlib.Path(nvcc).parent
+    for name, cubin, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise SmokeFailure(f"nvcc -cubin {name} failed:\n{err}")
+        usage, fn = {}, None
+        for line in err.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                usage[fn] = ["?", "?", "?"]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                usage[fn][0] = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and fn:
+                usage[fn][1:] = [m.group(1), m.group(2)]
+        sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(cubin)],
+                              capture_output=True, text=True, check=True).stdout
+        hmma, fn = Counter(), None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and "HMMA" in line:
+                hmma[fn] += 1
+        names = list(usage)
+        try:
+            demangled = subprocess.run([str(tools / "cu++filt"), *names],
+                                       capture_output=True, text=True
+                                       ).stdout.splitlines()
+        except OSError:  # no demangler: the mangled names
+            demangled = []
+        if len(demangled) != len(names):
+            demangled = names
+        for fn, pretty in zip(names, demangled):
+            short = pretty.replace("(int)", "").replace("<unnamed>::", "")
+            short = short.removeprefix("void ").split("(")[0]
+            regs, st, ld = usage[fn]
+            print(f"sass {name} {short}: {hmma[fn]} HMMA, {regs} registers, "
+                  f"{st} bytes spill stores, {ld} bytes spill loads")
+            if "decode_tc_kernel" in fn and not hmma[fn]:
+                raise SmokeFailure(f"{name}: {short} holds no HMMA")
+
+
 def time_ms(fn, *, iters: int = 20, reps: int = 5) -> float:
     """Median over ``reps`` of the CUDA-event time per call of ``iters``
     back-to-back calls (for calls shorter than their host cost this is the
@@ -148,9 +227,10 @@ def device_kernels(prof):
 def device_ms(fn, *, iters: int = 50, tries: int = 3) -> float:
     """Device time per call of ``fn``: the summed device time of every
     kernel that ``iters`` back-to-back calls launched, from one
-    torch.profiler window (the host's issue rate does not enter).  A
-    window that recorded no device activity at all is taken again; NaN
-    (not measured) if every one of ``tries`` windows came back empty."""
+    torch.profiler window (the host's issue rate does not enter).  Every
+    call launches at least one kernel, so a window that recorded fewer
+    than ``iters`` device activities lost some and is taken again; NaN
+    (not measured) if every one of ``tries`` windows came back short."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -162,9 +242,8 @@ def device_ms(fn, *, iters: int = 50, tries: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         _, key, rows = device_kernels(prof)
-        total_us = sum(getattr(e, key) for e in rows)
-        if total_us > 0:
-            return total_us / 1e3 / iters
+        if sum(e.count for e in rows) >= iters:
+            return sum(getattr(e, key) for e in rows) / 1e3 / iters
     return float("nan")
 
 
@@ -307,7 +386,64 @@ class KernelChecks:
             self.check("paged_decode_attention", "equals dense decode",
                        paged_decode_attention(q, kp, vp, tables, ok_len),
                        decode_attention(q, kd, vd, ok_len, block_k=BLOCK), dt)
+            self.gqa_split_edges(cfg, dt)
         self.time_all(cfg, nb)
+
+    def gqa_split_edges(self, cfg, dt):
+        """The GQA decode pair at lengths on both sides of every KV split
+        boundary of a W-16 table (splits of DECODE_TILES_PER_SPLIT blocks),
+        0, 1, 15-17 and 256, against the plain versions; then paged decode
+        through tables of width 16 and 32 and dense decode of the same rows
+        (block_k = the block size) must give the same bits."""
+        from repro_torch.kernels.decode_attention import (
+            DECODE_TILES_PER_SPLIT, decode_attention, decode_attention_plain)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_decode_attention, paged_decode_attention_plain)
+
+        nq, nkv, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        w16 = 16
+        edge = BLOCK * DECODE_TILES_PER_SPLIT
+        lengths = sorted({0, 1, 15, 16, 17, w16 * BLOCK} | {
+            n for j in range(1, w16 // DECODE_TILES_PER_SPLIT)
+            for n in (j * edge - 1, j * edge, j * edge + 1)})
+        b = len(lengths)
+        nb = 1 + sum(-(-n // BLOCK) for n in lengths)
+        q = self.randn(b, nq, h, dtype=dt)
+        kp = self.randn(nb, BLOCK, nkv, h, dtype=dt)
+        vp = self.randn(nb, BLOCK, nkv, h, dtype=dt)
+        kp[0], vp[0] = 1e4, -1e4  # the scratch block: no row may read it
+        tables = self.table(lengths, w16, nb)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
+        case = f"split edges, {b} rows, lengths {lengths[0]}..{lengths[-1]}"
+        paged = paged_decode_attention(q, kp, vp, tables, lens)
+        e = self.check("paged_decode_attention", case, paged,
+                       paged_decode_attention_plain(q, kp, vp, tables, lens),
+                       dt)
+        self.errors["paged_decode_attention"] = max(
+            self.errors["paged_decode_attention"], e)
+        kd = kp[tables.long()].flatten(1, 2)
+        vd = vp[tables.long()].flatten(1, 2)
+        e = self.check("decode_attention", case,
+                       decode_attention(q, kd, vd, lens, block_k=BLOCK),
+                       decode_attention_plain(q, kd, vd, lens), dt)
+        self.errors["decode_attention"] = max(
+            self.errors["decode_attention"], e)
+        for w in (w16, 2 * w16):
+            lanes = torch.zeros((b, w), dtype=torch.int32, device=self.dev)
+            lanes[:, :w16] = tables  # past them: the scratch block
+            kd = kp[lanes.long()].flatten(1, 2)
+            vd = vp[lanes.long()].flatten(1, 2)
+            outs = {f"paged W={w}": paged_decode_attention(q, kp, vp, lanes,
+                                                           lens),
+                    f"dense Smax={w * BLOCK}": decode_attention(
+                        q, kd, vd, lens, block_k=BLOCK)}
+            torch.cuda.synchronize()
+            for what, out in outs.items():
+                if not torch.equal(out, paged):
+                    raise SmokeFailure(f"GQA decode: {what} differs from "
+                                       f"paged W={w16} at {case}")
+            print(f"check GQA decode [{', '.join(outs)} against paged "
+                  f"W={w16}, {case}] {str(dt)[6:]}: bit-identical ok")
 
     def time_all(self, cfg, nb):
         """Times at main-path shapes in bf16 (the config's dtype)."""
@@ -391,6 +527,38 @@ class KernelChecks:
             f"W={w_cols}, lengths {lengths}")
         print_rows(rows, "F.rms_norm / SDPA")
         self.rows.update(rows)
+
+        # information only: the decode pair over a 32-block table and the
+        # whole (4, 512) cache, lengths to 512
+        lengths = [130, 260, 390, MAX_SEQ]
+        lens = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
+        live = sum(lengths)
+        w_cols = MAX_SEQ // BLOCK
+        tables = self.table(lengths, w_cols, nb)
+        mask = (torch.arange(MAX_SEQ, device=self.dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        kg = kp[tables.long()].reshape(4, -1, nkv, h).transpose(1, 2)
+        vg = vp[tables.long()].reshape(4, -1, nkv, h).transpose(1, 2)
+        kv_bytes = 2 * live * nkv * h * el
+        info = {}
+        info["paged_decode_attention"] = timed(
+            lambda: paged_decode_attention(q, kp, vp, tables, lens),
+            lambda: paged_decode_attention_plain(q, kp, vp, tables, lens),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True),
+            bound_ms(kv_bytes + q_bytes + tables.numel() * 4,
+                     4 * nq * h * live, dt),
+            f"W={w_cols}, lengths {lengths} (information only)")
+        info["decode_attention"] = timed(
+            lambda: decode_attention(q, kc, vc, lens),
+            lambda: decode_attention_plain(q, kc, vc, lens),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True),
+            bound_ms(kv_bytes + q_bytes, 4 * nq * h * live, dt),
+            f"cache (4,{MAX_SEQ},{nkv},{h}), lengths {lengths} "
+            "(information only)")
+        print_rows(info, "SDPA")
 
         # information only: flash at the batched prefill bucket (4, 256)
         q = self.randn(4, 256, nq, h, dtype=dt)
@@ -1130,10 +1298,13 @@ def main() -> int:
 
     card = card_line()                                          # phase 1
     print(card)
-    build_s = _build.build()                                    # phase 2
+    nvcc = _build._nvcc()                                       # phase 2
+    sass = start_sass_report(_build.CSRC, nvcc)
+    build_s = _build.build()
     _build.library()
     print(f"build: {build_s:.1f} s (one nvcc per source, in parallel, "
           f"{len(list(_build.CSRC.glob('*.cu')))} sources, then one link)")
+    sass_report(sass, nvcc)
 
     checks = KernelChecks(dev)                                  # phase 3
     checks.run(get_config("internlm2_1_8b"))

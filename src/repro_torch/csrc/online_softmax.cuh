@@ -1,9 +1,8 @@
 // Online-softmax recurrence of the CUDA-core attention kernels, in shared
-// memory: the decode pair (decode_attention.cu and paged_decode_attention.cu,
-// every dtype, through decode_sweep below) and the fp32 paths of
-// flash_attention.cu and paged_mla_decode_attention.cu.  Their bf16 paths
-// run on the tensor cores and keep the same recurrence in registers
-// (flash_tc_kernel, mla_tc_kernel).
+// memory: the fp32 paths of flash_attention.cu, paged_mla_decode_attention.cu
+// and the GQA decode pair (decode_split.cuh).  Their bf16 paths run on the
+// tensor cores and keep the same recurrence in registers (flash_tc_kernel,
+// mla_tc_kernel, decode_tc_kernel).
 //
 // Counterpart of online_softmax_init / _block / _finalize in
 // src/repro/kernels/decode_attention.py:38-63.  Its users sweep KV one
@@ -90,67 +89,4 @@ __device__ __forceinline__ void online_softmax_block(const SoftmaxState& st, flo
 __device__ __forceinline__ float online_softmax_finalize(const SoftmaxState& st, int i,
                                                          int h) {
   return st.acc[i] / fmaxf(st.l[i / h], 1e-30f);
-}
-
-// ---------------------------------------------------------------------------
-// Decode sweep shared by the dense (decode_attention.cu) and paged
-// (paged_decode_attention.cu) kernels: one thread block serves the g query
-// heads of one (row, kv head), so every KV tile is read from device memory
-// once, not once per query head.  The kernels differ only in `TileOffset`,
-// which maps (tile j, position t in the tile) to the element offset of that
-// position's head vector.
-// ---------------------------------------------------------------------------
-
-constexpr int kDecodeThreads = 128;
-
-__host__ __device__ inline int decode_smem_floats(int g, int h, int bk) {
-  return g * h + 2 * bk * h + g * bk + softmax_state_floats(g, h);
-}
-
-template <typename T, typename TileOffset>
-__device__ __forceinline__ void decode_sweep(float* smem, const T* __restrict__ q_rows,
-                                             const T* __restrict__ k,
-                                             const T* __restrict__ v, T* __restrict__ out_rows,
-                                             int g, int h, int bk, int length, int ntiles,
-                                             float scale, TileOffset tile_offset) {
-  float* sq = smem;          // (g, h)  the g query rows
-  float* sk = sq + g * h;    // (bk, h) key tile
-  float* sv = sk + bk * h;   // (bk, h) value tile
-  float* ss = sv + bk * h;   // (g, bk) scores, then probabilities
-  SoftmaxState st;
-  carve_softmax_state(ss + g * bk, g, h, &st);
-
-  for (int i = threadIdx.x; i < g * h; i += blockDim.x) sq[i] = to_f32(q_rows[i]);
-  online_softmax_init(st, g, h);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int j = 0; j < ntiles; ++j) {
-    const int col0 = j * bk;
-    for (int i = threadIdx.x; i < bk * h; i += blockDim.x) {
-      const int t = i / h, d = i - t * h;
-      float kk = 0.f, vv = 0.f;
-      if (col0 + t < length) {
-        const long long off = tile_offset(j, t) + d;
-        kk = to_f32(k[off]);
-        vv = to_f32(v[off]);
-      }
-      sk[i] = kk;
-      sv[i] = vv;
-    }
-    __syncthreads();
-    // one warp per (query head, position): lanes split the head dim
-    for (int p = warp; p < g * bk; p += nwarps) {
-      const int gi = p / bk, t = p - gi * bk;
-      float a = 0.f;
-      for (int d = lane; d < h; d += 32) a += sq[gi * h + d] * sk[t * h + d];
-      a = warp_sum(a);
-      if (lane == 0) ss[p] = col0 + t < length ? a * scale : kNegInf;
-    }
-    __syncthreads();
-    online_softmax_block(st, ss, sv, g, bk, h);
-  }
-  for (int i = threadIdx.x; i < g * h; i += blockDim.x)
-    out_rows[i] = from_f32<T>(online_softmax_finalize(st, i, h));
 }

@@ -25,8 +25,9 @@
 // the group, so each latent tile is read once per group (once per step at
 // deepseek width, Nq 16).  A block writes its partial softmax state -- the
 // running max m, the denominator l and the unnormalised accumulator over
-// (heads, R), all fp32 -- to scratch; a second kernel merges the splits of
-// each row in split order and writes o_lat.
+// (heads, R), all fp32 -- to scratch; a second kernel (split_merge.cuh,
+// shared with the GQA decode pair) merges the splits of each row in split
+// order and writes o_lat.
 //
 // Split-boundary invariant: a split's positions depend only on tile
 // indices and T, never on the table width W, the batch or the grid, and
@@ -55,6 +56,7 @@
 // the online softmax of online_softmax.cuh with c_kv as the value tile --
 // but take the same split and merge, so both dtypes share one structure.
 #include "online_softmax.cuh"
+#include "split_merge.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -69,14 +71,6 @@ constexpr int kF32Threads = 256;
 __host__ __device__ inline int mla_smem_floats(int g, int r, int pr, int bs) {
   return g * (r + pr) + bs * (r + pr) + g * bs + softmax_state_floats(g, r);
 }
-
-// Where a block's partial state goes: acc (B, NS, Nq, R) and stats
-// (B, NS, Nq, 2) = (m, l), both fp32.
-struct Partials {
-  float* acc;
-  float* stats;
-  int ns;  // splits per row in the scratch
-};
 
 __global__ void __launch_bounds__(kF32Threads)
 mla_f32_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope,
@@ -345,64 +339,6 @@ mla_tc_kernel(const bf16* __restrict__ q_lat, const bf16* __restrict__ q_rope,
   }
 }
 
-// ---------------------------------------------------------------------------
-// merge of a row's splits, both dtypes
-// ---------------------------------------------------------------------------
-
-constexpr int kMergeThreads = 128;
-
-// One block per (head, row); one warp weighs the row's live splits, then
-// every thread merges its latent columns, adding the splits in split
-// order.  The split kernels keep m in the base of their exponent (e for
-// fp32, 2 for bf16), so the merge uses the same.
-template <typename T, bool kBase2>
-__global__ void __launch_bounds__(kMergeThreads)
-mla_merge_kernel(const float* __restrict__ acc, const float* __restrict__ stats,
-                 const int* __restrict__ lengths, T* __restrict__ out, int nq, int r, int bs,
-                 int w, int tps, int ns) {
-  extern __shared__ float weight[];  // (ns,) exp(m_s - m)
-  __shared__ float denom;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int length = max(0, min(lengths[b], w * bs));
-  const int ntiles = (length + bs - 1) / bs;
-  const int live = min(ns, (ntiles + tps - 1) / tps);
-  const long long base = static_cast<long long>(b) * ns * nq + h;  // split 0's row
-  if (threadIdx.x < 32) {  // one warp: a lane per split, a fixed reduction tree
-    const int lane = threadIdx.x;
-    float mx = kNegInf;
-    for (int s = lane; s < live; s += 32) mx = fmaxf(mx, stats[(base + s * nq) * 2]);
-    mx = warp_max(mx);
-    float l = 0.f;
-    for (int s = lane; s < live; s += 32) {
-      const float d = stats[(base + s * nq) * 2] - mx;
-      const float e = kBase2 ? exp2f(d) : expf(d);
-      weight[s] = e;
-      l += stats[(base + s * nq) * 2 + 1] * e;
-    }
-    l = warp_sum(l);
-    if (lane == 0) denom = fmaxf(l, 1e-30f);
-  }
-  __syncthreads();
-  T* o = out + (static_cast<long long>(b) * nq + h) * r;
-  for (int d = threadIdx.x; d < r; d += kMergeThreads) {
-    float a = 0.f;  // the splits in split order
-#pragma unroll 4
-    for (int s = 0; s < live; ++s) a += acc[(base + s * nq) * r + d] * weight[s];
-    o[d] = from_f32<T>(a / denom);
-  }
-}
-
-template <typename T, bool kBase2>
-int launch_merge(const float* acc, const float* stats, const int* lengths, void* out, int b,
-                 int nq, int r, int bs, int w, int tps, int ns, cudaStream_t s) {
-  const size_t bytes = sizeof(float) * (ns > 0 ? ns : 1);
-  cudaError_t err = allow_shared_bytes(mla_merge_kernel<T, kBase2>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mla_merge_kernel<T, kBase2><<<dim3(nq, b), kMergeThreads, bytes, s>>>(
-      acc, stats, lengths, static_cast<T*>(out), nq, r, bs, w, tps, ns);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // q_lat (B, Nq, R) and q_rope (B, Nq, PR) contiguous; pools ckv (NB, BS, R)
@@ -436,8 +372,8 @@ extern "C" int paged_mla_decode_attention_launch(
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    return launch_merge<float, false>(part.acc, part.stats, len, out, b, nq, r, bs, w,
-                                      tiles_per_split, ns, s);
+    return launch_split_merge<float, false>(part, len, out, b, nq, r, bs, w * bs,
+                                            tiles_per_split, s);
   }
   if (dtype == kBFloat16) {
     if (r != kR || pr != kPR || bs != kBS) return static_cast<int>(cudaErrorInvalidValue);
@@ -451,8 +387,8 @@ extern "C" int paged_mla_decode_attention_launch(
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    return launch_merge<bf16, true>(part.acc, part.stats, len, out, b, nq, r, bs, w,
-                                    tiles_per_split, ns, s);
+    return launch_split_merge<bf16, true>(part, len, out, b, nq, r, bs, w * bs,
+                                          tiles_per_split, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

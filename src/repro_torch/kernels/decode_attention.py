@@ -1,5 +1,6 @@
 """Dense decode attention: CUDA kernel (``csrc/decode_attention.cu``), plain
-version and wrapper.
+version and wrapper, and the KV split that it shares with the paged kernel
+(``csrc/decode_split.cuh``).
 
 Counterpart of ``repro/kernels/decode_attention.py``, in the model's cache
 layout: q (B, Nq, H) against k/v caches (B, Smax, Nkv, H) with per-row
@@ -9,6 +10,8 @@ layout: q (B, Nq, H) against k/v caches (B, Smax, Nkv, H) with per-row
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import _build
@@ -17,6 +20,17 @@ NEG_INF = -1e30
 # KV tile of the kernel: the serving engine's default kv_block_size, so the
 # dense and paged decode kernels do the same arithmetic per row
 DEFAULT_BLOCK_K = 16
+# KV split of the decode pair: split s of a row walks the row's tiles
+# [s*T, (s+1)*T), T = DECODE_TILES_PER_SPLIT, in one thread block (a tile is
+# a pool block, or block_k positions of the dense cache).  A fixed T keeps
+# every split's positions a function of tile indices alone (never of the
+# table width, the batch or the grid), so a row gives the same bits through
+# any table that holds its blocks and through the dense cache.
+DECODE_TILES_PER_SPLIT = 2
+# head widths of the bf16 tensor-core kernel: every GQA config's head_dim
+# (internlm2, llama3, granite, qwen 128; zamba2 112; whisper 64); fp32 runs
+# on the CUDA cores at any width
+DECODE_TENSOR_CORE_WIDTHS = (64, 112, 128)
 
 
 def masked_softmax_pv(scores: torch.Tensor, valid: torch.Tensor,
@@ -46,11 +60,53 @@ def decode_attention_plain(q, k, v, lengths, *, scale: float | None = None):
     return out.reshape(b, nq, h).to(q.dtype)
 
 
+def decode_splits(width: int) -> int:
+    """Splits per row of a launch over ``width`` tiles (a block table's
+    width, or ceil(Smax / block_k)): the grid is sized from the width alone,
+    so no length is read on the host; splits past a row's live tiles exit
+    at once."""
+    return -(-width // DECODE_TILES_PER_SPLIT)
+
+
+def decode_scratch_shapes(b: int, nq: int, h: int, width: int):
+    """Shapes of a launch's fp32 scratch, one tensor carved in two: the
+    splits' unnormalised accumulators (B, NS, Nq, H), then their (max,
+    denominator) pairs (B, NS, Nq, 2), NS = :func:`decode_splits`."""
+    ns = decode_splits(width)
+    return (b, ns, nq, h), (b, ns, nq, 2)
+
+
+def split_scratch(q: torch.Tensor, width: int) -> torch.Tensor:
+    """A launch's scratch, fresh on the caller's stream (so two calls in
+    flight on two streams share nothing): B * NS * Nq * (H + 2) floats."""
+    acc, stats = decode_scratch_shapes(*q.shape, width)
+    return torch.empty(math.prod(acc) + math.prod(stats),
+                       dtype=torch.float32, device=q.device)
+
+
+def check_tensor_cores(name: str, tile: int, *tensors: torch.Tensor) -> None:
+    """bf16 runs on the tensor cores: a head width of
+    :data:`DECODE_TENSOR_CORE_WIDTHS`, tiles of a multiple of 16 positions
+    and 16-byte aligned operands, else ``ValueError`` before any launch."""
+    h = tensors[0].shape[-1]
+    if h not in DECODE_TENSOR_CORE_WIDTHS or tile % 16:
+        raise ValueError(
+            f"{name}: no bf16 kernel for head width {h} with tiles of {tile} "
+            f"positions; instantiated: H in {DECODE_TENSOR_CORE_WIDTHS}, "
+            "tiles a multiple of 16")
+    for t in tensors:
+        _build.check_aligned(name, t)
+
+
 def decode_attention(q, k, v, lengths, *, scale: float | None = None,
                      block_k: int = DEFAULT_BLOCK_K):
     """q (B,Nq,H); k/v (B,Smax,Nkv,H); lengths (B,) int32 -> (B,Nq,H).
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which sweeps KV tiles of ``block_k`` positions."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel: one
+    thread block per (KV split of :data:`DECODE_TILES_PER_SPLIT` tiles of
+    ``block_k`` positions, up to 16 query heads of one kv head, row), then a
+    merge of each row's splits in split order.  bf16 runs on the tensor
+    cores (see :func:`check_tensor_cores` for what it takes); fp32 on the
+    CUDA cores at any widths."""
     if _build.on_cpu(q, k, v, lengths):
         return decode_attention_plain(q, k, v, lengths, scale=scale)
     dtype = _build.kernel_dtype(q, k, v)
@@ -64,14 +120,19 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None,
             f"(B,Smax,Nkv,H) with equal strides, block_k >= 1; got k "
             f"{tuple(k.shape)} {k.stride()}, v {tuple(v.shape)} {v.stride()}")
     _build.check_unit_stride("decode_attention k", k)
+    if q.dtype == torch.bfloat16:
+        check_tensor_cores("decode_attention", block_k, q, k, v)
     _build.check_index("decode_attention lengths", lengths, (b,))
     out = torch.empty_like(q)
-    if b:
+    if b and nq:
+        width = -(-smax // block_k)
+        scratch = split_scratch(q, width)
         sb, ss, sn, _ = k.stride()
         _build.launch(
             "decode_attention", "decode_attention_launch", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, nq, nkv, h, smax, sb, ss, sn, block_k,
+            scratch.data_ptr(), b, nq, nkv, h, smax, sb, ss, sn, block_k,
+            DECODE_TILES_PER_SPLIT,
             float(scale if scale is not None else h ** -0.5), dtype,
             _build.stream_of(q))
     return out

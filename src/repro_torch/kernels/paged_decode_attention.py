@@ -1,6 +1,7 @@
 """Paged decode attention, GQA and absorbed MLA: CUDA kernels
-(``csrc/paged_decode_attention.cu``, ``csrc/paged_mla_decode_attention.cu``),
-plain versions and wrappers.
+(``csrc/paged_decode_attention.cu`` on the KV split it shares with the dense
+kernel, ``csrc/paged_mla_decode_attention.cu``), plain versions and
+wrappers.
 
 Counterpart of ``repro/kernels/paged_decode_attention.py``: one query token
 per row against a block pool addressed through ``block_tables`` (B, W);
@@ -16,8 +17,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import (decode_attention_plain,
-                                                  masked_softmax_pv)
+from repro_torch.kernels.decode_attention import (DECODE_TILES_PER_SPLIT,
+                                                  check_tensor_cores,
+                                                  decode_attention_plain,
+                                                  masked_softmax_pv,
+                                                  split_scratch)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths, *,
@@ -39,7 +43,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            scale: float | None = None):
     """q (B,Nq,H); pools (NB,BS,Nkv,H); block_tables (B,W) int32; lengths
     (B,) int32 -> (B,Nq,H).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel: the dense kernel's KV split over pool blocks
+    (one thread block per (split of ``DECODE_TILES_PER_SPLIT`` blocks, up to
+    16 query heads of one kv head, row), then a merge in split order), so a
+    row gives the bits of dense decode with ``block_k`` = BS.  bf16 runs on
+    the tensor cores (``check_tensor_cores`` says what it takes); fp32 on the
+    CUDA cores at any widths."""
     if _build.on_cpu(q, k_pool, v_pool, block_tables, lengths):
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths, scale=scale)
@@ -54,19 +63,22 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
             f"(NB,BS,Nkv,H) with equal strides; got k {tuple(k_pool.shape)} "
             f"{k_pool.stride()}, v {tuple(v_pool.shape)} {v_pool.stride()}")
     _build.check_unit_stride("paged_decode_attention pools", k_pool)
+    if q.dtype == torch.bfloat16:
+        check_tensor_cores("paged_decode_attention", bs, q, k_pool, v_pool)
     _build.check_index("paged_decode_attention block_tables", block_tables,
                        (b, w))
     _build.check_index("paged_decode_attention lengths", lengths, (b,))
     out = torch.empty_like(q)
-    if b:  # a table of width 0 leaves every row at length 0: output 0
+    if b and nq:  # a table of width 0 leaves every row at length 0: output 0
+        scratch = split_scratch(q, w)
         pb, pt, pn, _ = k_pool.stride()
         _build.launch(
             "paged_decode_attention", "paged_decode_attention_launch",
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, nq, nkv, h, bs, w, pb, pt, pn,
-            float(scale if scale is not None else h ** -0.5), dtype,
-            _build.stream_of(q))
+            scratch.data_ptr(), b, nq, nkv, h, bs, w, DECODE_TILES_PER_SPLIT,
+            pb, pt, pn, float(scale if scale is not None else h ** -0.5),
+            dtype, _build.stream_of(q))
     return out
 
 

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import (decode_attention,
+from repro_torch.kernels.decode_attention import (DECODE_TENSOR_CORE_WIDTHS,
+                                                  DECODE_TILES_PER_SPLIT,
+                                                  decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (TENSOR_CORE_WIDTHS,
                                                  flash_attention,
@@ -149,6 +151,161 @@ class TestCudaKernels:
         _build.reset_launches()
         rmsnorm(x, w, 1e-5)
         assert _build.launches["rmsnorm"] == 1
+
+
+def _gqa_inputs(seed, dtype, lengths, nq, nkv, h, device, w=16):
+    """q, pools of 1 + the rows' live blocks (block 0 the scratch block, full
+    of 1e4), tables (B, w) whose live blocks are drawn without replacement
+    and whose lanes past them point at block 0, lengths."""
+    nb = 1 + sum(-(-n // 16) for n in lengths)
+    q, kp, vp = _inputs(seed, dtype, (len(lengths), nq, h), (nb, 16, nkv, h),
+                        (nb, 16, nkv, h), device=device)
+    kp[0], vp[0] = 1e4, 1e4
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    tables = torch.zeros((len(lengths), w), dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(lengths):
+        tables[i, : -(-n // 16)] = perm[used: used + -(-n // 16)]
+        used += -(-n // 16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, kp, vp, tables.to(device), lens
+
+
+def _dense_view(kp, vp, tables):
+    """The rows' blocks as a dense (B, W * 16, Nkv, H) cache."""
+    return (kp[tables.long()].flatten(1, 2), vp[tables.long()].flatten(1, 2))
+
+
+# lengths 0, 1, one block +- 1, every split boundary of a W-16 table +- 1
+# (splits of DECODE_TILES_PER_SPLIT blocks) and W * 16
+_EDGE = 16 * DECODE_TILES_PER_SPLIT
+SPLIT_EDGES = sorted({0, 1, 15, 16, 17, 256} | {
+    n for j in range(1, 16 // DECODE_TILES_PER_SPLIT)
+    for n in (j * _EDGE - 1, j * _EDGE, j * _EDGE + 1)})
+
+
+@pytest.mark.cuda
+class TestCudaDecodeSplit:
+    """The GQA decode pair's split KV sweep (bf16 on the tensor cores, fp32
+    on the CUDA cores) at every GQA group size and head width of the
+    repo's configs."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("h", sorted(DECODE_TENSOR_CORE_WIDTHS))
+    @pytest.mark.parametrize("g,nkv", [(1, 4), (2, 8), (6, 2), (16, 2),
+                                       (48, 1)])
+    def test_both_kernels_match_plain_across_split_edges(self, cuda, dtype,
+                                                         h, g, nkv):
+        q, kp, vp, tables, lens = _gqa_inputs(30 + g + h, dtype, SPLIT_EDGES,
+                                              g * nkv, nkv, h, cuda)
+        paged = paged_decode_attention(q, kp, vp, tables, lens)
+        _close(paged[1:], paged_decode_attention_plain(q, kp, vp, tables,
+                                                       lens)[1:], dtype)
+        assert torch.equal(paged[0], torch.zeros_like(paged[0]))
+        kd, vd = _dense_view(kp, vp, tables)
+        dense = decode_attention(q, kd, vd, lens)
+        _close(dense[1:], decode_attention_plain(q, kd, vd, lens)[1:], dtype)
+        assert torch.equal(dense, paged)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [16, 32])
+    def test_paged_equals_dense_at_any_width(self, cuda, dtype, w):
+        """Batched decode's width-16 table against a width-w table and the
+        unbatched dense cache (B, w * 16, Nkv, H) of the same rows: the same
+        bits, since splits follow block indices, never the width."""
+        q, kp, vp, tables, lens = _gqa_inputs(36, dtype, [38, 101, 233, 17],
+                                              16, 8, 128, cuda)
+        paged = paged_decode_attention(q, kp, vp, tables, lens)
+        lanes = torch.zeros((4, w), dtype=torch.int32, device=cuda)
+        lanes[:, :16] = tables  # past them: the scratch block
+        assert torch.equal(paged_decode_attention(q, kp, vp, lanes, lens),
+                           paged)
+        kd, vd = _dense_view(kp, vp, lanes)
+        assert torch.equal(decode_attention(q, kd, vd, lens, block_k=16),
+                           paged)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_scratch_lanes_are_never_read(self, cuda, dtype):
+        q, kp, vp, tables, lens = _gqa_inputs(37, dtype, [1, 16, 33, 200],
+                                              16, 8, 128, cuda)
+        dirty = paged_decode_attention(q, kp, vp, tables, lens)
+        kp[0], vp[0] = 0.0, 0.0
+        assert torch.equal(paged_decode_attention(q, kp, vp, tables, lens),
+                           dirty)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_two_streams_at_once_equal_one_after_the_other(self, cuda,
+                                                           dtype):
+        """Each call takes its scratch on the caller's stream: two calls in
+        flight on two streams give the bits of the same calls in turn."""
+        one = _gqa_inputs(38, dtype, [233, 38, 101, 64], 16, 8, 128, cuda)
+        two = _gqa_inputs(39, dtype, [17, 200, 0, 129], 16, 8, 128, cuda)
+        dense = [(a[0], *_dense_view(*a[1:4]), a[4]) for a in (one, two)]
+        want = [paged_decode_attention(*a) for a in (one, two)]
+        want_dense = [decode_attention(*a) for a in dense]
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        got, got_dense = [], []
+        for _ in range(3):
+            for stream, args, dargs in zip(streams, (one, two), dense):
+                with torch.cuda.stream(stream):
+                    got.append(paged_decode_attention(*args))
+                    got_dense.append(decode_attention(*dargs))
+        torch.cuda.synchronize()
+        for i, (out, dout) in enumerate(zip(got, got_dense)):
+            assert torch.equal(out, want[i % 2])
+            assert torch.equal(dout, want_dense[i % 2])
+
+    def test_refuses_what_the_tensor_cores_cannot_take(self, cuda):
+        """bf16 needs an instantiated head width, tiles of a multiple of 16
+        positions and 16-byte aligned operands, and raises before any
+        launch; fp32 (the CUDA cores) takes all three."""
+        q, kp, vp, tables, lens = _gqa_inputs(40, "bfloat16", [20, 40], 4, 2,
+                                              96, cuda)
+        kd, vd = _dense_view(kp, vp, tables)
+        _build.reset_launches()
+        with pytest.raises(ValueError, match="no bf16 kernel"):
+            paged_decode_attention(q, kp, vp, tables, lens)
+        with pytest.raises(ValueError, match="no bf16 kernel"):
+            decode_attention(q, kd, vd, lens)
+        q, kp, vp, tables, lens = _gqa_inputs(41, "bfloat16", [20, 40], 4, 2,
+                                              128, cuda)
+        kd, vd = _dense_view(kp, vp, tables)
+        with pytest.raises(ValueError, match="no bf16 kernel"):
+            decode_attention(q, kd, vd, lens, block_k=8)
+        wide = torch.zeros((kp.shape[0], 16, 2, 136), dtype=torch.bfloat16,
+                           device=cuda)
+        odd = wide[..., 4:132]  # base 8 bytes off, rows 272 bytes apart
+        odd.copy_(kp)
+        with pytest.raises(ValueError, match="16-byte"):
+            paged_decode_attention(q, odd, odd, tables, lens)
+        assert _build.launches["paged_decode_attention"] == 0
+        assert _build.launches["decode_attention"] == 0
+        args = [t.float() for t in (q, odd, odd)]
+        _close(paged_decode_attention(*args, tables, lens),
+               paged_decode_attention_plain(*args, tables, lens), "float32")
+        assert _build.launches["paged_decode_attention"] == 1
+
+    def test_cuda_tensors_launch_or_raise(self, cuda, monkeypatch):
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import paged_decode_attention as pda
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("plain decode version called on the card")
+
+        monkeypatch.setattr(pda, "paged_decode_attention_plain", refuse)
+        monkeypatch.setattr(da, "decode_attention_plain", refuse)
+        q, kp, vp, tables, lens = _gqa_inputs(42, "bfloat16", [3, 20], 16, 8,
+                                              128, cuda)
+        _build.reset_launches()
+        pda.paged_decode_attention(q, kp, vp, tables, lens)
+        da.decode_attention(q, *_dense_view(kp, vp, tables), lens)
+        torch.cuda.synchronize()
+        assert _build.launches["paged_decode_attention"] == 1
+        assert _build.launches["decode_attention"] == 1
+        with pytest.raises(TypeError):  # mixed dtypes
+            pda.paged_decode_attention(q.float(), kp, vp, tables, lens)
+        assert _build.launches["paged_decode_attention"] == 1
 
 
 @pytest.mark.cuda

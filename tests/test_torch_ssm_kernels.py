@@ -24,6 +24,7 @@ The CUDA kernels themselves run only on a card: test_torch_cuda.py holds
 each against its plain version there.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,6 +112,48 @@ class TestSSDIntra:
         want_y, want_s = ref.ssd_intra_ref(xj, dtj, daj, bj, cj)
         np.testing.assert_allclose(_np(y), _np(want_y), rtol=5e-4, atol=5e-4)
         _close(s, want_s, "float32")
+
+    def test_cumsum_order_float64_arbiter(self, monkeypatch):
+        """Which side of that disagreement is off: ``ref.ssd_intra_ref``
+        evaluated in float64 (its fp32 casts widened) on the same inputs.
+        The port's sequential cumsum lands no further from it than XLA's,
+        in the reference and in the Pallas kernel alike (y: 1.13e-4 against
+        1.25e-4), so the 2.1e-4 between them is two fp32 summation orders,
+        not a fault of either (ROADMAP C)."""
+        rng = np.random.default_rng(5)
+        m, h, q, p, n = 3, 1, 256, 64, 64
+        xj, xt = _pair(rng, (m, h, q, p), "float32")
+        dtj, dtt = _pair(rng, (m, h, q), "float32", _softplus)
+        daj, dat = _pair(rng, (m, h, q), "float32", lambda a: -np.abs(a) * 0.1)
+        bj, bt = _pair(rng, (m, q, n), "float32")
+        cj, ct = _pair(rng, (m, q, n), "float32")
+        port = ssd_intra_plain(xt, dtt, dat, bt, ct)
+        jax_fp32 = ref.ssd_intra_ref(xj, dtj, daj, bj, cj)
+        pallas = jax_ssd_intra(xj, dtj, daj, bj, cj, interpret=True)
+
+        class Float64Numpy:  # jax.numpy whose float32 is float64
+            float32 = jnp.float64
+
+            def __getattr__(self, name):
+                return getattr(jnp, name)
+
+        monkeypatch.setattr(ref, "jnp", Float64Numpy())
+        with jax.enable_x64(True):
+            wide = [jnp.asarray(np.asarray(a, np.float64))
+                    for a in (xj, dtj, daj, bj, cj)]
+            exact = [np.asarray(a) for a in ref.ssd_intra_ref(*wide)]
+        assert all(a.dtype == np.float64 for a in exact)
+
+        def err(got):
+            return [float(np.abs(np.asarray(g, np.float64) - e).max())
+                    for g, e in zip(got, exact)]
+
+        port_y = err(port)[0]
+        assert port_y <= min(err(jax_fp32)[0], err(pallas)[0])
+        # both states hold the fp32 tolerance against float64
+        for got in (port[1], jax_fp32[1]):
+            np.testing.assert_allclose(np.asarray(got, np.float64), exact[1],
+                                       rtol=1e-5, atol=1e-5)
 
     def test_strided_views_match_contiguous(self):
         """The model passes permuted views of its (B,S,H,P) activations and
