@@ -9,28 +9,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. card: name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   per source, all in parallel) and, beside the build, the GQA decode pair's
-   sources alone to cubins: registers and spills (``-Xptxas -v``) and the
-   ``HMMA`` count (``cuobjdump -sass``) of every kernel; a bf16 decode
-   kernel without ``HMMA`` fails;
+   per source, all in parallel) and, beside the build, the GQA decode pair's,
+   ``ssd_intra``'s and ``rmsnorm``'s sources alone to cubins: registers and
+   spills (``-Xptxas -v``) and the ``HMMA`` count (``cuobjdump -sass``) of
+   every kernel; a bf16 tensor-core kernel without ``HMMA`` fails;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's full-width shapes, in fp32 and bf16 -- the attention kernels
    and rmsnorm at internlm2-1.8b widths (ragged lengths, scratch-block
    table lanes, length 0, prefill buckets 8 and 256; the GQA decode pair
    at lengths on both sides of every KV split boundary, and paged decode
    through tables of width 16 and 32 bit-identical to dense decode of the
-   same rows), the SSD kernels at
-   mamba2-780m widths (chunks of 5, 200 and 256, slab ids permuted and
-   repeated), the MLA decode kernel and flash attention with a value width
-   of its own at deepseek-v2-lite-16b widths (latent pools, lengths on both
-   sides of every KV split boundary, identity-table views of width 16 and
-   32) -- then its median time beside the plain version's, the library
-   call's (where one PyTorch call computes the same function) and its
-   bound, each kernel's and library call's device time per call from one
-   profiler window, a ranking by device time against the library call,
-   and timings for information (the GQA decode pair over a 32-block table
-   and the whole cache, flash at the batched prefill bucket, the MLA kernel
-   over a 32-block table);
+   same rows; rmsnorm also at every register-resident width and on its
+   vector and scalar loops), the SSD kernels at mamba2-780m widths (chunks
+   of 5, 200 and 256, and N 64 in bf16; a bucketed chunk bit-identical to
+   the exact-length one; slab ids permuted and repeated), the MLA decode
+   kernel and flash attention with a value width of its own at
+   deepseek-v2-lite-16b widths (latent pools, lengths on both sides of
+   every KV split boundary, identity-table views of width 16 and 32) --
+   then its median time beside the plain version's, the library call's
+   (where one PyTorch call computes the same function) and its bound, each
+   kernel's and library call's device time per call from one profiler
+   window, a ranking by device time against the library call, rmsnorm's
+   launch floor (a one-element add in the same profiler window), and
+   timings for information (rmsnorm on a 256-token prefill, ``ssd_intra``
+   at the batched bucket of 4 rows, the GQA decode pair over a 32-block
+   table and the whole cache, flash at the batched prefill bucket, the MLA
+   kernel over a 32-block table);
 4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
    servers -- must give the greedy tokens of unbatched ``generate``, use
@@ -40,8 +44,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 4b. SSM path, fp32: full-width mamba2-780m served the same way through
    slab-paged decode: greedy tokens equal unbatched ``generate``'s, both
    servers used, no slab leaked, decode calls recorded as ``decode@ssm``;
-5b. SSM path, bf16: the same traffic, timed, and a profile of one 4-row
-   slab-paged decode step;
+5b. SSM path, bf16: the same traffic, timed, a profile of one 4-row
+   slab-paged decode step and one of a 256-token prefill call
+   (``chiprun_out/ssm_prefill_profile.txt``);
 4c. MLA + MoE path, fp32: full-width deepseek-v2-lite-16b served the same
    way through MLA latent block pools (the dense prefix layer in pools of
    its own): greedy tokens equal unbatched ``generate``'s, both servers
@@ -53,6 +58,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. launch counts of every kernel over phases 4-5c (each must be
    non-zero), then one JSON line describing every kernel;
 7. last line: ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --kernels-from TREE
+
+builds the kernels of another checkout (for instance the parent commit,
+unpacked with ``git archive``) and times its ``rmsnorm`` and ``ssd_intra``
+on the same inputs as phase 3, so that two versions are compared on one
+card in one call.
 """
 
 from __future__ import annotations
@@ -118,9 +130,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# sources whose bf16 kernels must run on the tensor cores, reported in
-# phase 2: registers and spills (ptxas -v), HMMA instructions (cuobjdump)
-SASS_SOURCES = ("decode_attention.cu", "paged_decode_attention.cu")
+# sources reported in phase 2: registers and spills (ptxas -v), HMMA
+# instructions (cuobjdump); their bf16 tensor-core kernels must hold HMMA
+SASS_SOURCES = ("decode_attention.cu", "paged_decode_attention.cu",
+                "ssd_intra.cu", "rmsnorm.cu")
+TENSOR_CORE_KERNELS = ("decode_tc_kernel", "ssd_tc_kernel")
 
 
 def start_sass_report(csrc: pathlib.Path, nvcc: str):
@@ -141,7 +155,8 @@ def start_sass_report(csrc: pathlib.Path, nvcc: str):
 
 def sass_report(procs, nvcc: str) -> None:
     """Per kernel of each cubin: registers, spill bytes and HMMA count.
-    Fails if a bf16 decode kernel (decode_tc_kernel) holds no HMMA."""
+    Fails if a bf16 tensor-core kernel (TENSOR_CORE_KERNELS) holds no
+    HMMA."""
     import re
 
     tools = pathlib.Path(nvcc).parent
@@ -186,7 +201,7 @@ def sass_report(procs, nvcc: str) -> None:
             regs, st, ld = usage[fn]
             print(f"sass {name} {short}: {hmma[fn]} HMMA, {regs} registers, "
                   f"{st} bytes spill stores, {ld} bytes spill loads")
-            if "decode_tc_kernel" in fn and not hmma[fn]:
+            if any(k in fn for k in TENSOR_CORE_KERNELS) and not hmma[fn]:
                 raise SmokeFailure(f"{name}: {short} holds no HMMA")
 
 
@@ -247,6 +262,38 @@ def device_ms(fn, *, iters: int = 50, tries: int = 3) -> float:
     return float("nan")
 
 
+def device_ms_beside_floor(fn, *, iters: int = 50, tries: int = 3):
+    """Device time per call of ``fn`` and of a one-element add (the launch
+    floor: the shortest kernel the card runs), from one torch.profiler
+    window in which each call of ``fn`` is followed by one add.  The add's
+    kernels are told apart by name ("elementwise"); ``fn`` must launch none
+    of that name.  (NaN, NaN) if every window came back short."""
+    one = torch.zeros(1, device="cuda")
+
+    def both():
+        fn()
+        one.add_(1.0)
+
+    for _ in range(3):
+        both()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                both()
+            torch.cuda.synchronize()
+        _, key, rows = device_kernels(prof)
+        floor = [e for e in rows if "elementwise" in e.key]
+        rest = [e for e in rows if "elementwise" not in e.key]
+        if (sum(e.count for e in floor) >= iters
+                and sum(e.count for e in rest) >= iters):
+            return tuple(sum(getattr(e, key) for e in g) / 1e3 / iters
+                         for g in (rest, floor))
+    return float("nan"), float("nan")
+
+
 def timed(fn, plain, library, bound, shape) -> dict:
     """One row of phase 3's timings: CUDA-event and device time of the
     kernel and of the library call, event time of the plain version."""
@@ -258,16 +305,19 @@ def timed(fn, plain, library, bound, shape) -> dict:
                 bound=bound)
 
 
-def print_rows(rows: dict, library_name: str) -> None:
+def print_rows(rows: dict, library_name: str, tag: str = "time") -> None:
     for name, r in rows.items():
         b_ms, by = r["bound"]
         lib = (f"library {r['library_ms']:.4f} ms event / "
                f"{r['library_device_ms']:.4f} ms device ({library_name})"
                if r["library_ms"] is not None
                else "library: no single PyTorch call")
-        print(f"time {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms event"
+        floor = (f", launch floor {r['floor_ms']:.4f} ms device (one-element"
+                 f" add in the same window, beside {r['floor_kernel_ms']:.4f}"
+                 f" ms of this kernel)" if "floor_ms" in r else "")
+        print(f"{tag} {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms event"
               f" / {r['device_ms']:.4f} ms device, plain {r['plain_ms']:.4f}"
-              f" ms, {lib}, bound {b_ms:.5f} ms ({by})")
+              f" ms, {lib}, bound {b_ms:.5f} ms ({by}){floor}")
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -325,7 +375,8 @@ class KernelChecks:
             flash_attention, flash_attention_plain)
         from repro_torch.kernels.paged_decode_attention import (
             paged_decode_attention, paged_decode_attention_plain)
-        from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+        from repro_torch.kernels.rmsnorm import (ROW_WIDTHS, rmsnorm,
+                                                 rmsnorm_plain)
 
         d, nq, nkv, h = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         eps = cfg.norm_eps
@@ -342,6 +393,13 @@ class KernelChecks:
                 e = self.check("rmsnorm", f"x{shape}", rmsnorm(x, w, eps),
                                rmsnorm_plain(x, w, eps), dt)
                 self.errors["rmsnorm"] = max(self.errors.get("rmsnorm", 0), e)
+            # every register-resident width, and the vector and scalar loops
+            for dw in (*sorted(ROW_WIDTHS), 1032, 100):
+                x = self.randn(256, dw, dtype=dt) * 3.0
+                ww = (self.randn(dw) * 0.1 + 1.0).to(dt)
+                e = self.check("rmsnorm", f"x(256, {dw})", rmsnorm(x, ww, eps),
+                               rmsnorm_plain(x, ww, eps), dt)
+                self.errors["rmsnorm"] = max(self.errors["rmsnorm"], e)
             # flash: prefill buckets 8, 64 and 256, ragged 40 and 100
             for b, s in ((4, 8), (4, 64), (2, 256), (1, 40), (1, 100)):
                 q = self.randn(b, s, nq, h, dtype=dt)
@@ -455,22 +513,13 @@ class KernelChecks:
             flash_attention, flash_attention_plain)
         from repro_torch.kernels.paged_decode_attention import (
             paged_decode_attention, paged_decode_attention_plain)
-        from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
         dt = torch.bfloat16
         el = 2
-        d, nq, nkv, h = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        eps = cfg.norm_eps
+        nq, nkv, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         rows = {}
 
-        # rmsnorm on one decode step of 4 rows
-        x = self.randn(4, 1, d, dtype=dt)
-        w = (self.randn(d) * 0.1 + 1.0).to(dt)
-        n = x.numel()
-        rows["rmsnorm"] = timed(
-            lambda: rmsnorm(x, w, eps), lambda: rmsnorm_plain(x, w, eps),
-            lambda: F.rms_norm(x, (d,), w, eps),
-            bound_ms((2 * n + d) * el, 4 * n, dt), f"x (4,1,{d})")
+        rows["rmsnorm"] = self.time_rmsnorm(cfg)
 
         # flash on one 256-token prefill
         s = 256
@@ -525,7 +574,7 @@ class KernelChecks:
                      4 * nq * h * live, dt),
             f"q (4,{nq},{h}), pool ({nb},{BLOCK},{nkv},{h}), "
             f"W={w_cols}, lengths {lengths}")
-        print_rows(rows, "F.rms_norm / SDPA")
+        print_rows({k: v for k, v in rows.items() if k != "rmsnorm"}, "SDPA")
         self.rows.update(rows)
 
         # information only: the decode pair over a 32-block table and the
@@ -573,6 +622,31 @@ class KernelChecks:
                               4 * 4 * nq * h * (256 * 257 // 2), dt),
                      f"q (4,256,{nq},{h}) causal (information only)")
         print_rows({"flash_attention": info}, "SDPA")
+
+    def time_rmsnorm(self, cfg, tag: str = "time") -> dict:
+        """rmsnorm in bf16 on one decode step of 4 rows (its table row,
+        with the launch floor measured in the same profiler window), and
+        for information on one 256-token prefill row."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+        dt, el, d, eps = torch.bfloat16, 2, cfg.d_model, cfg.norm_eps
+        w = (self.randn(d) * 0.1 + 1.0).to(dt)
+        rows = {}
+        for shape in ((4, 1, d), (256, d)):
+            x = self.randn(*shape, dtype=dt)
+            n = x.numel()
+            rows[shape] = timed(
+                lambda: rmsnorm(x, w, eps), lambda: rmsnorm_plain(x, w, eps),
+                lambda: F.rms_norm(x, (d,), w, eps),
+                bound_ms((2 * n + d) * el, 4 * n, dt),
+                f"x ({','.join(map(str, shape))})"
+                + ("" if shape[0] == 4 else " (information only)"))
+            rows[shape]["floor_kernel_ms"], rows[shape]["floor_ms"] = (
+                device_ms_beside_floor(lambda: rmsnorm(x, w, eps)))
+            print_rows({"rmsnorm": rows[shape]}, "F.rms_norm", tag)
+        return rows[(4, 1, d)]
 
     # -- the MLA kernels at deepseek-v2-lite-16b widths -----------------------
     def mla_inputs(self, cfg, lengths, dtype, w):
@@ -831,6 +905,18 @@ class KernelChecks:
                                    st_want, dt))
                 self.errors["ssd_intra"] = max(
                     self.errors.get("ssd_intra", 0), e)
+            if dt == torch.bfloat16:  # zamba2-7b's widths: N 64
+                cfg64 = dataclasses.replace(cfg, ssm_state_dim=64)
+                for rows, s in ((1, 256), (4, 100)):
+                    args = self.ssd_views(cfg64, rows, s, dt)
+                    y, st = ssd_intra(*args)
+                    y_want, st_want = ssd_intra_plain(*args)
+                    e = max(self.check("ssd_intra", f"N=64 M={rows} Q={s} y",
+                                       y, y_want, dt),
+                            self.check("ssd_intra", f"N=64 M={rows} Q={s} "
+                                       "state", st, st_want, dt))
+                    self.errors["ssd_intra"] = max(self.errors["ssd_intra"], e)
+            self.ssd_padding_bits(cfg, dt)
             # decode: 1, 2, 4 rows; permuted slab ids, one repeated with its
             # row's inputs (as the engine's padding rows repeat row 0)
             for slabs in ([6], [7, 2], [9, 3, 5, 3]):
@@ -862,29 +948,34 @@ class KernelChecks:
                       f"{str(dt)[6:]}: untouched slabs bit-identical ok")
         self.time_ssm(cfg)
 
+    def ssd_padding_bits(self, cfg, dt):
+        """A bucketed chunk -- 256 positions, dt = dA = 0 past 200 -- gives
+        the exact-length chunk's y rows and state bit for bit."""
+        from repro_torch.kernels.ssd_scan import ssd_intra
+
+        x, dtv, da, b, c = self.ssd_views(cfg, 1, 256, dt)
+        dtv, da = dtv.clone(), da.clone()
+        dtv[..., 200:] = 0.0
+        da[..., 200:] = 0.0
+        y_pad, s_pad = ssd_intra(x, dtv, da, b, c)
+        y, st = ssd_intra(x[:, :, :200], dtv[..., :200], da[..., :200],
+                          b[:, :200], c[:, :200])
+        torch.cuda.synchronize()
+        if not (torch.equal(y_pad[:, :, :200], y) and torch.equal(s_pad, st)):
+            raise SmokeFailure(f"ssd_intra {dt}: the bucketed chunk differs "
+                               "from the exact-length chunk")
+        print(f"check ssd_intra [bucket 256 == exact 200] {str(dt)[6:]}: "
+              "bit-identical ok")
+
     def time_ssm(self, cfg):
         """Times at the SSM path's shapes in bf16 (the config's dtype):
         one 256-token prefill row, one 4-row decode step."""
-        from repro_torch.kernels.ssd_scan import (
-            ssd_intra, ssd_intra_plain, ssd_slab_decode,
-            ssd_slab_decode_plain)
+        from repro_torch.kernels.ssd_scan import (ssd_slab_decode,
+                                                  ssd_slab_decode_plain)
 
         dt, el = torch.bfloat16, 2
         h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state_dim
-        rows = {}
-        args = self.ssd_views(cfg, 1, 256, dt)
-        q = 256
-        pairs = q * (q + 1) // 2
-        # bytes: x, B, C in bf16 and dt, dA fp32 read once; y and the chunk
-        # state written once in fp32.  Operations: C B^T on the causal
-        # half, the decayed scores times x, and the chunk state.
-        nbytes = (q * h * p * el + 2 * q * h * 4 + 2 * q * n * el
-                  + q * h * p * 4 + h * n * p * 4)
-        flops = 2 * pairs * n + 2 * h * pairs * p + 2 * h * q * n * p
-        rows["ssd_intra"] = timed(
-            lambda: ssd_intra(*args), lambda: ssd_intra_plain(*args), None,
-            bound_ms(nbytes, flops, dt),
-            f"x (1,{h},{q},{p}), B/C (1,{q},{n}), one 256-token row")
+        rows = {"ssd_intra": self.time_ssd_intra(cfg)}
         pool, x, dtv, a, b, c = self.slab_inputs(cfg, 4, dt)
         ids = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=self.dev)
         state = 4 * h * p * n
@@ -897,8 +988,35 @@ class KernelChecks:
             lambda: ssd_slab_decode_plain(pool, ids, x, dtv, a, b, c), None,
             bound_ms(nbytes, 5 * state, torch.float32),
             f"pool ({NUM_SLABS},{h},{p},{n}) fp32, 4 rows")
-        print_rows(rows, "")
+        print_rows({"ssd_slab_decode": rows["ssd_slab_decode"]}, "")
         self.rows.update(rows)
+
+    def time_ssd_intra(self, cfg, tag: str = "time") -> dict:
+        """ssd_intra in bf16 on one 256-token prefill row (its table row)
+        and, for information, on the batched bucket's 4 rows."""
+        from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
+
+        dt, el = torch.bfloat16, 2
+        h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state_dim
+        q = 256
+        pairs = q * (q + 1) // 2
+        rows = {}
+        for m in (1, 4):
+            args = self.ssd_views(cfg, m, q, dt)
+            # bytes: x, B, C in bf16 and dt, dA fp32 read once; y and the
+            # chunk state written once in fp32.  Operations: C B^T on the
+            # causal half, the decayed scores times x, and the chunk state.
+            nbytes = m * (q * h * p * el + 2 * q * h * 4 + 2 * q * n * el
+                          + q * h * p * 4 + h * n * p * 4)
+            flops = m * (2 * pairs * n + 2 * h * pairs * p + 2 * h * q * n * p)
+            rows[m] = timed(
+                lambda: ssd_intra(*args), lambda: ssd_intra_plain(*args),
+                None, bound_ms(nbytes, flops, dt),
+                f"x ({m},{h},{q},{p}), B/C ({m},{q},{n}), "
+                + ("one 256-token row" if m == 1
+                   else "the batched bucket (information only)"))
+            print_rows({"ssd_intra": rows[m]}, "", tag)
+        return rows[1]
 
 
 # ---------------------------------------------------------------------------
@@ -960,10 +1078,11 @@ def serve_batched(cfg, params, prompts, dev):
         usage = eng.kv_usage()
         meta = [m for s in eng.pool.servers for m in s.stats.batch_meta]
         calls = [m for m in meta if m["kind"] == eng._decode_kind]
+        prefills = [m for m in meta if m["kind"] == eng._prefill_kind]
         return dict(results=results, servers=servers, usage=usage,
                     wall_s=wall_s, warm_s=warm_s, precompile=rep,
                     launches=launches, decode_calls=calls,
-                    kinds={m["kind"] for m in meta})
+                    prefill_calls=prefills, kinds={m["kind"] for m in meta})
     finally:
         eng.close()
 
@@ -1121,6 +1240,8 @@ def ssm_path(dev, card):
     del run
     step_profile(base, params, dev, card, "ssm step profile",
                  "ssm_decode_step_profile.txt")
+    prefill_profile(base, params, dev, card, "ssm prefill profile",
+                    "ssm_prefill_profile.txt")
     del params
     torch.cuda.empty_cache()
     return counts
@@ -1208,12 +1329,13 @@ def report_latency(tag, run, card):
     print(f"{tag} [{card}]: {tokens} tokens in {run['wall_s']:.3f} s = "
           f"{tokens / run['wall_s']:.1f} tokens/s (4 streams, 2 servers, "
           f"precompile {run['warm_s']:.1f} s not counted)")
-    calls = run["decode_calls"]
-    dev_ms = sorted(m["seconds"] * 1e3 for m in calls)
-    print(f"{tag} [{card}]: {len(calls)} decode device calls, "
-          f"{sum(m['rows'] for m in calls) / len(calls):.2f} rows per call, "
-          f"device call p50 {dev_ms[len(dev_ms) // 2]:.3f} ms (server thread, "
-          f"launch to stream sync)")
+    for kind in ("decode", "prefill"):
+        calls = run[f"{kind}_calls"]
+        dev_ms = sorted(m["seconds"] * 1e3 for m in calls)
+        print(f"{tag} [{card}]: {len(calls)} {kind} device calls, "
+              f"{sum(m['rows'] for m in calls) / len(calls):.2f} rows per "
+              f"call, device call p50 {dev_ms[len(dev_ms) // 2]:.3f} ms, max "
+              f"{dev_ms[-1]:.3f} ms (server thread, launch to stream sync)")
 
 
 def decode_step_cache(cfg, dev):
@@ -1284,10 +1406,87 @@ def step_profile(cfg, params, dev, card, tag, outfile):
     (out / outfile).write_text(events.table(sort_by=key, row_limit=60))
 
 
+def prefill_profile(cfg, params, dev, card, tag, outfile):
+    """Where one prefill call's time goes: the model's prefill alone (no
+    engine, no threads) on one row of the 200-token prompt padded to its
+    bucket 256, as the batched engine's prefill call runs it -- CUDA-event
+    time per call, host time to enqueue it, and the device time of each
+    kernel from one torch.profiler window of one call (tables by device
+    time and by host time go to chiprun_out/<outfile>)."""
+    from repro_torch.models import model as M
+
+    n, bucket = PROMPT_LENS[-1], min(b for b in BUCKETS if b >= PROMPT_LENS[-1])
+    tokens = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    tokens[0, :n] = torch.arange(n, device=dev) % cfg.vocab_size
+    batch = {"tokens": tokens, "max_seq": MAX_SEQ,
+             "lengths": torch.tensor([n], dtype=torch.int32, device=dev)}
+
+    def call():
+        with torch.inference_mode():
+            M.apply(cfg, params, batch, mode="prefill")
+
+    call_ms = time_ms(call, iters=2, reps=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    events, key, kernels = device_kernels(prof)
+    dev_us = lambda e: getattr(e, key)
+    kernels.sort(key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(f"{tag} [{card}] {cfg.name} {cfg.dtype}, 1 row, prompt {n} padded "
+          f"to {bucket}: {call_ms:.3f} ms per call (CUDA events), host "
+          f"enqueue {host_ms:.3f} ms, device busy {busy_ms:.3f} ms in "
+          f"{launches} device activities, idle share "
+          f"{max(0.0, 1 - busy_ms / call_ms):.3f}")
+    for e in kernels[:8]:
+        print(f"{tag}: {dev_us(e) / 1e3:8.4f} ms {e.count:5d} calls  "
+              f"{e.key[:90]}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / outfile).write_text(
+        "by device time\n" + events.table(sort_by=key, row_limit=60)
+        + "\nby host time\n"
+        + events.table(sort_by="self_cpu_time_total", row_limit=60))
+
+
+def time_kernels_of(tree: pathlib.Path) -> int:
+    """``--kernels-from TREE``: build the kernels of another checkout's
+    ``src/repro_torch`` (for instance the parent commit, unpacked with git
+    archive) and time its rmsnorm and ssd_intra on this script's inputs,
+    tagged with the tree, so two versions are compared in one call."""
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+
+    if pathlib.Path(_build.__file__).resolve().parents[2] != tree / "src":
+        raise SmokeFailure(f"repro_torch did not come from {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(card_line())
+    print(f"build [{tree}]: {_build.build():.1f} s")
+    checks = KernelChecks(torch.device("cuda"))
+    tag = f"time[{tree.name}]"
+    checks.time_rmsnorm(get_config("internlm2_1_8b"), tag)
+    checks.time_ssd_intra(get_config("mamba2_780m"), tag)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernels-from":
+        return time_kernels_of(pathlib.Path(sys.argv[2]).resolve())
+    if len(sys.argv) != 1:
+        print("usage: chip_smoke.py [--kernels-from TREE]", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build

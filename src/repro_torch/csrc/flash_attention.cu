@@ -167,25 +167,6 @@ struct TcLayout {
                 "the merge scratch must fit in the K buffers");
 };
 
-// Copies rows [r0, r0 + 64) of a (seq, W) operand with row stride `gs`
-// into shared memory (row stride `ss`), 16 bytes per cp.async; rows at or
-// past `seq` are zero-filled.
-template <int W, int kThreadsT>
-__device__ __forceinline__ void copy_tile(bf16* dst, int ss, const bf16* src, long long gs,
-                                          int r0, int seq) {
-  constexpr int kChunks = W / 8;
-  constexpr int kTotal = kTile * kChunks;
-#pragma unroll
-  for (int it = 0; it < (kTotal + kThreadsT - 1) / kThreadsT; ++it) {
-    const int i = threadIdx.x + it * kThreadsT;
-    if (kTotal % kThreadsT != 0 && i >= kTotal) break;
-    const int r = i / kChunks, c = i - r * kChunks;
-    const bool ok = r0 + r < seq;
-    const bf16* p = ok ? src + static_cast<long long>(r0 + r) * gs + c * 8 : src;
-    cp_async_16(dst + r * ss + c * 8, p, ok);
-  }
-}
-
 // S = Q K^T over the key groups [g0, g0 + n) of a tile, n = kGroups when
 // kAll (no branch, so the next group's fragment loads can overlap the
 // products) and `groups` otherwise (the diagonal tile).
@@ -257,14 +238,14 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // [K(j+kStages-1)] once K(j) has landed and [V(j+kStages-1)] once V(j)
   // has -- empty groups past the last tile keep the counts uniform.  The
   // scores of tile j overlap V(j)'s copy and the later tiles'.
-  copy_tile<H, kThreadsT>(sq, L::kKS, qb, qs.s, i0, seq);
+  copy_rows_async<kTile, H, kThreadsT>(sq, L::kKS, qb, qs.s, i0, seq);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < ntiles)
-      copy_tile<H, kThreadsT>(sk + t * L::kK, L::kKS, kb, ks.s, t * kTile, seq);
+      copy_rows_async<kTile, H, kThreadsT>(sk + t * L::kK, L::kKS, kb, ks.s, t * kTile, seq);
     cp_async_commit();
     if (t < ntiles)
-      copy_tile<HV, kThreadsT>(sv + t * L::kV, L::kVS, vb, vs.s, t * kTile, seq);
+      copy_rows_async<kTile, HV, kThreadsT>(sv + t * L::kV, L::kVS, vb, vs.s, t * kTile, seq);
     cp_async_commit();
   }
 
@@ -293,7 +274,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<kAhead>();  // K(j) (and Q) landed; V(j) may be in flight
     __syncthreads();
     if (next < ntiles)
-      copy_tile<H, kThreadsT>(sk + nbuf * L::kK, L::kKS, kb, ks.s, next * kTile, seq);
+      copy_rows_async<kTile, H, kThreadsT>(sk + nbuf * L::kK, L::kKS, kb, ks.s, next * kTile,
+                                           seq);
     cp_async_commit();
     if (j == 0) {
 #pragma unroll
@@ -369,7 +351,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<kAhead>();  // V(j) landed; later tiles may be in flight
     __syncthreads();
     if (next < ntiles)
-      copy_tile<HV, kThreadsT>(sv + nbuf * L::kV, L::kVS, vb, vs.s, next * kTile, seq);
+      copy_rows_async<kTile, HV, kThreadsT>(sv + nbuf * L::kV, L::kVS, vb, vs.s, next * kTile,
+                                            seq);
     cp_async_commit();
     if (work) {
       if (diag)

@@ -1,6 +1,6 @@
 // Warp-level tensor-core and async-copy building blocks (inline PTX) for
-// the bf16 attention kernels: flash_attention.cu and
-// paged_mla_decode_attention.cu.
+// the bf16 tensor-core kernels: flash_attention.cu, the decode kernels and
+// ssd_intra.cu.
 //
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate) fragment layout, with
 // lane = 4 * group + quad (group = lane >> 2, quad = lane & 3):
@@ -32,6 +32,27 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+
+// Copies rows [r0, r0 + ROWS) of a (rows, W) bf16 operand with row stride
+// `gs` (elements) into shared memory (row stride `ss`), 16 bytes per
+// cp.async over the block's THREADS threads; rows at or past `rows` are
+// zero-filled.
+template <int ROWS, int W, int THREADS>
+__device__ __forceinline__ void copy_rows_async(__nv_bfloat16* dst, int ss,
+                                                const __nv_bfloat16* src, long long gs, int r0,
+                                                int rows) {
+  constexpr int kChunks = W / 8;
+  constexpr int kTotal = ROWS * kChunks;
+#pragma unroll
+  for (int it = 0; it < (kTotal + THREADS - 1) / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    if (kTotal % THREADS != 0 && i >= kTotal) break;
+    const int r = i / kChunks, c = i - r * kChunks;
+    const bool ok = r0 + r < rows;
+    const __nv_bfloat16* p = ok ? src + static_cast<long long>(r0 + r) * gs + c * 8 : src;
+    cp_async_16(dst + r * ss + c * 8, p, ok);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

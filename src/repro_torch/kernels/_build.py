@@ -36,7 +36,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
+    "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _I, _I, _F, _I, _P],
     "paged_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -48,7 +48,7 @@ SIGNATURES = {
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                _I, _F, _I, _P],
     "ssd_intra_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         ctypes.POINTER(_L), _I, _P],
+                         ctypes.POINTER(_L), _I, _I, _P],
     "ssd_slab_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],
@@ -193,13 +193,20 @@ def check_unit_stride(name: str, t: torch.Tensor) -> None:
                          f"strides {t.stride()}")
 
 
-def check_aligned(name: str, t: torch.Tensor) -> None:
-    """The tensor-core kernels copy 16 bytes at a time: ``t``'s base and
-    the strides of its axes but the last (unit) one must be multiples of 16
-    bytes (an axis of size 1 is never stepped, so its stride is free)."""
+def is_aligned(t: torch.Tensor) -> bool:
+    """Whether ``t`` can be copied 16 bytes at a time: its base and the
+    strides of its axes but the last (unit) one are multiples of 16 bytes
+    (an axis of size 1 is never stepped, so its stride is free)."""
     el = t.element_size()
     strides = [st for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
-    if t.data_ptr() % 16 or any(st * el % 16 for st in strides):
+    return not (t.data_ptr() % 16 or any(st * el % 16 for st in strides))
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raises unless :func:`is_aligned` (the tensor-core kernels copy 16
+    bytes at a time)."""
+    if not is_aligned(t):
+        el = t.element_size()
         raise ValueError(f"{name}: base and strides must be 16-byte aligned, "
                          f"got base {t.data_ptr():#x} % 16 = "
                          f"{t.data_ptr() % 16}, strides {t.stride()} of "

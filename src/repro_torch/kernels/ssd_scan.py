@@ -14,6 +14,13 @@ contract, both following the model path (``repro/models/ssm.py``):
 
 ``dt``, ``dA`` and ``A`` are fp32 (the model computes them in fp32 whatever
 its dtype); ``x``, ``B`` and ``C`` share one dtype, fp32 or bf16.
+
+``ssd_intra`` has two kernels, picked by :func:`ssd_intra_route` from dtype,
+widths and alignment before any launch: bf16 at the (P, N) widths in
+:data:`SSD_TENSOR_CORE_WIDTHS` with 16-byte aligned operands runs on the
+tensor cores (its scores and scaled inputs enter the products as a pair of
+bf16 values, and agree with the plain version to the bf16 tolerance); fp32,
+and bf16 at other widths, run on the CUDA cores (fp32 to 1e-5).
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_CHUNK = 256  # longest chunk ssd_intra takes (the model's chunk size)
 MAX_HEAD_DIM = 128
+# (P, N) pairs the bf16 tensor-core kernel is instantiated for
+# (csrc/ssd_intra.cu): mamba2-780m (64, 128) and zamba2-7b (64, 64)
+SSD_TENSOR_CORE_WIDTHS = frozenset({(64, 128), (64, 64)})
 
 
 # --------------------------------------------------------------------------
@@ -59,11 +69,23 @@ def _fp32(name: str, *tensors: torch.Tensor) -> None:
                         f"{[str(t.dtype) for t in tensors]}")
 
 
+def ssd_intra_route(x, B, C) -> str:
+    """The kernel route for x (M,H,Q,P), B/C (M,Q,N): "tensor_cores" for
+    bf16 at an (P, N) in :data:`SSD_TENSOR_CORE_WIDTHS` whose x, B and C are
+    16-byte aligned (base and strides), "cuda_cores" otherwise."""
+    widths = (x.shape[-1], B.shape[-1])
+    if (x.dtype == torch.bfloat16 and widths in SSD_TENSOR_CORE_WIDTHS
+            and all(_build.is_aligned(t) for t in (x, B, C))):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def ssd_intra(x, dt, dA, B, C):
     """x (M,H,Q,P); dt/dA (M,H,Q) fp32; B/C (M,Q,N) -> y (M,H,Q,P) fp32,
     s (M,H,N,P) fp32.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel, which takes any Q <= 256 and strided views (y comes
-    back as a (M,H,Q,P) view of a (M,Q,H,P) buffer: the model's layout)."""
+    launch the kernel of :func:`ssd_intra_route`, which takes any Q <= 256
+    and strided views (y comes back as a (M,H,Q,P) view of a (M,Q,H,P)
+    buffer: the model's layout)."""
     if _build.on_cpu(x, dt, dA, B, C):
         return ssd_intra_plain(x, dt, dA, B, C)
     dtype = _build.kernel_dtype(x, B, C)
@@ -85,14 +107,18 @@ def ssd_intra(x, dt, dA, B, C):
     s = torch.empty((m, h, n, p), dtype=torch.float32, device=x.device)
     if m == 0:
         return y, s
-    cb = torch.empty((m, q, q), dtype=torch.float32, device=x.device)
+    tensor_cores = ssd_intra_route(x, B, C) == "tensor_cores"
+    # the CUDA-core kernels keep C B^T in an fp32 (M,Q,Q) scratch
+    cb = None if tensor_cores else torch.empty((m, q, q), dtype=torch.float32,
+                                               device=x.device)
+    cb_ptr = None if cb is None else cb.data_ptr()
     strides = (ctypes.c_longlong * 16)(
         *x.stride()[:3], *dt.stride(), *dA.stride(), *B.stride()[:2],
         *C.stride()[:2], *y.stride()[:3])
     _build.launch("ssd_intra", "ssd_intra_launch", x.data_ptr(),
                   dt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
-                  y.data_ptr(), s.data_ptr(), cb.data_ptr(), m, h, q, p, n,
-                  strides, dtype, _build.stream_of(x))
+                  y.data_ptr(), s.data_ptr(), cb_ptr, m, h, q, p, n, strides,
+                  dtype, int(tensor_cores), _build.stream_of(x))
     return y, s
 
 

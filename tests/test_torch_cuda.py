@@ -28,8 +28,9 @@ from repro_torch.kernels.flash_attention import (TENSOR_CORE_WIDTHS,
 from repro_torch.kernels.paged_decode_attention import (
     MLA_TILES_PER_SPLIT, paged_decode_attention, paged_decode_attention_plain,
     paged_mla_decode_attention, paged_mla_decode_attention_plain)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
-from repro_torch.kernels.ssd_scan import (ssd_intra, ssd_intra_plain,
+from repro_torch.kernels.rmsnorm import ROW_WIDTHS, rmsnorm, rmsnorm_plain
+from repro_torch.kernels.ssd_scan import (SSD_TENSOR_CORE_WIDTHS, ssd_intra,
+                                          ssd_intra_plain, ssd_intra_route,
                                           ssd_slab_decode,
                                           ssd_slab_decode_plain)
 
@@ -67,6 +68,20 @@ class TestCudaKernels:
     def test_rmsnorm(self, cuda, dtype):
         x, w = _inputs(20, dtype, (4, 5, 2048), (2048,), device=cuda)
         _close(rmsnorm(x, w, 1e-5), rmsnorm_plain(x, w, 1e-5), dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("rows", [1, 4, 256])
+    @pytest.mark.parametrize("d", sorted(ROW_WIDTHS))
+    def test_rmsnorm_row_in_registers(self, cuda, dtype, rows, d):
+        x, w = _inputs(21, dtype, (rows, d), (d,), device=cuda)
+        x = x * 3.0
+        _close(rmsnorm(x, w, 1e-6), rmsnorm_plain(x, w, 1e-6), dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("d", [1032, 100, 37])  # vectors / scalar routes
+    def test_rmsnorm_other_widths(self, cuda, dtype, d):
+        x, w = _inputs(22, dtype, (5, d), (d,), device=cuda)
+        _close(rmsnorm(x, w, 1e-6), rmsnorm_plain(x, w, 1e-6), dtype)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("b", [1, 4])
@@ -365,23 +380,23 @@ def test_engine_on_the_card(cuda):
 SSM_H, SSM_P, SSM_N, SSM_CDIM = 48, 64, 128, 3328
 
 
-def _ssd_inputs(seed, dtype, rows, s, device):
+def _ssd_inputs(seed, dtype, rows, s, device, p=SSM_P, n=SSM_N):
     """The model's strided views for ssd_intra at chunk = s: x (M,H,Q,P)
-    and B/C (M,Q,N) cut from an (rows, s, conv_dim) activation, dt/dA
+    and B/C (M,Q,N) cut from an (rows, s, H*P + 2N) activation, dt/dA
     (M,H,Q) permuted from (rows, s, H) fp32.  dA lies on a grid of 2**-10,
     so cumsum(dA) is exact in any order: the kernel sums it sequentially,
     torch.cumsum on the card in parallel, and exp(seg_i - seg_j) would
     amplify their last-bit differences past the fp32 tolerance."""
     gen = torch.Generator().manual_seed(seed)
-    xbc = torch.randn((rows, s, SSM_CDIM), generator=gen).to(
+    d_in = SSM_H * p
+    xbc = torch.randn((rows, s, d_in + 2 * n), generator=gen).to(
         getattr(torch, dtype)).to(device)
     dt = torch.nn.functional.softplus(torch.randn((rows, s, SSM_H),
                                                   generator=gen)).to(device)
     a = -torch.linspace(1.0, 16.0, SSM_H, device=device) * 0.01
-    d_in = SSM_H * SSM_P
-    x = xbc[..., :d_in].view(rows, s, SSM_H, SSM_P).permute(0, 2, 1, 3)
-    b = xbc[..., d_in:d_in + SSM_N]
-    c = xbc[..., d_in + SSM_N:]
+    x = xbc[..., :d_in].view(rows, s, SSM_H, p).permute(0, 2, 1, 3)
+    b = xbc[..., d_in:d_in + n]
+    c = xbc[..., d_in + n:]
     da = torch.round(dt * a * 1024) / 1024
     return x, dt.permute(0, 2, 1), da.permute(0, 2, 1), b, c
 
@@ -401,10 +416,33 @@ class TestCudaSSDKernels:
         _close(y, y_want, dtype)
         _close(s, s_want, dtype)
 
-    def test_ssd_intra_padding_adds_exact_zeros(self, cuda):
+    @pytest.mark.parametrize("m", [1, 4])
+    @pytest.mark.parametrize("q", [5, 37, 64, 200, 256])
+    @pytest.mark.parametrize("widths", sorted(SSD_TENSOR_CORE_WIDTHS))
+    def test_ssd_intra_tensor_cores(self, cuda, widths, q, m):
+        p, n = widths
+        x, dt, da, b, c = _ssd_inputs(34, "bfloat16", m, q, cuda, p, n)
+        assert ssd_intra_route(x, b, c) == "tensor_cores"
+        y, s = ssd_intra(x, dt, da, b, c)
+        y_want, s_want = ssd_intra_plain(x, dt, da, b, c)
+        _close(y, y_want, "bfloat16")
+        _close(s, s_want, "bfloat16")
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_ssd_intra_padding_adds_exact_zeros(self, cuda, dtype):
         """dt = 0 past a row's length: the bucketed chunk's y rows and state
-        equal the exact-length chunk's bit for bit."""
-        x, dt, da, b, c = _ssd_inputs(31, "float32", 1, 64, cuda)
+        equal the exact-length chunk's bit for bit (bf16: on the tensor
+        cores, 64 -> 37 in one tile and 256 -> 200 over four)."""
+        x, dt, da, b, c = _ssd_inputs(31, dtype, 1, 256, cuda)
+        dt, da = dt.clone(), da.clone()
+        dt[..., 200:] = 0.0
+        da[..., 200:] = 0.0
+        y_pad, s_pad = ssd_intra(x, dt, da, b, c)
+        y, s = ssd_intra(x[:, :, :200], dt[..., :200], da[..., :200],
+                         b[:, :200], c[:, :200])
+        assert torch.equal(y_pad[:, :, :200], y)
+        assert torch.equal(s_pad, s)
+        x, dt, da, b, c = _ssd_inputs(31, dtype, 1, 64, cuda)
         dt, da = dt.clone(), da.clone()
         dt[..., 37:] = 0.0
         da[..., 37:] = 0.0

@@ -30,6 +30,11 @@ COPIES = (
     + ["runtime/straggler.py", "serving/kvcache.py", "analysis/cost_model.py",
        "analysis/roofline.py"])
 
+# classes the port copies word for word out of a module it does not copy
+# whole: (module, class names)
+CLASS_COPIES = [("runtime/fault_tolerance.py", ("WorkerState",
+                                                "HeartbeatMonitor"))]
+
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -61,6 +66,22 @@ def test_no_jax_and_no_reference_imports(path):
 def test_copies_differ_only_by_package_name(rel):
     source = (SRC / "repro" / rel).read_text()
     assert (PORT / rel).read_text() == source.replace("repro.", "repro_torch.")
+
+
+def _class_text(path: pathlib.Path, name: str) -> str:
+    """The source lines of class ``name``, its decorators included."""
+    text = path.read_text()
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.ClassDef) and n.name == name)
+    first = min([node.lineno] + [d.lineno for d in node.decorator_list])
+    return "\n".join(text.splitlines()[first - 1:node.end_lineno])
+
+
+@pytest.mark.parametrize("rel,names", CLASS_COPIES)
+def test_copied_classes_equal_their_source(rel, names):
+    for name in names:
+        assert (_class_text(PORT / rel, name)
+                == _class_text(SRC / "repro" / rel, name))
 
 
 def test_every_module_imports_without_cuda():

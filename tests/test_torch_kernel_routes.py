@@ -1,0 +1,191 @@
+"""Which kernel the ssd_intra and rmsnorm wrappers launch, and what they
+refuse -- decided on the host from dtype, shape and alignment before any
+launch, so it is checked here on the CPU with the launch itself replaced
+by a recorder.
+
+Also the arithmetic behind the bf16 tensor-core ssd_intra: its decayed
+scores W and scaled inputs enter the products as a pair of bf16 values
+(hi + lo), because one rounding of these unnormalised values moves y and
+the chunk state past the bf16 tolerance (emulated here in torch at
+mamba2-780m widths).
+"""
+
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_config, list_configs
+from repro_torch.kernels import _build
+from repro_torch.kernels import rmsnorm as R
+from repro_torch.kernels import ssd_scan as S
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """CPU tensors take the kernel path; launches are recorded, not run."""
+    calls = []
+    monkeypatch.setattr(_build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, entry, *args: calls.append((name, args)))
+    return calls
+
+
+def _ssd(m, h, q, p, n, dtype=torch.bfloat16, pad=0):
+    """The model's views: x and B/C cut from one (m, q, h*p + 2n + pad)
+    activation, dt/dA (m, h, q) fp32."""
+    xbc = torch.zeros((m, q, pad + h * p + 2 * n), dtype=dtype)[..., pad:]
+    x = xbc[..., :h * p].view(m, q, h, p).permute(0, 2, 1, 3)
+    b, c = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.zeros((m, h, q))
+    return x, dt, dt.clone(), b, c
+
+
+class TestSSDIntraRoute:
+    def test_widths_cover_the_ssm_configs(self):
+        for name in ("mamba2_780m", "zamba2_7b"):
+            cfg = get_config(name)
+            assert (cfg.ssm_head_dim, cfg.ssm_state_dim) in \
+                S.SSD_TENSOR_CORE_WIDTHS, name
+
+    @pytest.mark.parametrize("p,n,dtype,pad,want", [
+        (64, 128, torch.bfloat16, 0, "tensor_cores"),
+        (64, 64, torch.bfloat16, 0, "tensor_cores"),
+        (64, 128, torch.float32, 0, "cuda_cores"),    # fp32 holds 1e-5
+        (16, 16, torch.bfloat16, 0, "cuda_cores"),    # not instantiated
+        (64, 128, torch.bfloat16, 1, "cuda_cores"),   # 2-byte misaligned
+    ])
+    def test_route(self, p, n, dtype, pad, want):
+        x, _, _, b, c = _ssd(2, 3, 40, p, n, dtype, pad)
+        assert S.ssd_intra_route(x, b, c) == want
+
+    @pytest.mark.parametrize("p,n,dtype,tensor_cores", [
+        (64, 128, torch.bfloat16, 1), (64, 64, torch.bfloat16, 1),
+        (64, 128, torch.float32, 0), (16, 16, torch.bfloat16, 0)])
+    def test_wrapper_passes_the_route(self, launches, p, n, dtype,
+                                      tensor_cores):
+        args = _ssd(2, 3, 40, p, n, dtype)
+        y, s = S.ssd_intra(*args)
+        assert y.shape == (2, 3, 40, p) and s.shape == (2, 3, n, p)
+        ((name, a),) = launches
+        assert name == "ssd_intra"
+        cb, flag = a[7], a[-2]
+        assert flag == tensor_cores
+        assert (cb is None) == bool(tensor_cores)  # no (M,Q,Q) scratch
+
+    @pytest.mark.parametrize("change,error", [
+        (lambda a: (a[0], a[1][..., :-1], *a[2:]), ValueError),   # dt
+        (lambda a: (*a[:3], a[3][:, :-1], a[4]), ValueError),     # B
+        (lambda a: (*a[:3], a[3].float(), a[4]), TypeError),      # dtype
+        (lambda a: (a[0], a[1].bfloat16(), *a[2:]), TypeError),   # dt fp32
+        (lambda a: (a[0].transpose(-1, -2), *a[1:]), ValueError),  # stride
+    ])
+    def test_refusals_come_before_any_launch(self, launches, change, error):
+        with pytest.raises(error):
+            S.ssd_intra(*change(_ssd(1, 2, 64, 64, 128)))
+        assert launches == []
+
+    def test_longest_chunk_and_widest_head(self, launches):
+        for m, h, q, p, n in ((1, 1, S.MAX_CHUNK + 1, 64, 64),
+                              (1, 1, 8, S.MAX_HEAD_DIM + 16, 64)):
+            with pytest.raises(ValueError):
+                S.ssd_intra(*_ssd(m, h, q, p, n))
+        assert launches == []
+
+
+class TestRMSNormRoute:
+    def test_row_widths_are_norm_widths_of_the_configs(self):
+        widths = set()
+        for name in list_configs():
+            cfg = get_config(name)
+            widths.add(cfg.d_model)
+            widths.add(getattr(cfg, "kv_lora_rank", 0))
+            if cfg.ssm_nheads:
+                widths.add(cfg.ssm_nheads * cfg.ssm_head_dim)  # gated norm
+        assert R.ROW_WIDTHS <= widths
+        for d in R.ROW_WIDTHS:  # whole warp-wide 16-byte vectors
+            assert d % (32 * 8) == 0
+
+    @pytest.mark.parametrize("d,dtype,offset,want", [
+        (2048, torch.bfloat16, 0, "registers"),
+        (3072, torch.float32, 0, "registers"),
+        (1000, torch.bfloat16, 0, "vectors"),
+        (100, torch.float32, 0, "vectors"),
+        (100, torch.bfloat16, 0, "scalar"),   # not whole 16-byte vectors
+        (37, torch.float32, 0, "scalar"),
+        (2048, torch.bfloat16, 1, "scalar"),  # misaligned base
+    ])
+    def test_route(self, d, dtype, offset, want):
+        x = torch.zeros(4 * d + offset, dtype=dtype)[offset:].view(4, d)
+        w = torch.ones(d, dtype=dtype)
+        assert R.rmsnorm_route(x, w) == want
+
+    @pytest.mark.parametrize("d,route", [(512, 2), (1536, 2), (2048, 2),
+                                         (3072, 2), (3584, 2), (1024, 1),
+                                         (12, 0)])
+    def test_wrapper_passes_the_route(self, launches, d, route):
+        x = torch.zeros((4, 1, d), dtype=torch.bfloat16)
+        out = R.rmsnorm(x, torch.ones(d, dtype=torch.bfloat16), 1e-6)
+        assert out.shape == x.shape and out.dtype == x.dtype
+        ((name, a),) = launches
+        assert name == "rmsnorm" and a[3:5] == (4, d) and a[-2] == route
+
+    def test_refusals_come_before_any_launch(self, launches):
+        x = torch.zeros((4, 256), dtype=torch.bfloat16)
+        for bad in ((x, torch.ones(128, dtype=torch.bfloat16)),
+                    (x.t(), torch.ones(4, dtype=torch.bfloat16))):
+            with pytest.raises(ValueError):
+                R.rmsnorm(*bad, 1e-6)
+        with pytest.raises(TypeError):
+            R.rmsnorm(x, torch.ones(256), 1e-6)
+        assert launches == []
+
+
+def _pair_rounded(t, pair):
+    hi = t.to(torch.bfloat16).float()
+    return [hi, (t - hi).to(torch.bfloat16).float()] if pair else [hi]
+
+
+def _tensor_core_arithmetic(x, dt, dA, B, C, pair):
+    """ssd_intra as the bf16 tensor-core kernel computes it: S = C B^T and
+    the decay in fp32, W = S exp(seg_i - seg_j) dt_j and the scaled B
+    rounded to bf16 (once, or as the pair hi + lo), products summed in
+    fp32."""
+    seg = torch.cumsum(dA, -1)
+    q = x.shape[2]
+    idx = torch.arange(q)
+    causal = idx[:, None] >= idx[None, :]
+    decay = torch.exp(torch.where(causal, seg[..., :, None] - seg[..., None, :],
+                                  -1e30))
+    w = torch.einsum("min,mjn->mij", C.float(), B.float())[:, None] * decay \
+        * dt[..., None, :]
+    y = sum(torch.einsum("mhij,mhjp->mhip", part, x.float())
+            for part in _pair_rounded(w, pair))
+    bd = B.float()[:, None] * (torch.exp(seg[..., -1:] - seg) * dt)[..., None]
+    s = sum(torch.einsum("mhqn,mhqp->mhnp", part, x.float())
+            for part in _pair_rounded(bd, pair))
+    return y, s
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["one_rounding",
+                                                     "bf16_pair"])
+def test_bf16_pair_is_what_holds_the_tolerance(pair):
+    """At mamba2-780m widths (P 64, N 128), Q 256 and slow decay: one bf16
+    rounding of W and of the scaled B puts elements of y and of s out of
+    the bf16 tolerance (2e-2, atol and rtol) against the plain version; the
+    pair holds it with room to spare."""
+    gen = torch.Generator().manual_seed(0)
+    m, h, q, p, n = 1, 4, 256, 64, 128
+    x = torch.randn((m, h, q, p), generator=gen).bfloat16()
+    b = torch.randn((m, q, n), generator=gen).bfloat16()
+    c = torch.randn((m, q, n), generator=gen).bfloat16()
+    dt = torch.nn.functional.softplus(torch.randn((m, h, q), generator=gen))
+    da = torch.round(dt * -0.05 * 1024) / 1024
+    got = _tensor_core_arithmetic(x, dt, da, b, c, pair)
+    want = S.ssd_intra_plain(x, dt, da, b, c)
+    for g, w in zip(got, want):
+        over = ((g - w).abs() > 2e-2 + 2e-2 * w.abs()).float().mean().item()
+        if pair:
+            assert over == 0.0
+            assert (g - w).abs().max().item() < 5e-3
+        else:
+            assert over > 0  # elements out of tolerance in y and in s
