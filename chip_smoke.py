@@ -25,16 +25,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the exact-length one; slab ids permuted and repeated), the MLA decode
    kernel and flash attention with a value width of its own at
    deepseek-v2-lite-16b widths (latent pools, lengths on both sides of
-   every KV split boundary, identity-table views of width 16 and 32) --
-   then its median time beside the plain version's, the library call's
-   (where one PyTorch call computes the same function) and its bound, each
-   kernel's and library call's device time per call from one profiler
-   window, a ranking by device time against the library call, rmsnorm's
-   launch floor (a one-element add in the same profiler window), and
-   timings for information (rmsnorm on a 256-token prefill, ``ssd_intra``
-   at the batched bucket of 4 rows, the GQA decode pair over a 32-block
-   table and the whole cache, flash at the batched prefill bucket, the MLA
-   kernel over a 32-block table);
+   every KV split boundary, identity-table views of width 16 and 32), and
+   every kernel of the hybrid path again at zamba2-7b widths (rmsnorm on
+   rows of 3584 and of the gated norm's 7168, with the route each takes;
+   the attention kernels at 32/32 heads of 112, group size 1; the SSD
+   kernels at 112 heads of P 64, N 64) -- then its median time beside the
+   plain version's, the library call's (where one PyTorch call computes
+   the same function) and its bound, each kernel's and library call's
+   device time per call from one profiler window, a ranking by device
+   time against the library call, rmsnorm's launch floor (a one-element
+   add in the same profiler window), and timings for information
+   (rmsnorm on a 256-token prefill, ``ssd_intra`` at the batched bucket
+   of 4 rows, the GQA decode pair over a 32-block table and the whole
+   cache, flash at the batched prefill bucket, the MLA kernel over a
+   32-block table, and every hybrid-path kernel at zamba2-7b's widths);
 4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
    servers -- must give the greedy tokens of unbatched ``generate``, use
@@ -55,7 +59,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    fit, and the cut is printed);
 5c. MLA + MoE path, bf16: the same traffic at full depth, timed, and a
    profile of one 4-row paged decode step;
-6. launch counts of every kernel over phases 4-5c (each must be
+4d. hybrid path, fp32: full-width zamba2-7b (all 81 layers: 13 groups of
+   5 Mamba-2 layers + the shared attention block, then 3 Mamba-2 layers)
+   served the same way, each decode call staging the shared block's KV
+   block pools and the Mamba-2 state slabs: greedy tokens equal unbatched
+   ``generate``'s, both servers used, no block and no slab leaked, decode
+   calls recorded as ``decode@hybrid``, peak device memory printed;
+5d. hybrid path, bf16: the same traffic, timed, a profile of one 4-row
+   paged decode step (``chiprun_out/hybrid_decode_step_profile.txt``) and
+   one of a 256-token prefill call
+   (``chiprun_out/hybrid_prefill_profile.txt``);
+6. launch counts of every kernel over phases 4-5d (each must be
    non-zero), then one JSON line describing every kernel;
 7. last line: ``{"ok": true, "device": {...}}``.
 
@@ -369,22 +383,10 @@ class KernelChecks:
         return tables.to(self.dev)
 
     def run(self, cfg):
-        from repro_torch.kernels.decode_attention import (
-            decode_attention, decode_attention_plain)
-        from repro_torch.kernels.flash_attention import (
-            flash_attention, flash_attention_plain)
-        from repro_torch.kernels.paged_decode_attention import (
-            paged_decode_attention, paged_decode_attention_plain)
         from repro_torch.kernels.rmsnorm import (ROW_WIDTHS, rmsnorm,
                                                  rmsnorm_plain)
 
-        d, nq, nkv, h = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        eps = cfg.norm_eps
-        lengths = [1, 41, 101, 233]  # ragged; 233 = prompt 200 + 32 steps + 1
-        nb = 4 * (MAX_SEQ // BLOCK) + 1  # engine default pool: 4 rows + scratch
-        ok_len = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
-        zero_len = torch.tensor([0, 5], dtype=torch.int32, device=self.dev)
-        dev = self.dev
+        d, eps = cfg.d_model, cfg.norm_eps
         for dt in (torch.float32, torch.bfloat16):
             # rmsnorm: a 4-row decode step and a 256-token prefill
             w = (self.randn(d) * 0.1 + 1.0).to(dt)
@@ -400,52 +402,72 @@ class KernelChecks:
                 e = self.check("rmsnorm", f"x(256, {dw})", rmsnorm(x, ww, eps),
                                rmsnorm_plain(x, ww, eps), dt)
                 self.errors["rmsnorm"] = max(self.errors["rmsnorm"], e)
-            # flash: prefill buckets 8, 64 and 256, ragged 40 and 100
-            for b, s in ((4, 8), (4, 64), (2, 256), (1, 40), (1, 100)):
-                q = self.randn(b, s, nq, h, dtype=dt)
-                k = self.randn(b, s, nkv, h, dtype=dt)
-                v = self.randn(b, s, nkv, h, dtype=dt)
-                e = self.check("flash_attention", f"B={b} S={s}",
-                               flash_attention(q, k, v),
-                               flash_attention_plain(q, k, v), dt)
-                self.errors["flash_attention"] = max(
-                    self.errors.get("flash_attention", 0), e)
-            # dense decode over a (B, max_seq, Nkv, H) cache
-            q = self.randn(4, nq, h, dtype=dt)
-            kc = self.randn(4, MAX_SEQ, nkv, h, dtype=dt)
-            vc = self.randn(4, MAX_SEQ, nkv, h, dtype=dt)
-            e = self.check("decode_attention", f"lengths={lengths}",
-                           decode_attention(q, kc, vc, ok_len),
-                           decode_attention_plain(q, kc, vc, ok_len), dt)
-            self.errors["decode_attention"] = max(
-                self.errors.get("decode_attention", 0), e)
-            out0 = decode_attention(q[:2], kc[:2], vc[:2], zero_len)
-            self.check("decode_attention", "length 0 -> 0", out0[0],
-                       torch.zeros_like(out0[0]), dt)
-            # paged decode: scratch block 0 holds garbage no row may read
-            kp = self.randn(nb, BLOCK, nkv, h, dtype=dt)
-            vp = self.randn(nb, BLOCK, nkv, h, dtype=dt)
-            kp[0], vp[0] = 1e4, -1e4
-            w_max = MAX_SEQ // BLOCK
-            tables = self.table(lengths, w_max, nb)
-            e = self.check("paged_decode_attention",
-                           f"lengths={lengths} W={w_max} scratch lanes",
-                           paged_decode_attention(q, kp, vp, tables, ok_len),
-                           paged_decode_attention_plain(q, kp, vp, tables,
-                                                        ok_len), dt)
-            self.errors["paged_decode_attention"] = max(
-                self.errors.get("paged_decode_attention", 0), e)
-            out0 = paged_decode_attention(q[:2], kp, vp, tables[:2], zero_len)
-            self.check("paged_decode_attention", "length 0 -> 0", out0[0],
-                       torch.zeros_like(out0[0]), dt)
-            # paged == dense decode when the dense tile equals the block size
-            kd = kp[tables.long()].reshape(4, -1, nkv, h)
-            vd = vp[tables.long()].reshape(4, -1, nkv, h)
-            self.check("paged_decode_attention", "equals dense decode",
+            self.check_attention(cfg, dt)
+        self.time_all(cfg)
+
+    def check_attention(self, cfg, dt):
+        """The three attention kernels at ``cfg``'s head widths: flash at
+        prefill buckets 8, 64 and 256 and ragged 40 and 100; dense and
+        paged decode at ragged lengths (paged through a table with
+        scratch-block lanes full of garbage), length 0 giving 0, paged equal
+        to dense decode; then the KV split edges."""
+        from repro_torch.kernels.decode_attention import (
+            decode_attention, decode_attention_plain)
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_plain)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_decode_attention, paged_decode_attention_plain)
+
+        nq, nkv, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        lengths = [1, 41, 101, 233]  # ragged; 233 = prompt 200 + 32 steps + 1
+        nb = 4 * (MAX_SEQ // BLOCK) + 1  # engine default pool: 4 rows + scratch
+        ok_len = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
+        zero_len = torch.tensor([0, 5], dtype=torch.int32, device=self.dev)
+        # flash: prefill buckets 8, 64 and 256, ragged 40 and 100
+        for b, s in ((4, 8), (4, 64), (2, 256), (1, 40), (1, 100)):
+            q = self.randn(b, s, nq, h, dtype=dt)
+            k = self.randn(b, s, nkv, h, dtype=dt)
+            v = self.randn(b, s, nkv, h, dtype=dt)
+            e = self.check("flash_attention", f"B={b} S={s} Nq={nq} H={h}",
+                           flash_attention(q, k, v),
+                           flash_attention_plain(q, k, v), dt)
+            self.errors["flash_attention"] = max(
+                self.errors.get("flash_attention", 0), e)
+        # dense decode over a (B, max_seq, Nkv, H) cache
+        q = self.randn(4, nq, h, dtype=dt)
+        kc = self.randn(4, MAX_SEQ, nkv, h, dtype=dt)
+        vc = self.randn(4, MAX_SEQ, nkv, h, dtype=dt)
+        e = self.check("decode_attention", f"lengths={lengths} H={h}",
+                       decode_attention(q, kc, vc, ok_len),
+                       decode_attention_plain(q, kc, vc, ok_len), dt)
+        self.errors["decode_attention"] = max(
+            self.errors.get("decode_attention", 0), e)
+        out0 = decode_attention(q[:2], kc[:2], vc[:2], zero_len)
+        self.check("decode_attention", "length 0 -> 0", out0[0],
+                   torch.zeros_like(out0[0]), dt)
+        # paged decode: scratch block 0 holds garbage no row may read
+        kp = self.randn(nb, BLOCK, nkv, h, dtype=dt)
+        vp = self.randn(nb, BLOCK, nkv, h, dtype=dt)
+        kp[0], vp[0] = 1e4, -1e4
+        w_max = MAX_SEQ // BLOCK
+        tables = self.table(lengths, w_max, nb)
+        e = self.check("paged_decode_attention",
+                       f"lengths={lengths} W={w_max} H={h} scratch lanes",
                        paged_decode_attention(q, kp, vp, tables, ok_len),
-                       decode_attention(q, kd, vd, ok_len, block_k=BLOCK), dt)
-            self.gqa_split_edges(cfg, dt)
-        self.time_all(cfg, nb)
+                       paged_decode_attention_plain(q, kp, vp, tables,
+                                                    ok_len), dt)
+        self.errors["paged_decode_attention"] = max(
+            self.errors.get("paged_decode_attention", 0), e)
+        out0 = paged_decode_attention(q[:2], kp, vp, tables[:2], zero_len)
+        self.check("paged_decode_attention", "length 0 -> 0", out0[0],
+                   torch.zeros_like(out0[0]), dt)
+        # paged == dense decode when the dense tile equals the block size
+        kd = kp[tables.long()].reshape(4, -1, nkv, h)
+        vd = vp[tables.long()].reshape(4, -1, nkv, h)
+        self.check("paged_decode_attention", "equals dense decode",
+                   paged_decode_attention(q, kp, vp, tables, ok_len),
+                   decode_attention(q, kd, vd, ok_len, block_k=BLOCK), dt)
+        self.gqa_split_edges(cfg, dt)
 
     def gqa_split_edges(self, cfg, dt):
         """The GQA decode pair at lengths on both sides of every KV split
@@ -503,125 +525,117 @@ class KernelChecks:
             print(f"check GQA decode [{', '.join(outs)} against paged "
                   f"W={w16}, {case}] {str(dt)[6:]}: bit-identical ok")
 
-    def time_all(self, cfg, nb):
-        """Times at main-path shapes in bf16 (the config's dtype)."""
+    def time_flash(self, cfg, b, s, note=""):
+        """flash in bf16 on ``b`` causal prefill rows of ``s`` tokens at
+        ``cfg``'s heads, beside SDPA."""
         import torch.nn.functional as F
 
-        from repro_torch.kernels.decode_attention import (
-            decode_attention, decode_attention_plain)
         from repro_torch.kernels.flash_attention import (
             flash_attention, flash_attention_plain)
-        from repro_torch.kernels.paged_decode_attention import (
-            paged_decode_attention, paged_decode_attention_plain)
 
-        dt = torch.bfloat16
-        el = 2
+        dt, el = torch.bfloat16, 2
         nq, nkv, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        rows = {}
-
-        rows["rmsnorm"] = self.time_rmsnorm(cfg)
-
-        # flash on one 256-token prefill
-        s = 256
-        q = self.randn(1, s, nq, h, dtype=dt)
-        k = self.randn(1, s, nkv, h, dtype=dt)
-        v = self.randn(1, s, nkv, h, dtype=dt)
+        q = self.randn(b, s, nq, h, dtype=dt)
+        k = self.randn(b, s, nkv, h, dtype=dt)
+        v = self.randn(b, s, nkv, h, dtype=dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         pairs = s * (s + 1) // 2
-        rows["flash_attention"] = timed(
+        return timed(
             lambda: flash_attention(q, k, v),
             lambda: flash_attention_plain(q, k, v),
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True),
             bound_ms((2 * q.numel() + 2 * k.numel()) * el,
-                     4 * nq * h * pairs, dt), f"q (1,{s},{nq},{h}) causal")
+                     4 * b * nq * h * pairs, dt),
+            f"q ({b},{s},{nq},{h}) causal{note}")
 
-        # decode at the main path's end: lengths of 4 streams after 32 steps
-        lengths = [p + STEPS + 1 for p in PROMPT_LENS]
+    def time_paged(self, cfg, lengths, w_cols, note=""):
+        """paged decode in bf16 on one step of len(lengths) rows over the
+        engine's pool at ``cfg``'s heads through tables of ``w_cols``
+        blocks, beside SDPA on the pre-gathered view."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_decode_attention, paged_decode_attention_plain)
+
+        dt, el = torch.bfloat16, 2
+        nq, nkv, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        rows, live = len(lengths), sum(lengths)
+        nb = 4 * (MAX_SEQ // BLOCK) + 1
         lens = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
-        live = sum(lengths)
-        q = self.randn(4, nq, h, dtype=dt)
-        kc = self.randn(4, MAX_SEQ, nkv, h, dtype=dt)
-        vc = self.randn(4, MAX_SEQ, nkv, h, dtype=dt)
-        mask = (torch.arange(MAX_SEQ, device=self.dev)[None, :]
-                < lens[:, None])[:, None, None, :]
-        kv_bytes = 2 * live * nkv * h * el
-        q_bytes = 2 * q.numel() * el + 4 * 4
-        rows["decode_attention"] = timed(
-            lambda: decode_attention(q, kc, vc, lens),
-            lambda: decode_attention_plain(q, kc, vc, lens),
-            lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                attn_mask=mask, enable_gqa=True),
-            bound_ms(kv_bytes + q_bytes, 4 * nq * h * live, dt),
-            f"q (4,{nq},{h}), cache (4,{MAX_SEQ},{nkv},{h}), "
-            f"lengths {lengths}")
-
-        w_cols = -(-max(lengths) // BLOCK)
-        w_cols = 1 << (w_cols - 1).bit_length()  # the engine's pow2 width
+        q = self.randn(rows, nq, h, dtype=dt)
         kp = self.randn(nb, BLOCK, nkv, h, dtype=dt)
         vp = self.randn(nb, BLOCK, nkv, h, dtype=dt)
         tables = self.table(lengths, w_cols, nb)
-        kg = kp[tables.long()].reshape(4, -1, nkv, h).transpose(1, 2)
-        vg = vp[tables.long()].reshape(4, -1, nkv, h).transpose(1, 2)
-        gmask = mask[..., : w_cols * BLOCK]
-        rows["paged_decode_attention"] = timed(
-            lambda: paged_decode_attention(q, kp, vp, tables, lens),
-            lambda: paged_decode_attention_plain(q, kp, vp, tables, lens),
-            lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kg, vg, attn_mask=gmask, enable_gqa=True),
-            bound_ms(kv_bytes + q_bytes + tables.numel() * 4,
-                     4 * nq * h * live, dt),
-            f"q (4,{nq},{h}), pool ({nb},{BLOCK},{nkv},{h}), "
-            f"W={w_cols}, lengths {lengths}")
-        print_rows({k: v for k, v in rows.items() if k != "rmsnorm"}, "SDPA")
-        self.rows.update(rows)
-
-        # information only: the decode pair over a 32-block table and the
-        # whole (4, 512) cache, lengths to 512
-        lengths = [130, 260, 390, MAX_SEQ]
-        lens = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
-        live = sum(lengths)
-        w_cols = MAX_SEQ // BLOCK
-        tables = self.table(lengths, w_cols, nb)
-        mask = (torch.arange(MAX_SEQ, device=self.dev)[None, :]
+        kg = kp[tables.long()].reshape(rows, -1, nkv, h).transpose(1, 2)
+        vg = vp[tables.long()].reshape(rows, -1, nkv, h).transpose(1, 2)
+        mask = (torch.arange(w_cols * BLOCK, device=self.dev)[None, :]
                 < lens[:, None])[:, None, None, :]
-        kg = kp[tables.long()].reshape(4, -1, nkv, h).transpose(1, 2)
-        vg = vp[tables.long()].reshape(4, -1, nkv, h).transpose(1, 2)
         kv_bytes = 2 * live * nkv * h * el
-        info = {}
-        info["paged_decode_attention"] = timed(
+        q_bytes = 2 * q.numel() * el + 4 * rows
+        return timed(
             lambda: paged_decode_attention(q, kp, vp, tables, lens),
             lambda: paged_decode_attention_plain(q, kp, vp, tables, lens),
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True),
             bound_ms(kv_bytes + q_bytes + tables.numel() * 4,
                      4 * nq * h * live, dt),
-            f"W={w_cols}, lengths {lengths} (information only)")
-        info["decode_attention"] = timed(
+            f"q ({rows},{nq},{h}), pool ({nb},{BLOCK},{nkv},{h}), "
+            f"W={w_cols}, lengths {lengths}{note}")
+
+    def time_decode(self, cfg, lengths, note=""):
+        """dense decode in bf16 on one step of len(lengths) rows over a
+        (rows, max_seq) cache at ``cfg``'s heads, beside masked SDPA."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.decode_attention import (
+            decode_attention, decode_attention_plain)
+
+        dt, el = torch.bfloat16, 2
+        nq, nkv, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        rows, live = len(lengths), sum(lengths)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
+        q = self.randn(rows, nq, h, dtype=dt)
+        kc = self.randn(rows, MAX_SEQ, nkv, h, dtype=dt)
+        vc = self.randn(rows, MAX_SEQ, nkv, h, dtype=dt)
+        mask = (torch.arange(MAX_SEQ, device=self.dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        kv_bytes = 2 * live * nkv * h * el
+        q_bytes = 2 * q.numel() * el + 4 * rows
+        return timed(
             lambda: decode_attention(q, kc, vc, lens),
             lambda: decode_attention_plain(q, kc, vc, lens),
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True),
             bound_ms(kv_bytes + q_bytes, 4 * nq * h * live, dt),
-            f"cache (4,{MAX_SEQ},{nkv},{h}), lengths {lengths} "
-            "(information only)")
-        print_rows(info, "SDPA")
+            f"q ({rows},{nq},{h}), cache ({rows},{MAX_SEQ},{nkv},{h}), "
+            f"lengths {lengths}{note}")
+
+    def time_all(self, cfg):
+        """Times at main-path shapes in bf16 (the config's dtype)."""
+        rows = {"rmsnorm": self.time_rmsnorm(cfg),
+                "flash_attention": self.time_flash(cfg, 1, 256)}
+        # decode at the main path's end: lengths of 4 streams after 32 steps
+        lengths = [p + STEPS + 1 for p in PROMPT_LENS]
+        rows["decode_attention"] = self.time_decode(cfg, lengths)
+        w_cols = -(-max(lengths) // BLOCK)
+        w_cols = 1 << (w_cols - 1).bit_length()  # the engine's pow2 width
+        rows["paged_decode_attention"] = self.time_paged(cfg, lengths, w_cols)
+        print_rows({k: v for k, v in rows.items() if k != "rmsnorm"}, "SDPA")
+        self.rows.update(rows)
+
+        # information only: the decode pair over a 32-block table and the
+        # whole (4, 512) cache, lengths to 512
+        lengths = [130, 260, 390, MAX_SEQ]
+        print_rows({"paged_decode_attention": self.time_paged(
+            cfg, lengths, MAX_SEQ // BLOCK, " (information only)"),
+            "decode_attention": self.time_decode(
+                cfg, lengths, " (information only)")}, "SDPA")
 
         # information only: flash at the batched prefill bucket (4, 256)
-        q = self.randn(4, 256, nq, h, dtype=dt)
-        k = self.randn(4, 256, nkv, h, dtype=dt)
-        v = self.randn(4, 256, nkv, h, dtype=dt)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        info = timed(lambda: flash_attention(q, k, v),
-                     lambda: flash_attention_plain(q, k, v),
-                     lambda: F.scaled_dot_product_attention(
-                         qt, kt, vt, is_causal=True, enable_gqa=True),
-                     bound_ms((2 * q.numel() + 2 * k.numel()) * el,
-                              4 * 4 * nq * h * (256 * 257 // 2), dt),
-                     f"q (4,256,{nq},{h}) causal (information only)")
-        print_rows({"flash_attention": info}, "SDPA")
+        print_rows({"flash_attention": self.time_flash(
+            cfg, 4, 256, " (information only)")}, "SDPA")
 
     def time_rmsnorm(self, cfg, tag: str = "time") -> dict:
         """rmsnorm in bf16 on one decode step of 4 rows (its table row,
@@ -887,25 +901,11 @@ class KernelChecks:
                 xbc[:, d_in + n:].view(rows, 1, n))
 
     def run_ssm(self, cfg):
-        from repro_torch.kernels.ssd_scan import (
-            ssd_intra, ssd_intra_plain, ssd_slab_decode,
-            ssd_slab_decode_plain)
+        from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
 
         for dt in (torch.float32, torch.bfloat16):
-            # prefill chunks: 4 rows of 5, 2 rows of 200, 2 rows of 512
-            # (two chunks of 256 each)
-            for rows, s in ((4, 5), (2, 200), (2, 512)):
-                args = self.ssd_views(cfg, rows, s, dt)
-                y, st = ssd_intra(*args)
-                y_want, st_want = ssd_intra_plain(*args)
-                m, q = args[0].shape[0], args[0].shape[2]
-                e = max(self.check("ssd_intra", f"M={m} Q={q} y", y, y_want,
-                                   dt),
-                        self.check("ssd_intra", f"M={m} Q={q} state", st,
-                                   st_want, dt))
-                self.errors["ssd_intra"] = max(
-                    self.errors.get("ssd_intra", 0), e)
-            if dt == torch.bfloat16:  # zamba2-7b's widths: N 64
+            self.check_ssd(cfg, dt)
+            if dt == torch.bfloat16:  # N 64 at mamba2's 48 heads
                 cfg64 = dataclasses.replace(cfg, ssm_state_dim=64)
                 for rows, s in ((1, 256), (4, 100)):
                     args = self.ssd_views(cfg64, rows, s, dt)
@@ -916,37 +916,59 @@ class KernelChecks:
                             self.check("ssd_intra", f"N=64 M={rows} Q={s} "
                                        "state", st, st_want, dt))
                     self.errors["ssd_intra"] = max(self.errors["ssd_intra"], e)
-            self.ssd_padding_bits(cfg, dt)
-            # decode: 1, 2, 4 rows; permuted slab ids, one repeated with its
-            # row's inputs (as the engine's padding rows repeat row 0)
-            for slabs in ([6], [7, 2], [9, 3, 5, 3]):
-                pool, x, dtv, a, b, c = self.slab_inputs(cfg, len(slabs), dt)
-                if len(slabs) == 4:
-                    for t in (x, dtv, b, c):
-                        t[3] = t[1]
-                ids = torch.tensor(slabs, dtype=torch.int32, device=self.dev)
-                y, st = ssd_slab_decode(pool, ids, x, dtv, a, b, c)
-                y_want, st_want = ssd_slab_decode_plain(pool, ids, x, dtv, a,
-                                                        b, c)
-                e = max(self.check("ssd_slab_decode", f"slabs {slabs} y", y,
-                                   y_want, dt),
-                        self.check("ssd_slab_decode", f"slabs {slabs} state",
-                                   st, st_want, torch.float32))
-                self.errors["ssd_slab_decode"] = max(
-                    self.errors.get("ssd_slab_decode", 0), e)
-                new = pool.clone()
-                new.index_copy_(0, ids.long(), st)
-                rest = [i for i in range(NUM_SLABS) if i not in slabs]
-                torch.cuda.synchronize()
-                if not torch.equal(new[rest], pool[rest]):
-                    raise SmokeFailure("ssd_slab_decode: the scatter changed "
-                                       "a slab no row addresses")
-                if not torch.equal(new[ids.long()], st):
-                    raise SmokeFailure("ssd_slab_decode: a repeated slab id "
-                                       "did not give identical states")
-                print(f"check ssd_slab_decode [slabs {slabs}] "
-                      f"{str(dt)[6:]}: untouched slabs bit-identical ok")
         self.time_ssm(cfg)
+
+    def check_ssd(self, cfg, dt):
+        """The SSD kernels at ``cfg``'s SSM widths: ``ssd_intra`` on prefill
+        chunks of 5, 200 and 256 and a bucketed chunk bit-identical to the
+        exact-length one; ``ssd_slab_decode`` on 1, 2 and 4 rows with slab
+        ids permuted and repeated."""
+        from repro_torch.kernels.ssd_scan import (
+            ssd_intra, ssd_intra_plain, ssd_slab_decode,
+            ssd_slab_decode_plain)
+
+        h = cfg.ssm_nheads
+        # prefill chunks: 4 rows of 5, 2 rows of 200, 2 rows of 512 (two
+        # chunks of 256 each)
+        for rows, s in ((4, 5), (2, 200), (2, 512)):
+            args = self.ssd_views(cfg, rows, s, dt)
+            y, st = ssd_intra(*args)
+            y_want, st_want = ssd_intra_plain(*args)
+            m, q = args[0].shape[0], args[0].shape[2]
+            e = max(self.check("ssd_intra", f"H={h} M={m} Q={q} y", y, y_want,
+                               dt),
+                    self.check("ssd_intra", f"H={h} M={m} Q={q} state", st,
+                               st_want, dt))
+            self.errors["ssd_intra"] = max(self.errors.get("ssd_intra", 0), e)
+        self.ssd_padding_bits(cfg, dt)
+        # decode: 1, 2, 4 rows; permuted slab ids, one repeated with its
+        # row's inputs (as the engine's padding rows repeat row 0)
+        for slabs in ([6], [7, 2], [9, 3, 5, 3]):
+            pool, x, dtv, a, b, c = self.slab_inputs(cfg, len(slabs), dt)
+            if len(slabs) == 4:
+                for t in (x, dtv, b, c):
+                    t[3] = t[1]
+            ids = torch.tensor(slabs, dtype=torch.int32, device=self.dev)
+            y, st = ssd_slab_decode(pool, ids, x, dtv, a, b, c)
+            y_want, st_want = ssd_slab_decode_plain(pool, ids, x, dtv, a, b, c)
+            e = max(self.check("ssd_slab_decode", f"H={h} slabs {slabs} y", y,
+                               y_want, dt),
+                    self.check("ssd_slab_decode", f"H={h} slabs {slabs} state",
+                               st, st_want, torch.float32))
+            self.errors["ssd_slab_decode"] = max(
+                self.errors.get("ssd_slab_decode", 0), e)
+            new = pool.clone()
+            new.index_copy_(0, ids.long(), st)
+            rest = [i for i in range(NUM_SLABS) if i not in slabs]
+            torch.cuda.synchronize()
+            if not torch.equal(new[rest], pool[rest]):
+                raise SmokeFailure("ssd_slab_decode: the scatter changed a "
+                                   "slab no row addresses")
+            if not torch.equal(new[ids.long()], st):
+                raise SmokeFailure("ssd_slab_decode: a repeated slab id did "
+                                   "not give identical states")
+            print(f"check ssd_slab_decode [H={h} slabs {slabs}] "
+                  f"{str(dt)[6:]}: untouched slabs bit-identical ok")
 
     def ssd_padding_bits(self, cfg, dt):
         """A bucketed chunk -- 256 positions, dt = dA = 0 past 200 -- gives
@@ -964,18 +986,25 @@ class KernelChecks:
         if not (torch.equal(y_pad[:, :, :200], y) and torch.equal(s_pad, st)):
             raise SmokeFailure(f"ssd_intra {dt}: the bucketed chunk differs "
                                "from the exact-length chunk")
-        print(f"check ssd_intra [bucket 256 == exact 200] {str(dt)[6:]}: "
-              "bit-identical ok")
+        print(f"check ssd_intra [H={cfg.ssm_nheads} bucket 256 == exact 200] "
+              f"{str(dt)[6:]}: bit-identical ok")
 
     def time_ssm(self, cfg):
         """Times at the SSM path's shapes in bf16 (the config's dtype):
         one 256-token prefill row, one 4-row decode step."""
+        rows = {"ssd_intra": self.time_ssd_intra(cfg),
+                "ssd_slab_decode": self.time_slab_decode(cfg)}
+        print_rows({"ssd_slab_decode": rows["ssd_slab_decode"]}, "")
+        self.rows.update(rows)
+
+    def time_slab_decode(self, cfg, note=""):
+        """ssd_slab_decode in bf16 on one 4-row decode step over the
+        engine's slab pool at ``cfg``'s SSM widths."""
         from repro_torch.kernels.ssd_scan import (ssd_slab_decode,
                                                   ssd_slab_decode_plain)
 
         dt, el = torch.bfloat16, 2
         h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state_dim
-        rows = {"ssd_intra": self.time_ssd_intra(cfg)}
         pool, x, dtv, a, b, c = self.slab_inputs(cfg, 4, dt)
         ids = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=self.dev)
         state = 4 * h * p * n
@@ -983,13 +1012,11 @@ class KernelChecks:
         # y, B, C, dt; operations ~5 per state element (decay, update,
         # the product with C and its sum)
         nbytes = 2 * state * 4 + 2 * 4 * h * p * el + 2 * 4 * n * el + 4 * h * 4
-        rows["ssd_slab_decode"] = timed(
+        return timed(
             lambda: ssd_slab_decode(pool, ids, x, dtv, a, b, c),
             lambda: ssd_slab_decode_plain(pool, ids, x, dtv, a, b, c), None,
             bound_ms(nbytes, 5 * state, torch.float32),
-            f"pool ({NUM_SLABS},{h},{p},{n}) fp32, 4 rows")
-        print_rows({"ssd_slab_decode": rows["ssd_slab_decode"]}, "")
-        self.rows.update(rows)
+            f"pool ({NUM_SLABS},{h},{p},{n}) fp32, 4 rows{note}")
 
     def time_ssd_intra(self, cfg, tag: str = "time") -> dict:
         """ssd_intra in bf16 on one 256-token prefill row (its table row)
@@ -1017,6 +1044,56 @@ class KernelChecks:
                    else "the batched bucket (information only)"))
             print_rows({"ssd_intra": rows[m]}, "", tag)
         return rows[1]
+
+    # -- the hybrid path's kernels at zamba2-7b widths -----------------------
+    def run_hybrid(self, cfg):
+        """Every kernel of the hybrid path at zamba2-7b's full widths, fp32
+        and bf16: rmsnorm on rows of d_model (3584) and d_inner (7168, the
+        gated norm), each with the route it takes; the attention kernels at
+        32/32 heads of 112 (group size 1); the SSD kernels at 112 heads of
+        P 64, N 64.  Then device times beside SDPA at the hybrid shapes,
+        for information."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
+                                                 rmsnorm_route)
+
+        eps = cfg.norm_eps
+        for dt in (torch.float32, torch.bfloat16):
+            for d in (cfg.d_model, cfg.d_inner):
+                w = (self.randn(d) * 0.1 + 1.0).to(dt)
+                for shape in ((4, 1, d), (1, 256, d)):
+                    x = self.randn(*shape, dtype=dt) * 3.0
+                    route = rmsnorm_route(x, w)
+                    e = self.check("rmsnorm", f"x{shape}, {route} route",
+                                   rmsnorm(x, w, eps),
+                                   rmsnorm_plain(x, w, eps), dt)
+                    self.errors["rmsnorm"] = max(self.errors["rmsnorm"], e)
+            self.check_attention(cfg, dt)
+            self.check_ssd(cfg, dt)
+        # one decode step's norms: d_model in registers, d_inner on the
+        # vector loop
+        for d in (cfg.d_model, cfg.d_inner):
+            x = self.randn(4, 1, d, dtype=torch.bfloat16)
+            w = (self.randn(d) * 0.1 + 1.0).to(torch.bfloat16)
+            print_rows({"rmsnorm": timed(
+                lambda: rmsnorm(x, w, eps), lambda: rmsnorm_plain(x, w, eps),
+                lambda: F.rms_norm(x, (d,), w, eps),
+                bound_ms((2 * x.numel() + d) * 2, 4 * x.numel(),
+                         torch.bfloat16),
+                f"x (4,1,{d}), {rmsnorm_route(x, w)} route (hybrid, "
+                "information only)")}, "F.rms_norm")
+        lengths = [p + STEPS + 1 for p in PROMPT_LENS]
+        w_cols = 1 << (-(-max(lengths) // BLOCK) - 1).bit_length()
+        print_rows({"flash_attention": self.time_flash(
+            cfg, 1, 256, " (hybrid, information only)"),
+            "paged_decode_attention": self.time_paged(
+                cfg, lengths, w_cols, " (hybrid, information only)"),
+            "decode_attention": self.time_decode(
+                cfg, lengths, " (hybrid, information only)")}, "SDPA")
+        self.time_ssd_intra(cfg, "time[hybrid]")
+        print_rows({"ssd_slab_decode": self.time_slab_decode(
+            cfg, " (hybrid, information only)")}, "")
 
 
 # ---------------------------------------------------------------------------
@@ -1315,6 +1392,59 @@ def mla_path(dev, card):
     return counts
 
 
+def hybrid_path(dev, card):
+    """Phases 4d-5d: zamba2-7b through the shared block's KV block pools and
+    the Mamba-2 state slabs in one decode call; returns the launch
+    counts."""
+    from repro_torch.configs.registry import get_config
+
+    base = get_config("zamba2_7b")
+    prompts = _prompts(base.vocab_size)
+
+    # phase 4d: fp32 at all 81 layers, batched tokens must equal unbatched
+    cfg32 = dataclasses.replace(base, dtype="float32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg32, dev, "hybrid fp32")
+    run = serve_batched(cfg32, params, prompts, dev)
+    ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
+    counts = Counter(run["launches"]) + Counter(ref_launches)
+    check_outputs(run, prompts)
+    if {c["kind"] for c in run["decode_calls"]} != {"decode@hybrid"} or not (
+            run["decode_calls"]):
+        raise SmokeFailure(f"hybrid decode calls recorded as {run['kinds']}")
+    check_tokens("hybrid fp32", run, ref, prompts)
+    print(f"hybrid fp32: max |batched - unbatched| first-step logit "
+          f"{first_logits_gap(cfg32, params, prompts, dev):.3e} "
+          f"(information only)")
+    report_latency("hybrid fp32", run, card)
+    print(f"hybrid fp32 [{card}]: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    del params, run, ref
+    torch.cuda.empty_cache()
+
+    # phase 5d: bf16, timed
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(base, dev, "hybrid bf16")
+    run = serve_batched(base, params, prompts, dev)
+    counts += Counter(run["launches"])
+    check_outputs(run, prompts)
+    report_latency("hybrid bf16", run, card)
+    print(f"hybrid bf16 [{card}]: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    for name, res in run["results"].items():
+        print(f"hybrid bf16 {name} tokens (information only): {res.tokens}")
+    del run
+    step_profile(base, params, dev, card, "hybrid step profile",
+                 "hybrid_decode_step_profile.txt")
+    prefill_profile(base, params, dev, card, "hybrid prefill profile",
+                    "hybrid_prefill_profile.txt")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def report_latency(tag, run, card):
     prefill = [r.prefill_latency_s * 1e3 for r in run["results"].values()]
     steps = sorted(x * 1e3 for r in run["results"].values()
@@ -1340,25 +1470,30 @@ def report_latency(tag, run, card):
 
 def decode_step_cache(cfg, dev):
     """The pools and per-call cache entries of one 4-row paged decode step
-    at phase 5's final lengths: block tables over the block pools (GQA,
-    MLA; the prefix layer's pools share them) or slab ids 1-4 over the slab
-    pools (SSM).  Returns (step cache, width)."""
+    at phase 5's final lengths, for each pool kind of the family: block
+    tables over the block pools (GQA, MLA -- the prefix layer's pools share
+    them -- and the hybrid stack's shared block) and slab ids 1-4 over the
+    slab pools (SSM, the hybrid stack's Mamba-2 layers).  Returns (step
+    cache, width; 0 without block pools)."""
     from repro_torch.models import model as M
 
     lengths = torch.tensor([p + STEPS for p in PROMPT_LENS],
                            dtype=torch.int32, device=dev)
-    if M.paged_pool_kinds(cfg)["layers"] == "slab":
-        pools = M.init_paged_cache(cfg, 0, BLOCK, num_slabs=NUM_SLABS,
-                                   device=dev)
-        ids = torch.arange(1, 5, dtype=torch.int32, device=dev)
-        return dict(pools, pos=lengths, slab_ids=ids), 0
+    kinds = set(M.paged_pool_kinds(cfg).values())
     nb_row = MAX_SEQ // BLOCK
-    pools = M.init_paged_cache(cfg, 4 * nb_row + 1, BLOCK, device=dev)
-    need = -(-(int(lengths.max()) + 1) // BLOCK)
-    w = 1 << (need - 1).bit_length()
-    tables = (1 + torch.arange(4, device=dev)[:, None] * nb_row
-              + torch.arange(w, device=dev)[None, :]).to(torch.int32)
-    return dict(pools, pos=lengths, block_tables=tables), w
+    pools = M.init_paged_cache(
+        cfg, 4 * nb_row + 1 if "block" in kinds else 0, BLOCK,
+        num_slabs=NUM_SLABS if "slab" in kinds else 0, device=dev)
+    cache, w = dict(pools, pos=lengths), 0
+    if "slab" in kinds:
+        cache["slab_ids"] = torch.arange(1, 5, dtype=torch.int32, device=dev)
+    if "block" in kinds:
+        need = -(-(int(lengths.max()) + 1) // BLOCK)
+        w = 1 << (need - 1).bit_length()
+        cache["block_tables"] = (
+            1 + torch.arange(4, device=dev)[:, None] * nb_row
+            + torch.arange(w, device=dev)[None, :]).to(torch.int32)
+    return cache, w
 
 
 def step_profile(cfg, params, dev, card, tag, outfile):
@@ -1509,13 +1644,15 @@ def main() -> int:
     checks.run(get_config("internlm2_1_8b"))
     checks.run_ssm(get_config("mamba2_780m"))
     checks.run_mla(get_config("deepseek_v2_lite_16b"))
+    checks.run_hybrid(get_config("zamba2_7b"))
     checks.rank()
 
     counts = gqa_path(dev, card)                                # phases 4-5
     counts += ssm_path(dev, card)                               # phases 4b-5b
     counts += mla_path(dev, card)                               # phases 4c-5c
+    counts += hybrid_path(dev, card)                            # phases 4d-5d
 
-    print(f"launches over phases 4-5c: {dict(counts)}")         # phase 6
+    print(f"launches over phases 4-5d: {dict(counts)}")         # phase 6
     missing = [k for k in KERNELS if not counts.get(k)]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")

@@ -9,7 +9,8 @@
 
 Counterpart of ``repro/models/model.py``.  The port has the dense GQA
 decoder, the MoE decoder (GQA or MLA attention, with dense prefix layers)
-and the pure-SSM (Mamba-2) stack; the other families raise
+and the pure-SSM (Mamba-2) stack in ``transformer``, and the hybrid
+(Mamba-2 + shared attention) stack in ``hybrid``; the other families raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -19,14 +20,14 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 
 Params = Any
 
 
 def _family_mod(cfg):
     if cfg.family == "hybrid":
-        raise NotImplementedError("hybrid stacks are ported in ROADMAP A8")
+        return hybrid
     if cfg.family == "encdec":
         raise NotImplementedError("enc-dec stacks are ported in ROADMAP A9")
     if cfg.mrope or cfg.embed_inputs:
@@ -49,7 +50,8 @@ def cache_family(cfg) -> str | None:
     """The cache family (a ``serving.kvcache.FAMILIES`` key) this config
     pages under, or None when nothing resolves.  A declared
     ``cfg.cache_family`` always wins."""
-    return transformer.cache_family(cfg)
+    mod = hybrid if cfg.family == "hybrid" else transformer
+    return mod.cache_family(cfg)
 
 
 def supports_paged(cfg) -> bool:
@@ -74,8 +76,11 @@ def paged_pool_kinds(cfg) -> dict[str, str]:
 def paged_insert_views(cfg, prefill_cache) -> dict:
     """Prefill-cache leaves arranged like the ``init_paged_cache`` pools
     ((L, B, ...) per leaf; the prefix layers' tuples stacked along a new
-    leading axis) for the engine's insert scatter."""
-    _family_mod(cfg)
+    leading axis) for the engine's insert scatter.  A family module with
+    its own arrangement (the hybrid stack) gives it."""
+    mod = _family_mod(cfg)
+    if hasattr(mod, "paged_insert_views"):
+        return mod.paged_insert_views(cfg, prefill_cache)
     views = {"layers": prefill_cache["layers"]}
     if "first_layers" in prefill_cache:
         views["first_layers"] = tuple(

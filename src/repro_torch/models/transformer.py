@@ -158,19 +158,21 @@ def block(cfg, p, x, *, positions, mode: str, layer_cache=None,
 
 
 def _cache_leaves(cfg, lead: tuple, rows: int, seq: int | None, dtype,
-                  device):
-    """Zero cache leaves of one layer kind with leading axes ``lead``:
-    ``rows`` sequences of ``seq`` positions (dense caches, or pools of
-    ``rows`` blocks of ``seq`` positions), or ``rows`` SSM slabs when ``seq``
-    is None."""
-    if _mixer_kind(cfg) == "mamba":
+                  device, kind: str | None = None):
+    """Zero cache leaves of one mixer kind (``kind``, default the stack's
+    ``_mixer_kind``) with leading axes ``lead``: ``rows`` sequences of
+    ``seq`` positions (dense caches, or pools of ``rows`` blocks of ``seq``
+    positions), or ``rows`` SSM slabs when ``seq`` is None.  Every leaf is
+    its own zeroed storage."""
+    kind = kind or _mixer_kind(cfg)
+    if kind == "mamba":
         return (
             torch.zeros((*lead, rows, cfg.conv_width - 1, S.conv_dim(cfg)),
                         dtype=dtype, device=device),
             torch.zeros((*lead, rows, cfg.ssm_nheads, cfg.ssm_head_dim,
                          cfg.ssm_state_dim), dtype=torch.float32,
                         device=device))
-    if _mixer_kind(cfg) == "mla":
+    if kind == "mla":
         widths = ((cfg.kv_lora_rank,), (cfg.qk_rope_head_dim,))
     else:
         widths = ((cfg.num_kv_heads, cfg.head_dim),) * 2
@@ -233,7 +235,7 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=None, *,
     if not supports_paged(cfg):
         raise NotImplementedError(
             f"paged decode cache of family {cache_family(cfg)!r} is not "
-            "ported yet (ROADMAP A8-A9)")
+            "ported yet (ROADMAP A9)")
     device = resolve_device(device)
     dt = _dtype(cfg, dtype)
     slabs = cache_family(cfg) == "ssm"
@@ -356,21 +358,23 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
     return logits, out_cache, aux_total
 
 
+def pad_seq(x, axis: int, max_seq: int):
+    """``x`` grown to ``max_seq`` along ``axis`` with zeros (as it is when
+    already that long)."""
+    if x.shape[axis] >= max_seq:
+        return x
+    out = x.new_zeros((*x.shape[:axis], max_seq, *x.shape[axis + 1:]))
+    out.narrow(axis, 0, x.shape[axis]).copy_(x)
+    return out
+
+
 def _pad_prefill_cache(cfg, cache, max_seq: int):
     """Grow the prefill cache to max_seq along the sequence axis with
     zeros: axis 2 of the stacked (L, B, S, ...) leaves, axis 1 of the
     prefix layers' (B, S, ...) leaves."""
-
-    def pad(x, axis):
-        if x.shape[axis] >= max_seq:
-            return x
-        out = x.new_zeros((*x.shape[:axis], max_seq, *x.shape[axis + 1:]))
-        out.narrow(axis, 0, x.shape[axis]).copy_(x)
-        return out
-
     cache = dict(cache)
-    cache["layers"] = tuple(pad(t, 2) for t in cache["layers"])
+    cache["layers"] = tuple(pad_seq(t, 2, max_seq) for t in cache["layers"])
     if "first_layers" in cache:
-        cache["first_layers"] = [tuple(pad(t, 1) for t in leaves)
+        cache["first_layers"] = [tuple(pad_seq(t, 1, max_seq) for t in leaves)
                                  for leaves in cache["first_layers"]]
     return cache

@@ -5,9 +5,11 @@ paged, length-aware decode batching.
 Counterpart of ``repro/serving/engine.py`` (see its docstring for the
 architecture).  The port has the main path, ``batching=True,
 paged=True`` -- family-generic: GQA KV block pools, MLA latent block
-pools (plus the MoE prefix layer's pools on the same block tables) and SSM
-state-slab pools -- and the unbatched ``generate`` path that serves as its
-reference:
+pools (plus the MoE prefix layer's pools on the same block tables), SSM
+state-slab pools, and the hybrid stack's two kinds per row (the shared
+attention block's KV block pools and the Mamba-2 state-slab pools, staged
+in one decode call) -- and the unbatched ``generate`` path that serves as
+its reference:
 
   client streams --admit--> PoolAdmissionController (Eqs (1)-(6) per
         |                   device partition)

@@ -550,6 +550,77 @@ def test_ssm_engine_on_the_card(cuda, monkeypatch):
         eng.close()
 
 
+@pytest.mark.cuda
+def test_hybrid_engine_on_the_card(cuda, monkeypatch):
+    """The hybrid path on the card at reduced size (G 2, PG 2, R 2): the
+    batched engine, staging shared-attention block pools and Mamba-2 slab
+    pools in each decode call, gives unbatched generate's fp32 tokens,
+    leaks no block or slab, and runs the attention and SSD kernels -- the
+    plain versions are never called."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_decode_attention, ssd_scan)
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine, StreamSpec
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on the card")
+
+    for mod, name in ((ssd_scan, "ssd_intra_plain"),
+                      (ssd_scan, "ssd_slab_decode_plain"),
+                      (flash_attention, "flash_attention_plain"),
+                      (decode_attention, "decode_attention_plain"),
+                      (paged_decode_attention, "paged_decode_attention_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    cfg = dataclasses.replace(get_config("zamba2_7b").reduced(),
+                              dtype="float32", num_layers=8, attn_every=3)
+    params = M.init_params(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                           device=cuda)
+    prompts = {f"s{i}": (np.arange(1, n + 1, dtype=np.int32)[None] * 7) % 128
+               for i, n in enumerate([3, 5, 9, 17])}
+    spec = lambda n, p: StreamSpec(name=n, priority=p, period_ms=8000.0,
+                                   deadline_ms=8000.0, prefill_ms=50.0,
+                                   decode_ms=5.0, decode_steps=6)
+    ref = ServeEngine(cfg, params, max_seq=32, device=cuda)
+    _build.reset_launches()
+    want = {}
+    for i, n in enumerate(prompts):
+        assert ref.admit(spec(n, 4 - i)).admitted
+        want[n] = ref.generate(n, prompts[n], steps=6).tokens
+    ref.close()
+    assert _build.launches["ssd_slab_decode"] == 4 * 6 * 6  # 6 Mamba-2 layers
+    assert _build.launches["decode_attention"] == 4 * 6 * 2  # 2 applications
+    eng = ServeEngine(cfg, params, max_seq=32, num_servers=2, batching=True,
+                      max_batch=4, paged=True, kv_block_size=8, device=cuda)
+    try:
+        eng.precompile(prompt_buckets=(4, 8, 16, 32))
+        _build.reset_launches()
+        for i, n in enumerate(prompts):
+            assert eng.admit(spec(n, 4 - i)).admitted
+        got = {}
+        threads = [threading.Thread(
+            target=lambda n=n: got.__setitem__(n, eng.generate(
+                n, prompts[n], steps=6))) for n in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert {n: r.tokens for n, r in got.items()} == want
+        assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
+        kinds = {m["kind"] for s in eng.pool.servers for m in s.stats.batch_meta}
+        assert kinds == {"prefill@hybrid", "decode@hybrid"}
+        for name in ("rmsnorm", "flash_attention", "paged_decode_attention",
+                     "ssd_intra", "ssd_slab_decode"):
+            assert _build.launches[name] > 0, name
+    finally:
+        eng.close()
+
+
 # deepseek-v2-lite-16b widths
 MLA_NQ, MLA_R, MLA_PR, MLA_QK, MLA_V = 16, 512, 64, 192, 128
 
