@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. card: name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, all in parallel) and, beside the build, the GQA decode pair's,
-   ``ssd_intra``'s and ``rmsnorm``'s sources alone to cubins: registers and
-   spills (``-Xptxas -v``) and the ``HMMA`` count (``cuobjdump -sass``) of
-   every kernel; a bf16 tensor-core kernel without ``HMMA`` fails;
+   ``ssd_intra``'s, ``rmsnorm``'s and ``flash_attention``'s sources alone to
+   cubins: registers and spills (``-Xptxas -v``) and the ``HMMA`` count
+   (``cuobjdump -sass``) of every kernel; a bf16 tensor-core kernel without
+   ``HMMA`` fails;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's full-width shapes, in fp32 and bf16 -- the attention kernels
    and rmsnorm at internlm2-1.8b widths (ragged lengths, scratch-block
@@ -29,7 +30,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    every kernel of the hybrid path again at zamba2-7b widths (rmsnorm on
    rows of 3584 and of the gated norm's 7168, with the route each takes;
    the attention kernels at 32/32 heads of 112, group size 1; the SSD
-   kernels at 112 heads of P 64, N 64) -- then its median time beside the
+   kernels at 112 heads of P 64, N 64), and every kernel of the enc-dec
+   path at whisper-medium widths (rmsnorm at 1024 in registers; the
+   attention kernels at 16/16 heads of 64; flash with no mask on the
+   encoder's 1500 frames and on the cross-attention prefill, S 1, 8, 40
+   and 256 against Sk 1500; dense decode over a 1500-frame cross cache;
+   decode through ``row_ids`` over a pool of 6 noisy segments,
+   bit-identical to dense decode of the gathered copy) -- then its median
+   time beside the
    plain version's, the library call's (where one PyTorch call computes
    the same function) and its bound, each kernel's and library call's
    device time per call from one profiler window, a ranking by device
@@ -38,7 +46,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (rmsnorm on a 256-token prefill, ``ssd_intra`` at the batched bucket
    of 4 rows, the GQA decode pair over a 32-block table and the whole
    cache, flash at the batched prefill bucket, the MLA kernel over a
-   32-block table, and every hybrid-path kernel at zamba2-7b's widths);
+   32-block table, every hybrid-path kernel at zamba2-7b's widths, and
+   the enc-dec path's: the cross-attention prefill at bucket 256 and the
+   segment decode of 4 rows on one shared segment, timed rows of their
+   own, and the encoder's flash, for information);
 4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
    servers -- must give the greedy tokens of unbatched ``generate``, use
@@ -69,7 +80,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    paged decode step (``chiprun_out/hybrid_decode_step_profile.txt``) and
    one of a 256-token prefill call
    (``chiprun_out/hybrid_prefill_profile.txt``);
-6. launch counts of every kernel over phases 4-5d (each must be
+4e. enc-dec path, fp32: full-width whisper-medium (24 encoder + 24
+   decoder layers, 1500 frames of the stubbed frontend's zeros) served the
+   same way, each decode call staging the decoder's KV block pools and the
+   cross-attention segment pools: greedy tokens equal unbatched
+   ``generate``'s, both servers used, only ``prefill@encdec`` and
+   ``decode@encdec`` calls, no block and no segment leaked, each server
+   holding exactly one segment (shared by its streams) while they ran,
+   peak device memory printed;
+5e. enc-dec path, bf16: the same traffic, timed, a profile of one 4-row
+   paged decode step (``chiprun_out/encdec_decode_step_profile.txt``) and
+   one of a 256-token prefill call
+   (``chiprun_out/encdec_prefill_profile.txt``);
+6. launch counts of every kernel over phases 4-5e (each must be
    non-zero), then one JSON line describing every kernel;
 7. last line: ``{"ok": true, "device": {...}}``.
 
@@ -105,6 +128,7 @@ PROMPT_LENS = (5, 40, 100, 200)
 STEPS = 32
 BUCKETS = (8, 64, 128, 256)
 NUM_SLABS = 2 * 4 + 2  # the engine's slab pool at max_batch 4
+NUM_SEGMENTS = 4 + 2  # the engine's segment pool at max_batch 4
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 # published H100 SXM peaks (dense): HBM bytes/s and flop/s by input type
 HBM_BYTES_S = 3.35e12
@@ -147,8 +171,8 @@ def card_line() -> str:
 # sources reported in phase 2: registers and spills (ptxas -v), HMMA
 # instructions (cuobjdump); their bf16 tensor-core kernels must hold HMMA
 SASS_SOURCES = ("decode_attention.cu", "paged_decode_attention.cu",
-                "ssd_intra.cu", "rmsnorm.cu")
-TENSOR_CORE_KERNELS = ("decode_tc_kernel", "ssd_tc_kernel")
+                "ssd_intra.cu", "rmsnorm.cu", "flash_attention.cu")
+TENSOR_CORE_KERNELS = ("decode_tc_kernel", "ssd_tc_kernel", "flash_tc_kernel")
 
 
 def start_sass_report(csrc: pathlib.Path, nvcc: str):
@@ -1095,6 +1119,156 @@ class KernelChecks:
         print_rows({"ssd_slab_decode": self.time_slab_decode(
             cfg, " (hybrid, information only)")}, "")
 
+    # -- the enc-dec path's kernels at whisper-medium widths -----------------
+    def run_encdec(self, cfg):
+        """Every kernel of the enc-dec path at whisper-medium's widths (16/16
+        heads of 64, d_model 1024, 1500 encoder frames), fp32 and bf16:
+        rmsnorm at 1024 (in registers); the self-attention kernels at group
+        size 1 (flash causal, the GQA decode pair); flash with no mask on
+        the encoder (S = Sk = 1500) and on the cross-attention prefill (S
+        in 1, 8, 40, 256 against Sk = 1500); dense decode over a full
+        1500-frame cross cache; and decode through ``row_ids`` over a
+        noisy pool of 6 segments, rows on permuted and repeated segments,
+        bit-identical to dense decode of the gathered copy.  Then times."""
+        from repro_torch.kernels.decode_attention import (
+            decode_attention, decode_attention_plain)
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_plain)
+        from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
+                                                 rmsnorm_route)
+
+        n, h, t = cfg.num_heads, cfg.head_dim, cfg.encoder_seq
+        d, eps = cfg.d_model, cfg.norm_eps
+        for dt in (torch.float32, torch.bfloat16):
+            w = (self.randn(d) * 0.1 + 1.0).to(dt)
+            for shape in ((4, 1, d), (1, 256, d), (1, t, d)):
+                x = self.randn(*shape, dtype=dt) * 3.0
+                e = self.check("rmsnorm", f"x{shape}, {rmsnorm_route(x, w)} "
+                               "route", rmsnorm(x, w, eps),
+                               rmsnorm_plain(x, w, eps), dt)
+                self.errors["rmsnorm"] = max(self.errors["rmsnorm"], e)
+            self.check_attention(cfg, dt)
+            for s in (t, 1, 8, 40, 256):
+                q = self.randn(1, s, n, h, dtype=dt)
+                k = self.randn(1, t, n, h, dtype=dt)
+                v = self.randn(1, t, n, h, dtype=dt)
+                what = "encoder" if s == t else "cross prefill"
+                e = self.check("flash_attention", f"{what} S={s} Sk={t} "
+                               f"Nq={n} H={h} no mask",
+                               flash_attention(q, k, v, causal=False),
+                               flash_attention_plain(q, k, v, causal=False),
+                               dt)
+                self.errors["flash_attention"] = max(
+                    self.errors["flash_attention"], e)
+            q = self.randn(4, n, h, dtype=dt)
+            full = torch.full((4,), t, dtype=torch.int32, device=self.dev)
+            kc = self.randn(4, t, n, h, dtype=dt)
+            vc = self.randn(4, t, n, h, dtype=dt)
+            e = self.check("decode_attention", f"dense cross cache (4,{t},{n},"
+                           f"{h}), every frame live",
+                           decode_attention(q, kc, vc, full),
+                           decode_attention_plain(q, kc, vc, full), dt)
+            self.errors["decode_attention"] = max(
+                self.errors["decode_attention"], e)
+            kp = self.randn(NUM_SEGMENTS, t, n, h, dtype=dt)
+            vp = self.randn(NUM_SEGMENTS, t, n, h, dtype=dt)
+            ids = torch.tensor([5, 2, 5, 0], dtype=torch.int32,
+                               device=self.dev)
+            for lengths in ([t] * 4, [t, 1, 33, t - 11]):
+                lens = torch.tensor(lengths, dtype=torch.int32,
+                                    device=self.dev)
+                got = decode_attention(q, kp, vp, lens, row_ids=ids)
+                case = (f"segments {ids.tolist()} of "
+                        f"({NUM_SEGMENTS},{t},{n},{h})")
+                e = self.check("decode_attention",
+                               f"{case}, lengths {lengths}", got,
+                               decode_attention_plain(q, kp, vp, lens,
+                                                      row_ids=ids), dt)
+                self.errors["decode_attention"] = max(
+                    self.errors["decode_attention"], e)
+                dense = decode_attention(q, kp[ids.long()], vp[ids.long()],
+                                         lens)
+                torch.cuda.synchronize()
+                if not torch.equal(got, dense):
+                    raise SmokeFailure(f"decode_attention: row_ids over "
+                                       f"{case} differs from dense decode of "
+                                       "the gathered copy")
+                print(f"check decode_attention [row_ids == dense on the "
+                      f"gathered copy, {case}, lengths {lengths}] "
+                      f"{str(dt)[6:]}: bit-identical ok")
+        self.time_encdec(cfg)
+
+    def time_encdec(self, cfg):
+        """Times at the enc-dec path's shapes in bf16 (the config's dtype):
+        rmsnorm at 1024 (4-row decode step, 256-token prefill), the
+        cross-attention prefill of the 200-token prompt's bucket 256
+        against the 1500 frames, one 4-row decode step of the
+        cross-attention over the server's segment pool with every row on
+        the one segment the traffic's streams share; for information the
+        encoder's flash at 1500 frames, the cross prefill of the smallest
+        bucket, four rows on four segments, and the self-attention kernels
+        at group size 1."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.decode_attention import (
+            decode_attention, decode_attention_plain)
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_plain)
+
+        dt, el = torch.bfloat16, 2
+        n, h, t = cfg.num_heads, cfg.head_dim, cfg.encoder_seq
+        rows = {"rmsnorm@1024": self.time_rmsnorm(cfg, "time[encdec]")}
+
+        def flash(s, note=""):
+            q = self.randn(1, s, n, h, dtype=dt)
+            k = self.randn(1, t, n, h, dtype=dt)
+            v = self.randn(1, t, n, h, dtype=dt)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            return timed(
+                lambda: flash_attention(q, k, v, causal=False),
+                lambda: flash_attention_plain(q, k, v, causal=False),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                # q in, o out, K and V read once; QK and PV over every pair
+                bound_ms((2 * q.numel() + k.numel() + v.numel()) * el,
+                         4 * n * h * s * t, dt),
+                f"q (1,{s},{n},{h}), k/v (1,{t},{n},{h}), no mask{note}")
+
+        def segments(ids, note=""):
+            q = self.randn(4, n, h, dtype=dt)
+            kp = self.randn(NUM_SEGMENTS, t, n, h, dtype=dt)
+            vp = self.randn(NUM_SEGMENTS, t, n, h, dtype=dt)
+            ids = torch.tensor(ids, dtype=torch.int32, device=self.dev)
+            lens = torch.full((4,), t, dtype=torch.int32, device=self.dev)
+            kg, vg = (p[ids.long()].transpose(1, 2) for p in (kp, vp))
+            live = len(set(ids.tolist()))  # segments the step must read
+            return timed(
+                lambda: decode_attention(q, kp, vp, lens, row_ids=ids),
+                lambda: decode_attention_plain(q, kp, vp, lens, row_ids=ids),
+                lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg),
+                bound_ms(2 * live * t * n * h * el + 2 * q.numel() * el
+                         + 8 * 4, 4 * 4 * n * h * t, dt),
+                f"q (4,{n},{h}), pool ({NUM_SEGMENTS},{t},{n},{h}), segments "
+                f"{ids.tolist()}, length {t}{note}")
+
+        rows["flash_attention@cross"] = flash(256)
+        rows["decode_attention@segment"] = segments([1, 1, 1, 1])
+        print_rows({k: v for k, v in rows.items() if k != "rmsnorm@1024"},
+                   "SDPA")
+        self.rows.update(rows)
+        print_rows({"flash_attention": flash(t, " (encoder, information "
+                                             "only)"),
+                    "flash_attention@cross": flash(8, " (information only)"),
+                    "decode_attention@segment": segments(
+                        [5, 2, 3, 0], " (information only)")}, "SDPA")
+        lengths = [p + STEPS + 1 for p in PROMPT_LENS]
+        w_cols = 1 << (-(-max(lengths) // BLOCK) - 1).bit_length()
+        print_rows({"flash_attention": self.time_flash(
+            cfg, 1, 256, " (encdec self, information only)"),
+            "paged_decode_attention": self.time_paged(
+                cfg, lengths, w_cols, " (encdec self, information only)"),
+            "decode_attention": self.time_decode(
+                cfg, lengths, " (encdec self, information only)")}, "SDPA")
+
 
 # ---------------------------------------------------------------------------
 # phases 4-5: the main path
@@ -1127,6 +1301,21 @@ def serve_batched(cfg, params, prompts, dev):
         t0 = time.monotonic()
         rep = eng.precompile(prompt_buckets=BUCKETS)
         warm_s = time.monotonic() - t0
+        # segments each server holds, read after every reservation (the
+        # only place one is taken): the peak while the streams ran
+        segments = [0] * len(eng._paged)
+        reserve = eng._paged_reserve
+
+        def reserve_and_count(*args):
+            out = reserve(*args)
+            for i, st in enumerate(eng._paged):
+                with st.lock:
+                    held = st.mgr.segments_in_use - (
+                        st.mgr.seqs["__scratch__"].segment is not None)
+                segments[i] = max(segments[i], held)
+            return out
+
+        eng._paged_reserve = reserve_and_count
         _build.reset_launches()  # count the traffic's launches, not warm-up's
         for i, name in enumerate(prompts):
             if not eng.admit(_spec(name, len(prompts) - i)).admitted:
@@ -1157,11 +1346,15 @@ def serve_batched(cfg, params, prompts, dev):
         calls = [m for m in meta if m["kind"] == eng._decode_kind]
         prefills = [m for m in meta if m["kind"] == eng._prefill_kind]
         return dict(results=results, servers=servers, usage=usage,
-                    wall_s=wall_s, warm_s=warm_s, precompile=rep,
+                    segments_peak=segments, wall_s=wall_s, warm_s=warm_s,
+                    precompile=rep,
                     launches=launches, decode_calls=calls,
                     prefill_calls=prefills, kinds={m["kind"] for m in meta})
     finally:
         eng.close()
+        # the counting wrapper refers to the engine: drop it, or the cycle
+        # keeps the engine (and the weights it holds) alive on the card
+        vars(eng).pop("_paged_reserve", None)
 
 
 def serve_unbatched(cfg, params, prompts, dev):
@@ -1257,6 +1450,18 @@ def gqa_path(dev, card):
     return counts
 
 
+def model_batch(cfg, tokens, dev, **extra):
+    """The prefill batch the engine builds: ``tokens`` and, for the enc-dec
+    stack, zero frames (B, encoder_seq, d_model) in the config's dtype (the
+    audio frontend is a stub)."""
+    batch = {"tokens": torch.as_tensor(tokens, device=dev), **extra}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros(
+            (tokens.shape[0], cfg.encoder_seq, cfg.d_model),
+            dtype=getattr(torch, cfg.dtype), device=dev)
+    return batch
+
+
 def first_logits_gap(cfg, params, prompts, dev):
     """Largest |batched - unbatched| first-step logit: each prompt prefilled
     as the batched path does (padded to its bucket, with its length) and
@@ -1270,12 +1475,12 @@ def first_logits_gap(cfg, params, prompts, dev):
             bucket = min(b for b in BUCKETS if b >= n)
             padded = np.zeros((1, bucket), np.int32)
             padded[0, :n] = prompt[0]
-            lb, _, _ = M.apply(cfg, params, {
-                "tokens": torch.as_tensor(padded, device=dev),
-                "lengths": torch.tensor([n], dtype=torch.int32, device=dev)},
+            lb, _, _ = M.apply(cfg, params, model_batch(
+                cfg, padded, dev,
+                lengths=torch.tensor([n], dtype=torch.int32, device=dev)),
                 mode="prefill")
-            lu, _, _ = M.apply(cfg, params, {
-                "tokens": torch.as_tensor(prompt, device=dev)}, mode="prefill")
+            lu, _, _ = M.apply(cfg, params, model_batch(cfg, prompt, dev),
+                               mode="prefill")
             gap = max(gap, (lb[0, n - 1] - lu[0, -1]).abs().max().item())
     return gap
 
@@ -1445,6 +1650,70 @@ def hybrid_path(dev, card):
     return counts
 
 
+def encdec_path(dev, card):
+    """Phases 4e-5e: whisper-medium through the decoder's KV block pools and
+    the shared cross-attention segments in one decode call; returns the
+    launch counts."""
+    from repro_torch.configs.registry import get_config
+
+    base = get_config("whisper_medium")
+    prompts = _prompts(base.vocab_size)
+
+    def check_run(tag, run):
+        check_outputs(run, prompts)
+        want = {"prefill@encdec", "decode@encdec"}
+        if run["kinds"] != want or not run["decode_calls"]:
+            raise SmokeFailure(f"{tag}: calls recorded as {run['kinds']}, "
+                               f"want {sorted(want)}")
+        if run["segments_peak"] != [1, 1]:
+            raise SmokeFailure(f"{tag}: servers held at most "
+                               f"{run['segments_peak']} segments while their "
+                               "streams ran, want exactly one each")
+        print(f"{tag}: segments held per server while streams ran "
+              f"{run['segments_peak']} (one shared segment each)")
+
+    # phase 4e: fp32 at all 24 + 24 layers, batched tokens must equal
+    # unbatched
+    cfg32 = dataclasses.replace(base, dtype="float32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg32, dev, "encdec fp32")
+    run = serve_batched(cfg32, params, prompts, dev)
+    ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
+    counts = Counter(run["launches"]) + Counter(ref_launches)
+    check_run("encdec fp32", run)
+    check_tokens("encdec fp32", run, ref, prompts)
+    print(f"encdec fp32: max |batched - unbatched| first-step logit "
+          f"{first_logits_gap(cfg32, params, prompts, dev):.3e} "
+          f"(information only)")
+    report_latency("encdec fp32", run, card)
+    print(f"encdec fp32 [{card}]: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    del params, run, ref
+    torch.cuda.empty_cache()
+
+    # phase 5e: bf16, timed
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(base, dev, "encdec bf16")
+    run = serve_batched(base, params, prompts, dev)
+    counts += Counter(run["launches"])
+    check_run("encdec bf16", run)
+    report_latency("encdec bf16", run, card)
+    print(f"encdec bf16 [{card}]: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    for name, res in run["results"].items():
+        print(f"encdec bf16 {name} tokens (information only): {res.tokens}")
+    del run
+    step_profile(base, params, dev, card, "encdec step profile",
+                 "encdec_decode_step_profile.txt")
+    prefill_profile(base, params, dev, card, "encdec prefill profile",
+                    "encdec_prefill_profile.txt")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def report_latency(tag, run, card):
     prefill = [r.prefill_latency_s * 1e3 for r in run["results"].values()]
     steps = sorted(x * 1e3 for r in run["results"].values()
@@ -1472,9 +1741,11 @@ def decode_step_cache(cfg, dev):
     """The pools and per-call cache entries of one 4-row paged decode step
     at phase 5's final lengths, for each pool kind of the family: block
     tables over the block pools (GQA, MLA -- the prefix layer's pools share
-    them -- and the hybrid stack's shared block) and slab ids 1-4 over the
-    slab pools (SSM, the hybrid stack's Mamba-2 layers).  Returns (step
-    cache, width; 0 without block pools)."""
+    them -- the hybrid stack's shared block and the enc-dec decoder's self
+    attention), slab ids 1-4 over the slab pools (SSM, the hybrid stack's
+    Mamba-2 layers) and segment id 1 for every row over the segment pools
+    (the enc-dec cross-attention: the traffic's streams share one
+    segment).  Returns (step cache, width; 0 without block pools)."""
     from repro_torch.models import model as M
 
     lengths = torch.tensor([p + STEPS for p in PROMPT_LENS],
@@ -1483,10 +1754,13 @@ def decode_step_cache(cfg, dev):
     nb_row = MAX_SEQ // BLOCK
     pools = M.init_paged_cache(
         cfg, 4 * nb_row + 1 if "block" in kinds else 0, BLOCK,
-        num_slabs=NUM_SLABS if "slab" in kinds else 0, device=dev)
+        num_slabs=NUM_SLABS if "slab" in kinds else 0,
+        num_segments=NUM_SEGMENTS if "segment" in kinds else 0, device=dev)
     cache, w = dict(pools, pos=lengths), 0
     if "slab" in kinds:
         cache["slab_ids"] = torch.arange(1, 5, dtype=torch.int32, device=dev)
+    if "segment" in kinds:
+        cache["segment_ids"] = torch.ones(4, dtype=torch.int32, device=dev)
     if "block" in kinds:
         need = -(-(int(lengths.max()) + 1) // BLOCK)
         w = 1 << (need - 1).bit_length()
@@ -1553,8 +1827,9 @@ def prefill_profile(cfg, params, dev, card, tag, outfile):
     n, bucket = PROMPT_LENS[-1], min(b for b in BUCKETS if b >= PROMPT_LENS[-1])
     tokens = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
     tokens[0, :n] = torch.arange(n, device=dev) % cfg.vocab_size
-    batch = {"tokens": tokens, "max_seq": MAX_SEQ,
-             "lengths": torch.tensor([n], dtype=torch.int32, device=dev)}
+    batch = model_batch(cfg, tokens, dev, max_seq=MAX_SEQ,
+                        lengths=torch.tensor([n], dtype=torch.int32,
+                                             device=dev))
 
     def call():
         with torch.inference_mode():
@@ -1645,14 +1920,16 @@ def main() -> int:
     checks.run_ssm(get_config("mamba2_780m"))
     checks.run_mla(get_config("deepseek_v2_lite_16b"))
     checks.run_hybrid(get_config("zamba2_7b"))
+    checks.run_encdec(get_config("whisper_medium"))
     checks.rank()
 
     counts = gqa_path(dev, card)                                # phases 4-5
     counts += ssm_path(dev, card)                               # phases 4b-5b
     counts += mla_path(dev, card)                               # phases 4c-5c
     counts += hybrid_path(dev, card)                            # phases 4d-5d
+    counts += encdec_path(dev, card)                            # phases 4e-5e
 
-    print(f"launches over phases 4-5d: {dict(counts)}")         # phase 6
+    print(f"launches over phases 4-5e: {dict(counts)}")         # phase 6
     missing = [k for k in KERNELS if not counts.get(k)]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")

@@ -1,6 +1,8 @@
 // Causal (or full) GQA attention for prefill, flash style, with a value
 // width Hv that may differ from the query/key width H (MLA prefill: H 192,
-// Hv 128).
+// Hv 128) and, when not causal, a key/value length Sk that may differ from
+// the query length S (enc-dec cross-attention: S the prompt bucket, Sk the
+// encoder's 1500 frames).
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention
 // (_flash_kernel), the TPU kernel with a (B, Nq, S/bq, S/bk) grid whose KV
@@ -12,7 +14,9 @@
 // above the bf16 ridge from a few hundred tokens on.  At the prefill
 // buckets (S <= 256, at most 4 rows) a block walks at most 4 KV tiles, so
 // what costs is the latency of each tile (its copy, its products, its
-// softmax), not the tensor cores' rate.
+// softmax), not the tensor cores' rate.  Full (encoder) attention at S =
+// Sk = 1500 does 4 * S^2 * Nq * H flops on 4 * S * Nq * H elements, ~S/2
+// flops per byte: there the tensor cores' rate bounds it.
 //
 // Two kernels, chosen by dtype in flash_attention_launch:
 //
@@ -33,16 +37,17 @@
 // to become PV's A operand (the plain version rounds the normalised
 // probabilities instead; both stay within the bf16 tolerance).  Tiles
 // wholly above the diagonal are never loaded, and only the diagonal tile
-// and the ragged edge at S are masked; in the diagonal tile a warp skips
-// the key groups past its last row, and full tiles take a branch-free
-// path.  Rows and columns past S are zero-filled by the copies, so any S
-// works.  mma.sync, not wgmma: at these shapes (S <= 256, at most 4 rows)
-// the time goes to each tile's latency, which a 64-row warpgroup tile does
-// not shorten, and mma.sync needs no descriptor layouts or warpgroup
-// barriers.  Head widths are template parameters; the widths of the
-// repo's attention configs are instantiated (H = Hv in 64, 112, 128;
-// H 192 / Hv 128), and the launch refuses any other.  Every global base
-// and row stride must be 16-byte aligned (the wrapper checks).
+// and the ragged edges at S (query rows) and Sk (keys) are masked; in the
+// diagonal tile a warp skips the key groups past its last row, and full
+// tiles take a branch-free path.  Query rows past S and key rows past Sk
+// are zero-filled by the copies, so any S and Sk work.  mma.sync, not
+// wgmma: at the decoder's shapes (S <= 256, at most 4 rows) the time goes
+// to each tile's latency, which a 64-row warpgroup tile does not shorten,
+// and mma.sync needs no descriptor layouts or warpgroup barriers.  Head
+// widths are template parameters; the widths of the repo's attention
+// configs are instantiated (H = Hv in 64, 112, 128; H 192 / Hv 128), and
+// the launch refuses any other.  Every global base and row stride must be
+// 16-byte aligned (the wrapper checks).
 //
 // fp32, CUDA cores (flash_kernel): fp32 inputs cannot use bf16 tensor
 // cores and must hold 1e-5, so they keep the first kernel: one block per
@@ -73,8 +78,8 @@ int flash_smem_floats(int h, int hv) {
 
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int seq, int nq, int nkv,
-             int h, int hv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+             const float* __restrict__ v, float* __restrict__ out, int seq, int seq_k, int nq,
+             int nkv, int h, int hv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
              float scale) {
   extern __shared__ float smem[];
   const int i0 = blockIdx.x * kBQ, n = blockIdx.y, b = blockIdx.z;
@@ -97,15 +102,16 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   const int last_row = min(i0 + kBQ, seq) - 1;
-  const int kv_end = causal ? last_row + 1 : seq;  // exclusive
+  const int kv_end = causal ? last_row + 1 : seq_k;  // exclusive
   for (int j0 = 0; j0 < kv_end; j0 += kBK) {
     for (int i = threadIdx.x; i < kBK * h; i += kThreads) {
       const int c = i / h, d = i - c * h;
-      sk[c * (h + 1) + d] = j0 + c < seq ? kb[static_cast<long long>(j0 + c) * ks.s + d] : 0.f;
+      sk[c * (h + 1) + d] =
+          j0 + c < seq_k ? kb[static_cast<long long>(j0 + c) * ks.s + d] : 0.f;
     }
     for (int i = threadIdx.x; i < kBK * hv; i += kThreads) {
       const int c = i / hv, d = i - c * hv;
-      sv[i] = j0 + c < seq ? vb[static_cast<long long>(j0 + c) * vs.s + d] : 0.f;
+      sv[i] = j0 + c < seq_k ? vb[static_cast<long long>(j0 + c) * vs.s + d] : 0.f;
     }
     __syncthreads();
     // one thread per score; a warp covers one query row and the tile's 32 keys
@@ -116,7 +122,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float a = 0.f;
       for (int d = 0; d < h; ++d) a += qr[d] * kr[d];
       const int row = i0 + r, col = j0 + c;
-      const bool ok = col < seq && (!causal || col <= row);
+      const bool ok = col < seq_k && (!causal || col <= row);
       ss[i] = ok ? a * scale : kNegInf;
     }
     __syncthreads();
@@ -131,17 +137,17 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int b, int seq, int nq,
-               int nkv, int h, int hv, Strides qs, Strides ks, Strides vs, Strides os,
-               int causal, float scale, cudaStream_t s) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, int b, int seq,
+               int seq_k, int nq, int nkv, int h, int hv, Strides qs, Strides ks, Strides vs,
+               Strides os, int causal, float scale, cudaStream_t s) {
   const size_t bytes = sizeof(float) * flash_smem_floats(h, hv);
   cudaError_t err = allow_shared_bytes(flash_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kBQ - 1) / kBQ, nq, b);
   flash_kernel<<<grid, kThreads, bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), seq, nq, nkv, h, hv, qs, ks, vs,
-      os, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), seq, seq_k, nq, nkv, h, hv, qs, ks,
+      vs, os, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -214,8 +220,9 @@ __device__ __forceinline__ void pv_tile(float (&o)[HV / 8][4], const uint32_t (&
 template <int H, int HV, int KS, int kStages>
 __global__ void __launch_bounds__(128 * KS)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int seq, int nq, int nkv,
-                Strides qs, Strides ks, Strides vs, Strides os, int causal, float scale_log2) {
+                const bf16* __restrict__ v, bf16* __restrict__ out, int seq, int seq_k, int nq,
+                int nkv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                float scale_log2) {
   using L = TcLayout<H, HV, kStages>;
   constexpr int kThreadsT = 128 * KS;
   constexpr int kAhead = 2 * kStages - 3;  // copy groups committed after K(j) or V(j)
@@ -231,7 +238,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * qs.b + n * qs.n;
   const bf16* kb = k + b * ks.b + kvh * ks.n;
   const bf16* vb = v + b * vs.b + kvh * vs.n;
-  const int ntiles = causal ? qt + 1 : (seq + kTile - 1) / kTile;
+  const int ntiles = causal ? qt + 1 : (seq_k + kTile - 1) / kTile;
 
   // A ring of kStages K and V tile buffers.  Copy groups, oldest first:
   // [Q, K0], [V0], ..., [K(kStages-2)], [V(kStages-2)]; then per tile j,
@@ -242,10 +249,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < ntiles)
-      copy_rows_async<kTile, H, kThreadsT>(sk + t * L::kK, L::kKS, kb, ks.s, t * kTile, seq);
+      copy_rows_async<kTile, H, kThreadsT>(sk + t * L::kK, L::kKS, kb, ks.s, t * kTile, seq_k);
     cp_async_commit();
     if (t < ntiles)
-      copy_rows_async<kTile, HV, kThreadsT>(sv + t * L::kV, L::kVS, vb, vs.s, t * kTile, seq);
+      copy_rows_async<kTile, HV, kThreadsT>(sv + t * L::kV, L::kVS, vb, vs.s, t * kTile, seq_k);
     cp_async_commit();
   }
 
@@ -275,7 +282,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (next < ntiles)
       copy_rows_async<kTile, H, kThreadsT>(sk + nbuf * L::kK, L::kKS, kb, ks.s, next * kTile,
-                                           seq);
+                                           seq_k);
     cp_async_commit();
     if (j == 0) {
 #pragma unroll
@@ -286,10 +293,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int col0 = j * kTile + g0 * 16;  // this warp's first key
     const bool diag = causal && j == qt;
     // key groups this warp needs: in the diagonal tile none past its last
-    // row (rw * 16 + 15), and none at or past S; a warp with none skips
+    // row (rw * 16 + 15), and none at or past Sk; a warp with none skips
     // the tile (its state is unchanged)
     const int groups = diag ? min(kGroups, rw + 1 - g0) : kGroups;
-    const bool work = groups > 0 && col0 < seq;
+    const bool work = groups > 0 && col0 < seq_k;
     uint32_t pf[kGroups][4];  // P as A fragments: one k-step per key group
     if (work) {
       float s[2 * kGroups][4];
@@ -299,7 +306,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         qk_tile<H, kGroups, L::kKS, true>(s, qf, kt, g0, groups, k_off);
 
       // scale into the log2 domain; mask the diagonal tile and the ragged edge
-      const bool masked = diag || col0 + 16 * kGroups > seq;
+      const bool masked = diag || col0 + 16 * kGroups > seq_k;
 #pragma unroll
       for (int nt = 0; nt < 2 * kGroups; ++nt) {
 #pragma unroll
@@ -308,7 +315,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           if (masked) {
             const int row = row0 + (e >> 1) * 8;
             const int col = col0 + nt * 8 + 2 * quad + (e & 1);
-            if (col >= seq || (causal && col > row)) x = kNegInf;
+            if (col >= seq_k || (causal && col > row)) x = kNegInf;
           }
           s[nt][e] = x;
         }
@@ -352,7 +359,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (next < ntiles)
       copy_rows_async<kTile, HV, kThreadsT>(sv + nbuf * L::kV, L::kVS, vb, vs.s, next * kTile,
-                                            seq);
+                                            seq_k);
     cp_async_commit();
     if (work) {
       if (diag)
@@ -423,50 +430,51 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int H, int HV, int KS, int kStages>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int b, int seq, int nq,
-              int nkv, Strides qs, Strides ks, Strides vs, Strides os, int causal, float scale,
-              cudaStream_t s) {
+int launch_tc(const void* q, const void* k, const void* v, void* out, int b, int seq, int seq_k,
+              int nq, int nkv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+              float scale, cudaStream_t s) {
   constexpr size_t bytes = TcLayout<H, HV, kStages>::kBytes;
   cudaError_t err = allow_shared_bytes(flash_tc_kernel<H, HV, KS, kStages>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kTile - 1) / kTile, nq, b);
   flash_tc_kernel<H, HV, KS, kStages><<<grid, 128 * KS, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), seq, nq, nkv, qs, ks, vs, os, causal, scale * kLog2e);
+      static_cast<bf16*>(out), seq, seq_k, nq, nkv, qs, ks, vs, os, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Two configurations of the tensor-core kernel, chosen from the grid:
 // when every block has an SM of its own and walks at least two KV tiles
-// (a single prefill row), the block's serial sweep is the whole kernel, so
-// 8 warps split each tile's keys and a 4-deep ring keeps every tile of a
-// 256-token sweep in flight; otherwise 4 warps and a 2-deep ring leave
-// room for two blocks per SM (the batched buckets).
+// (a single prefill row; a cross-attention prefill over 1500 frames), the
+// block's serial sweep is the whole kernel, so 8 warps split each tile's
+// keys and a 4-deep ring keeps the sweep's next tiles in flight; otherwise
+// 4 warps and a 2-deep ring leave room for two blocks per SM (the batched
+// buckets, the encoder).
 template <int H, int HV>
 int launch_widths(const void* q, const void* k, const void* v, void* out, int b, int seq,
-                  int nq, int nkv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                  float scale, cudaStream_t s) {
+                  int seq_k, int nq, int nkv, Strides qs, Strides ks, Strides vs, Strides os,
+                  int causal, float scale, cudaStream_t s) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (seq + kTile - 1) / kTile;
-  const long long blocks = static_cast<long long>(tiles) * nq * b;
-  if (tiles > 1 && blocks <= sms)
-    return launch_tc<H, HV, 2, 4>(q, k, v, out, b, seq, nq, nkv, qs, ks, vs, os, causal,
+  const int kv_tiles = (seq_k + kTile - 1) / kTile;
+  const long long blocks = static_cast<long long>((seq + kTile - 1) / kTile) * nq * b;
+  if (kv_tiles > 1 && blocks <= sms)
+    return launch_tc<H, HV, 2, 4>(q, k, v, out, b, seq, seq_k, nq, nkv, qs, ks, vs, os, causal,
                                   scale, s);
-  return launch_tc<H, HV, 1, 2>(q, k, v, out, b, seq, nq, nkv, qs, ks, vs, os, causal, scale,
-                                s);
+  return launch_tc<H, HV, 1, 2>(q, k, v, out, b, seq, seq_k, nq, nkv, qs, ks, vs, os, causal,
+                                scale, s);
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, int seq, int nq,
-                int nkv, int h, int hv, Strides qs, Strides ks, Strides vs, Strides os,
-                int causal, float scale, cudaStream_t s) {
-#define REPRO_FLASH_TC(H, HV)                                                              \
-  if (h == H && hv == HV)                                                                  \
-    return launch_widths<H, HV>(q, k, v, out, b, seq, nq, nkv, qs, ks, vs, os, causal, scale, \
-                                s);
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, int seq,
+                int seq_k, int nq, int nkv, int h, int hv, Strides qs, Strides ks, Strides vs,
+                Strides os, int causal, float scale, cudaStream_t s) {
+#define REPRO_FLASH_TC(H, HV)                                                             \
+  if (h == H && hv == HV)                                                                 \
+    return launch_widths<H, HV>(q, k, v, out, b, seq, seq_k, nq, nkv, qs, ks, vs, os, causal, \
+                                scale, s);
   REPRO_FLASH_TC(64, 64)
   REPRO_FLASH_TC(112, 112)
   REPRO_FLASH_TC(128, 128)
@@ -477,23 +485,27 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, i
 
 }  // namespace
 
-// q (B, S, Nq, H), k (B, S, Nkv, H), v (B, S, Nkv, Hv), out (B, S, Nq, Hv);
-// each given by its batch/position/head strides, head dim unit-stride.
-// fp32 runs on the CUDA cores; bf16 on the tensor cores, for the (H, Hv)
-// pairs instantiated above only, with 16-byte aligned bases and strides.
+// q (B, S, Nq, H), k (B, Sk, Nkv, H), v (B, Sk, Nkv, Hv), out (B, S, Nq, Hv);
+// each given by its batch/position/head strides, head dim unit-stride; Sk
+// equals S when causal.  fp32 runs on the CUDA cores; bf16 on the tensor
+// cores, for the (H, Hv) pairs instantiated above only, with 16-byte
+// aligned bases and strides.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int b, int seq, int nq, int nkv, int h, int hv,
+                                      int b, int seq, int seq_k, int nq, int nkv, int h, int hv,
                                       long long q_sb, long long q_ss, long long q_sn,
                                       long long k_sb, long long k_ss, long long k_sn,
                                       long long v_sb, long long v_ss, long long v_sn,
                                       long long o_sb, long long o_ss, long long o_sn,
                                       int causal, float scale, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seq_k < 1 || (causal && seq_k != seq)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sn}, ks{k_sb, k_ss, k_sn}, vs{v_sb, v_ss, v_sn},
       os{o_sb, o_ss, o_sn};
   if (dtype == kFloat32)
-    return launch_f32(q, k, v, out, b, seq, nq, nkv, h, hv, qs, ks, vs, os, causal, scale, s);
+    return launch_f32(q, k, v, out, b, seq, seq_k, nq, nkv, h, hv, qs, ks, vs, os, causal,
+                      scale, s);
   if (dtype == kBFloat16)
-    return launch_bf16(q, k, v, out, b, seq, nq, nkv, h, hv, qs, ks, vs, os, causal, scale, s);
+    return launch_bf16(q, k, v, out, b, seq, seq_k, nq, nkv, h, hv, qs, ks, vs, os, causal,
+                       scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

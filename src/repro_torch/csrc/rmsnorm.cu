@@ -13,7 +13,7 @@
 // fill 64 blocks), no block barrier.  Three routes, chosen by the wrapper
 // from the row width and alignment before the launch:
 //   * registers (row_kernel<T, D>): the widths of the repo's configs (512,
-//     the MLA latent; 1536; 2048; 3072, mamba2's gated norm; 3584) are
+//     the MLA latent; 1024; 1536; 2048; 3072, mamba2's gated norm; 3584) are
 //     template parameters.  Each lane loads its share of the row once, in
 //     16-byte vectors (8 bf16 or 4 fp32, D / 256 or D / 128 of them, all
 //     issued before the first use), keeps it in registers, reduces the
@@ -158,6 +158,7 @@ int launch(const void* xp, const void* wp, void* op, int rows, int d, float eps,
     return static_cast<int>(cudaGetLastError());                        \
   }
     REPRO_RMSNORM_ROW(512)
+    REPRO_RMSNORM_ROW(1024)
     REPRO_RMSNORM_ROW(1536)
     REPRO_RMSNORM_ROW(2048)
     REPRO_RMSNORM_ROW(3072)

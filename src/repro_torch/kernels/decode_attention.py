@@ -5,7 +5,10 @@ version and wrapper, and the KV split that it shares with the paged kernel
 Counterpart of ``repro/kernels/decode_attention.py``, in the model's cache
 layout: q (B, Nq, H) against k/v caches (B, Smax, Nkv, H) with per-row
 ``lengths`` (positions >= lengths[b] are masked; the model passes
-``pos + 1`` because it writes the new token before attending).
+``pos + 1`` because it writes the new token before attending).  With
+``row_ids`` (B,), row b reads row ``row_ids[b]`` of a (R, Smax, Nkv, H)
+cache instead: the enc-dec decoder's shared cross-attention segments,
+addressed by each stream's segment id without a gathered copy.
 """
 
 from __future__ import annotations
@@ -46,8 +49,12 @@ def masked_softmax_pv(scores: torch.Tensor, valid: torch.Tensor,
     return torch.einsum(equation, p / denom, v.float())
 
 
-def decode_attention_plain(q, k, v, lengths, *, scale: float | None = None):
-    """q (B,Nq,H); k/v (B,Smax,Nkv,H); lengths (B,) -> (B,Nq,H)."""
+def decode_attention_plain(q, k, v, lengths, *, scale: float | None = None,
+                           row_ids=None):
+    """q (B,Nq,H); k/v (B,Smax,Nkv,H), or (R,Smax,Nkv,H) with ``row_ids``
+    (B,) picking each row's; lengths (B,) -> (B,Nq,H)."""
+    if row_ids is not None:
+        k, v = k[row_ids.long()], v[row_ids.long()]
     b, nq, h = q.shape
     smax, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -99,25 +106,35 @@ def check_tensor_cores(name: str, tile: int, *tensors: torch.Tensor) -> None:
 
 
 def decode_attention(q, k, v, lengths, *, scale: float | None = None,
-                     block_k: int = DEFAULT_BLOCK_K):
+                     block_k: int = DEFAULT_BLOCK_K, row_ids=None):
     """q (B,Nq,H); k/v (B,Smax,Nkv,H); lengths (B,) int32 -> (B,Nq,H).
+    With ``row_ids`` (B,) int32 in [0, R), k/v are (R,Smax,Nkv,H) and row b
+    attends to row ``row_ids[b]`` (read in place: the kernel's address map,
+    not a gather; ids are not range-checked, as block tables are not).
     CPU tensors take the plain version; CUDA tensors launch the kernel: one
     thread block per (KV split of :data:`DECODE_TILES_PER_SPLIT` tiles of
     ``block_k`` positions, up to 16 query heads of one kv head, row), then a
     merge of each row's splits in split order.  bf16 runs on the tensor
     cores (see :func:`check_tensor_cores` for what it takes); fp32 on the
     CUDA cores at any widths."""
-    if _build.on_cpu(q, k, v, lengths):
-        return decode_attention_plain(q, k, v, lengths, scale=scale)
+    ids = () if row_ids is None else (row_ids,)
+    if _build.on_cpu(q, k, v, lengths, *ids):
+        return decode_attention_plain(q, k, v, lengths, scale=scale,
+                                      row_ids=row_ids)
     dtype = _build.kernel_dtype(q, k, v)
     b, nq, h = q.shape
     _, smax, nkv, hk = k.shape
-    if (tuple(v.shape) != tuple(k.shape) or k.shape[0] != b or hk != h
+    if row_ids is not None:
+        _build.check_index("decode_attention row_ids", row_ids, (b,))
+    elif k.shape[0] != b:
+        raise ValueError(f"decode_attention: k/v hold {k.shape[0]} rows for "
+                         f"{b} queries and no row_ids")
+    if (tuple(v.shape) != tuple(k.shape) or hk != h
             or nq % nkv or k.stride() != v.stride() or not q.is_contiguous()
             or block_k < 1):
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)} (contiguous), k/v "
-            f"(B,Smax,Nkv,H) with equal strides, block_k >= 1; got k "
+            f"(R,Smax,Nkv,H) with equal strides, block_k >= 1; got k "
             f"{tuple(k.shape)} {k.stride()}, v {tuple(v.shape)} {v.stride()}")
     _build.check_unit_stride("decode_attention k", k)
     if q.dtype == torch.bfloat16:
@@ -130,7 +147,8 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None,
         sb, ss, sn, _ = k.stride()
         _build.launch(
             "decode_attention", "decode_attention_launch", q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            None if row_ids is None else row_ids.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), b, nq, nkv, h, smax, sb, ss, sn, block_k,
             DECODE_TILES_PER_SPLIT,
             float(scale if scale is not None else h ** -0.5), dtype,

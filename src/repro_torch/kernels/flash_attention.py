@@ -1,10 +1,13 @@
-"""Causal GQA prefill attention: CUDA kernel (``csrc/flash_attention.cu``),
-plain version and wrapper.
+"""Causal or full GQA prefill attention: CUDA kernel
+(``csrc/flash_attention.cu``), plain version and wrapper.
 
 Counterpart of ``repro/kernels/flash_attention.py``, in the model's
 (B, S, N, H) layout (the kernel reads it through strides; nothing is
 transposed).  The value width may differ from the query/key width: MLA
-prefill attends with H = qk_nope + qk_rope and Hv = v_head_dim.  The plain version is the model's ``_sdpa``
+prefill attends with H = qk_nope + qk_rope and Hv = v_head_dim.  Full
+(``causal=False``) attention may take a key/value length Sk of its own:
+enc-dec cross-attention attends from the decoder's S tokens to the
+encoder's Sk frames.  The plain version is the model's ``_sdpa``
 (``repro/models/layers.py:118``): it rounds the normalised softmax
 probabilities to the value dtype before the PV product.  The kernel has
 two versions, chosen by dtype: fp32 runs on the CUDA cores and keeps the
@@ -47,7 +50,8 @@ def sdpa(q, k, v, *, mask, scale: float):
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           scale: float | None = None):
-    """q (B,S,Nq,H); k (B,S,Nkv,H); v (B,S,Nkv,Hv) -> (B,S,Nq,Hv)."""
+    """q (B,S,Nq,H); k (B,Sk,Nkv,H); v (B,Sk,Nkv,Hv) -> (B,S,Nq,Hv); Sk = S
+    when ``causal``."""
     s = q.shape[1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     mask = None
@@ -59,21 +63,23 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
-    """q (B,S,Nq,H); k (B,S,Nkv,H); v (B,S,Nkv,Hv) -> (B,S,Nq,Hv) in q's
-    dtype.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which in bf16 raises ``ValueError`` for an (H, Hv) outside
-    :data:`TENSOR_CORE_WIDTHS` or an operand whose base or strides are not
-    16-byte aligned."""
+    """q (B,S,Nq,H); k (B,Sk,Nkv,H); v (B,Sk,Nkv,Hv) -> (B,S,Nq,Hv) in q's
+    dtype, Sk = S when ``causal``.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel, which in bf16 raises ``ValueError`` for
+    an (H, Hv) outside :data:`TENSOR_CORE_WIDTHS` or an operand whose base
+    or strides are not 16-byte aligned."""
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     dtype = _build.kernel_dtype(q, k, v)
     b, s, nq, h = q.shape
-    nkv, hv = k.shape[2], v.shape[-1]
-    if (tuple(k.shape) != (b, s, nkv, h) or tuple(v.shape) != (b, s, nkv, hv)
-            or nq % nkv):
+    sk, nkv, hv = k.shape[1], k.shape[2], v.shape[-1]
+    if (tuple(k.shape) != (b, sk, nkv, h)
+            or tuple(v.shape) != (b, sk, nkv, hv) or nq % nkv or sk < 1
+            or (causal and sk != s)):
         raise ValueError(
-            f"flash_attention: q (B,S,Nq,H), k (B,S,Nkv,H), v (B,S,Nkv,Hv); "
-            f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+            f"flash_attention: q (B,S,Nq,H), k (B,Sk,Nkv,H), v (B,Sk,Nkv,Hv), "
+            f"Sk >= 1 and Sk = S when causal; got q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, causal={causal}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_unit_stride(f"flash_attention {name}", t)
         if q.dtype == torch.bfloat16:
@@ -86,8 +92,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if b and s:
         _build.launch(
             "flash_attention", "flash_attention_launch", q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, nq, nkv, h, hv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, sk, nq, nkv, h,
+            hv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], int(causal),
             float(scale if scale is not None else h ** -0.5), dtype,
             _build.stream_of(q))

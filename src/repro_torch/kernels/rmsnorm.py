@@ -19,9 +19,9 @@ from repro_torch.kernels import _build
 
 # row widths the register-resident route is instantiated for
 # (csrc/rmsnorm.cu): the repo's configs' norms -- MLA's kv_lora 512,
-# mamba2 / qwen2-vl 1536, internlm2 / deepseek 2048, mamba2's gated norm
-# 3072, zamba2 3584
-ROW_WIDTHS = frozenset({512, 1536, 2048, 3072, 3584})
+# whisper 1024, mamba2 / qwen2-vl 1536, internlm2 / deepseek 2048, mamba2's
+# gated norm 3072, zamba2 3584
+ROW_WIDTHS = frozenset({512, 1024, 1536, 2048, 3072, 3584})
 
 # route codes of csrc/rmsnorm.cu
 ROUTES = {"scalar": 0, "vectors": 1, "registers": 2}

@@ -9,8 +9,8 @@ tensors in the reference layouts (``wq``/``wk``/``wv`` (d, n, hd), ``wo``
 dense decode on ``decode_attention``; MLA decode, paged and dense alike, on
 ``paged_mla_decode_attention``; every norm on ``rmsnorm``.  On CPU tensors
 each takes its plain version.  Decode caches and pools are updated in
-place.  M-RoPE and sinusoidal positions come with later slices (ROADMAP A2,
-A9).
+place.  Absolute sinusoidal positions (whisper) are added at the
+embedding; M-RoPE comes with a later slice (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -94,6 +94,16 @@ def apply_rope(x, cos, sin):
     sin = sin[:, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dt)
+
+
+def sinusoidal_positions(positions, d_model: int):
+    """Whisper-style absolute sinusoidal embeddings, (..., S) -> (..., S, D)
+    in fp32: [sin, cos] of positions times exp(-log(1e4) * i / (half - 1))."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / (half - 1))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------

@@ -2,16 +2,17 @@
 
     init_params(cfg, generator=, device=)     -> params tree
     init_cache(cfg, batch, max_seq)           -> dense decode cache
-    init_paged_cache(cfg, blocks, block_size) -> block- or slab-pool cache
+    init_paged_cache(cfg, blocks, block_size) -> block, slab or segment pools
     supports_paged(cfg)                       -> paged decode available?
     apply(cfg, params, batch, mode=...)       -> (logits, cache, aux)
     param_count(cfg)                          -> analytical N (for rooflines)
 
 Counterpart of ``repro/models/model.py``.  The port has the dense GQA
 decoder, the MoE decoder (GQA or MLA attention, with dense prefix layers)
-and the pure-SSM (Mamba-2) stack in ``transformer``, and the hybrid
-(Mamba-2 + shared attention) stack in ``hybrid``; the other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+and the pure-SSM (Mamba-2) stack in ``transformer``, the hybrid (Mamba-2 +
+shared attention) stack in ``hybrid`` and the whisper-style
+encoder-decoder in ``encdec``; the VLM stack raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer
 
 Params = Any
 
@@ -29,10 +30,10 @@ def _family_mod(cfg):
     if cfg.family == "hybrid":
         return hybrid
     if cfg.family == "encdec":
-        raise NotImplementedError("enc-dec stacks are ported in ROADMAP A9")
+        return encdec
     if cfg.mrope or cfg.embed_inputs:
         raise NotImplementedError("the VLM stack (M-RoPE, embedding inputs) "
-                                  "is ported in ROADMAP A2")
+                                  "is ported in ROADMAP A9")
     return transformer
 
 
@@ -50,7 +51,7 @@ def cache_family(cfg) -> str | None:
     """The cache family (a ``serving.kvcache.FAMILIES`` key) this config
     pages under, or None when nothing resolves.  A declared
     ``cfg.cache_family`` always wins."""
-    mod = hybrid if cfg.family == "hybrid" else transformer
+    mod = {"hybrid": hybrid, "encdec": encdec}.get(cfg.family, transformer)
     return mod.cache_family(cfg)
 
 
@@ -77,7 +78,7 @@ def paged_insert_views(cfg, prefill_cache) -> dict:
     """Prefill-cache leaves arranged like the ``init_paged_cache`` pools
     ((L, B, ...) per leaf; the prefix layers' tuples stacked along a new
     leading axis) for the engine's insert scatter.  A family module with
-    its own arrangement (the hybrid stack) gives it."""
+    its own arrangement (the hybrid and enc-dec stacks) gives it."""
     mod = _family_mod(cfg)
     if hasattr(mod, "paged_insert_views"):
         return mod.paged_insert_views(cfg, prefill_cache)
@@ -89,6 +90,9 @@ def paged_insert_views(cfg, prefill_cache) -> dict:
 
 
 def apply(cfg, params, batch, *, mode: str, cache=None):
+    """batch: 'tokens' (B,S), plus 'frames' (B,T_enc,D) for the enc-dec
+    stack's train and prefill, and the optional keys of its family's
+    ``forward``."""
     return _family_mod(cfg).forward(cfg, params, batch, mode=mode, cache=cache)
 
 

@@ -290,9 +290,8 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
         positions = cache["pos"][:, None]
     else:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    if cfg.rope_theta == 0.0 and _mixer_kind(cfg) != "mamba":
-        raise NotImplementedError("absolute sinusoidal positions are ported "
-                                  "with the enc-dec stack (ROADMAP A9)")
+    if cfg.rope_theta == 0.0:  # absolute sinusoidal (whisper-style)
+        x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
 
     paged = mode == "decode" and cache is not None and (
         "block_tables" in cache or "slab_ids" in cache)

@@ -6,10 +6,12 @@ Counterpart of ``repro/serving/engine.py`` (see its docstring for the
 architecture).  The port has the main path, ``batching=True,
 paged=True`` -- family-generic: GQA KV block pools, MLA latent block
 pools (plus the MoE prefix layer's pools on the same block tables), SSM
-state-slab pools, and the hybrid stack's two kinds per row (the shared
+state-slab pools, the hybrid stack's two kinds per row (the shared
 attention block's KV block pools and the Mamba-2 state-slab pools, staged
-in one decode call) -- and the unbatched ``generate`` path that serves as
-its reference:
+in one decode call), and the enc-dec stack's decoder KV block pools beside
+its cross-attention segments (refcounted, read-only, shared by the
+streams of one encoder output) -- and the unbatched ``generate`` path that
+serves as its reference:
 
   client streams --admit--> PoolAdmissionController (Eqs (1)-(6) per
         |                   device partition)
@@ -34,11 +36,15 @@ How the reference's device mechanisms map onto PyTorch:
     cheapest warm cell that covers it (widening is sound: extra width lanes
     read the scratch block past each row's length, extra rows duplicate
     row 0 and write identical values).  Slab-only families have no gather
-    width: their one width bucket is 0.
+    width: their one width bucket is 0;
+  * the enc-dec frontend is a stub, as in the reference: every prefill
+    encodes zero frames, so all of a server's streams share one
+    cross-attention segment (the copy-on-write dedup case).
 
 Out of this slice, each raising ``NotImplementedError``: the masked-dense
-batched layout and fault tolerance, migration, work stealing and elastic
-scaling (ROADMAP A10), and static cell pricing (ROADMAP A5).
+batched layout and fault tolerance, migration (of blocks, slabs and
+segments), work stealing and elastic scaling (ROADMAP A10), and static
+cell pricing (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -171,7 +177,8 @@ class ServeEngine:
             raise ValueError(f"paged decode unsupported for {cfg.family}/"
                              f"{cfg.attn_type}")
         # pool kinds of the model's cache family ({} when not paged):
-        # "block" -> KV block pool, "slab" -> fixed-size state slab
+        # "block" -> KV block pool, "slab" -> fixed-size state slab,
+        # "segment" -> refcounted read-only shared segment
         self._pool_kinds = M.paged_pool_kinds(cfg) if paged else {}
         self._cache_kinds = set(self._pool_kinds.values())
         if "block" in self._cache_kinds and max_seq % kv_block_size:
@@ -233,11 +240,16 @@ class ServeEngine:
             num_blocks = ((kv_blocks or max_batch * (max_seq // kv_block_size)
                            + 1) if uses_blocks else 0)
             # slabs: one per slot, doubled as in the reference (room for a
-            # migration's source and destination), plus scratch
+            # migration's source and destination), plus scratch; segments:
+            # shared across slots (refcounted), so max_batch distinct keys
+            # plus scratch cover the worst case
             num_slabs = 2 * max_batch + 2 if "slab" in self._cache_kinds else 0
+            num_segments = (max_batch + 2 if "segment" in self._cache_kinds
+                            else 0)
             self._paged = [_PagedState(num_blocks, kv_block_size, max_batch,
                                        max_seq, family=self._family,
-                                       num_slabs=num_slabs)
+                                       num_slabs=num_slabs,
+                                       num_segments=num_segments)
                            for _ in range(num_servers)]
             # slab-only families have no gather width: the single 0 bucket
             # keeps every bucket_up() call well-defined
@@ -263,8 +275,14 @@ class ServeEngine:
 
     def _prefill(self, tokens: np.ndarray, lengths: np.ndarray | None = None):
         """Prefill ``tokens`` (B, S) on the current device context; the
-        cache comes back padded to max_seq."""
+        cache comes back padded to max_seq.  An enc-dec stack encodes zero
+        frames (B, encoder_seq, d_model) in the config's dtype: the audio
+        frontend is a stub."""
         batch = {"tokens": self._tensor(tokens), "max_seq": self.max_seq}
+        if self.cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (tokens.shape[0], self.cfg.encoder_seq, self.cfg.d_model),
+                dtype=getattr(torch, self.cfg.dtype), device=self.device)
         if lengths is not None:
             batch["lengths"] = self._tensor(lengths)
         return M.apply(self.cfg, self.params, batch, mode="prefill")
@@ -369,7 +387,9 @@ class ServeEngine:
         past the sequence's reserved blocks point at the scratch block and
         carry all-zero rows, so duplicate scatter lanes stay
         deterministic); "slab" leaves land in row ``slab`` (the SSM cache
-        has no sequence axis: one row, one slab)."""
+        has no sequence axis: one row, one slab); "segment" leaves land in
+        row ``seg`` (a shared segment: re-staging a key already present
+        rewrites the same content)."""
         bs = self.kv_block_size
         views = M.paged_insert_views(self.cfg, cache)
         idx = self._tensor(table).long() if "block" in self._cache_kinds \
@@ -381,8 +401,9 @@ class ServeEngine:
                     rows = leaf[:, src_row].reshape(leaf.shape[0], -1, bs,
                                                     *leaf.shape[3:])
                     pool[:, idx] = rows.to(pool.dtype)
-                else:  # "slab"
-                    pool[:, slab] = leaf[:, src_row].to(pool.dtype)
+                else:  # "slab" or "segment": one row of the pool
+                    pool[:, slab if kind == "slab" else seg] = (
+                        leaf[:, src_row].to(pool.dtype))
 
     def _decode_paged_impl(self, packed: torch.Tensor, pools):
         """One compacted paged decode step.  ``packed`` (n, 4+W) int32 rows
@@ -398,6 +419,8 @@ class ServeEngine:
             cache["block_tables"] = packed[:, 4:].contiguous()
         if "slab" in self._cache_kinds:
             cache["slab_ids"] = packed[:, 2].contiguous()
+        if "segment" in self._cache_kinds:
+            cache["segment_ids"] = packed[:, 3].contiguous()
         logits, _, _ = M.apply(self.cfg, self.params,
                                {"tokens": packed[:, :1]}, mode="decode",
                                cache=cache)
@@ -485,7 +508,10 @@ class ServeEngine:
             self._seq_counter += 1
             seq_id = f"{name}#{self._seq_counter}"
         with state.lock:
-            state.mgr.allocate(seq_id, prompt_len)
+            # every stream's encoder frames are the same zeros (_prefill),
+            # so all streams share one cross-attention segment; families
+            # without segments ignore the key
+            state.mgr.allocate(seq_id, prompt_len, segment_key="__frames__")
             try:
                 state.mgr.extend(seq_id, max(prompt_len + steps, bucket)
                                  - prompt_len)

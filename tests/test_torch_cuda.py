@@ -10,8 +10,8 @@ with the card:
 Shapes are the main paths' widths (internlm2-1.8b: Nq=16, Nkv=8, H=128,
 D=2048, block 16; mamba2-780m: 48 SSM heads of P=64, N=128, conv_dim
 3328; deepseek-v2-lite-16b: 16 heads, latent R=512, rope PR=64, QK width
-192, V width 128); tolerances those of test_kernels.py (fp32 1e-5, bf16
-2e-2, atol and rtol).
+192, V width 128; whisper-medium: 16/16 heads of 64, 1500 encoder frames);
+tolerances those of test_kernels.py (fp32 1e-5, bf16 2e-2, atol and rtol).
 """
 
 import pytest
@@ -843,6 +843,128 @@ def test_mla_engine_on_the_card(cuda, monkeypatch):
         assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
         for name in ("rmsnorm", "flash_attention",
                      "paged_mla_decode_attention"):
+            assert _build.launches[name] > 0, name
+    finally:
+        eng.close()
+
+
+# whisper-medium widths: 16 query and 16 kv heads of 64, 1500 frames
+ENC_N, ENC_H, ENC_T = 16, 64, 1500
+
+
+@pytest.mark.cuda
+class TestCudaEncDecKernels:
+    """The two kernel shapes of the enc-dec path: full flash attention
+    with a key length of its own (the encoder at S = Sk = 1500, the
+    cross-attention prefill at S = a prompt bucket against Sk = 1500), and
+    decode attention reading each row's segment of a pool through
+    ``row_ids``."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,s,sk", [(1, 1500, 1500), (1, 1, 1500),
+                                        (4, 8, 1500), (1, 40, 1500),
+                                        (2, 256, 1500), (3, 24, 20)])
+    def test_flash_sk_other_than_s(self, cuda, dtype, b, s, sk):
+        q, k, v = _inputs(60, dtype, (b, s, ENC_N, ENC_H),
+                          (b, sk, ENC_N, ENC_H), (b, sk, ENC_N, ENC_H),
+                          device=cuda)
+        got = flash_attention(q, k, v, causal=False)
+        assert tuple(got.shape) == (b, s, ENC_N, ENC_H)
+        _close(got, flash_attention_plain(q, k, v, causal=False), dtype)
+
+    def test_flash_refuses_sk_when_causal(self, cuda):
+        q, k = _inputs(61, "bfloat16", (1, 8, ENC_N, ENC_H),
+                       (1, 16, ENC_N, ENC_H), device=cuda)
+        before = _build.launches["flash_attention"]
+        with pytest.raises(ValueError, match="Sk = S when causal"):
+            flash_attention(q, k, k, causal=True)
+        assert _build.launches["flash_attention"] == before
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_decode_row_ids_equal_dense_on_the_gathered_copy(self, cuda,
+                                                             dtype):
+        """Rows on permuted, repeated segments of a noisy (6, 1500, ...)
+        pool at the full length (94 tiles of 16, the last ragged) and at
+        ragged lengths: bit-identical to dense decode of the gathered
+        copy, and within tolerance of the plain version."""
+        q, kp, vp = _inputs(62, dtype, (4, ENC_N, ENC_H),
+                            (6, ENC_T, ENC_N, ENC_H), (6, ENC_T, ENC_N, ENC_H),
+                            device=cuda)
+        ids = torch.tensor([5, 2, 5, 0], dtype=torch.int32, device=cuda)
+        for lengths in ([ENC_T] * 4, [ENC_T, 1, 33, 1489]):
+            lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+            got = decode_attention(q, kp, vp, lens, row_ids=ids)
+            dense = decode_attention(q, kp[ids.long()], vp[ids.long()], lens)
+            torch.cuda.synchronize()
+            assert torch.equal(got, dense), lengths
+            _close(got, decode_attention_plain(q, kp, vp, lens, row_ids=ids),
+                   dtype)
+
+
+@pytest.mark.cuda
+def test_encdec_engine_on_the_card(cuda, monkeypatch):
+    """The enc-dec path on the card at reduced size (20 frames, group size
+    1): the batched engine, staging decoder KV block pools and one shared
+    cross segment in each decode call, gives unbatched generate's fp32
+    tokens, leaks no block or segment, and runs the attention kernels --
+    the plain versions are never called."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_decode_attention)
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine, StreamSpec
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on the card")
+
+    for mod, name in ((flash_attention, "flash_attention_plain"),
+                      (decode_attention, "decode_attention_plain"),
+                      (paged_decode_attention, "paged_decode_attention_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    cfg = dataclasses.replace(get_config("whisper_medium").reduced(),
+                              dtype="float32", encoder_seq=20, num_kv_heads=4)
+    params = M.init_params(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                           device=cuda)
+    prompts = {f"s{i}": (np.arange(1, n + 1, dtype=np.int32)[None] * 7) % 128
+               for i, n in enumerate([3, 5, 9, 17])}
+    spec = lambda n, p: StreamSpec(name=n, priority=p, period_ms=8000.0,
+                                   deadline_ms=8000.0, prefill_ms=50.0,
+                                   decode_ms=5.0, decode_steps=6)
+    ref = ServeEngine(cfg, params, max_seq=32, device=cuda)
+    _build.reset_launches()
+    want = {}
+    for i, n in enumerate(prompts):
+        assert ref.admit(spec(n, 4 - i)).admitted
+        want[n] = ref.generate(n, prompts[n], steps=6).tokens
+    ref.close()
+    # self and cross attention of every decoder layer, every step
+    assert _build.launches["decode_attention"] == 4 * 6 * 2 * cfg.num_layers
+    eng = ServeEngine(cfg, params, max_seq=32, num_servers=2, batching=True,
+                      max_batch=4, paged=True, kv_block_size=8, device=cuda)
+    try:
+        eng.precompile(prompt_buckets=(4, 8, 16, 32))
+        _build.reset_launches()
+        for i, n in enumerate(prompts):
+            assert eng.admit(spec(n, 4 - i)).admitted
+        got = {}
+        threads = [threading.Thread(
+            target=lambda n=n: got.__setitem__(n, eng.generate(
+                n, prompts[n], steps=6))) for n in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert {n: r.tokens for n, r in got.items()} == want
+        assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
+        kinds = {m["kind"] for s in eng.pool.servers for m in s.stats.batch_meta}
+        assert kinds == {"prefill@encdec", "decode@encdec"}
+        for name in ("rmsnorm", "flash_attention", "decode_attention",
+                     "paged_decode_attention"):
             assert _build.launches[name] > 0, name
     finally:
         eng.close()

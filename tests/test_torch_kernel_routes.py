@@ -1,7 +1,9 @@
 """Which kernel the ssd_intra and rmsnorm wrappers launch, and what they
 refuse -- decided on the host from dtype, shape and alignment before any
 launch, so it is checked here on the CPU with the launch itself replaced
-by a recorder.
+by a recorder.  Likewise what the attention wrappers pass for the enc-dec
+shapes: flash attention's key length Sk of its own (full attention only),
+and decode attention's row ids.
 
 Also the arithmetic behind the bf16 tensor-core ssd_intra: its decayed
 scores W and scaled inputs enter the products as a pair of bf16 values
@@ -15,6 +17,8 @@ import torch
 
 from repro_torch.configs.registry import get_config, list_configs
 from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as D
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rmsnorm as R
 from repro_torch.kernels import ssd_scan as S
 
@@ -108,6 +112,7 @@ class TestRMSNormRoute:
     @pytest.mark.parametrize("d,dtype,offset,want", [
         (2048, torch.bfloat16, 0, "registers"),
         (3072, torch.float32, 0, "registers"),
+        (1024, torch.float32, 0, "registers"),  # whisper's d_model
         (1000, torch.bfloat16, 0, "vectors"),
         (100, torch.float32, 0, "vectors"),
         (100, torch.bfloat16, 0, "scalar"),   # not whole 16-byte vectors
@@ -119,9 +124,9 @@ class TestRMSNormRoute:
         w = torch.ones(d, dtype=dtype)
         assert R.rmsnorm_route(x, w) == want
 
-    @pytest.mark.parametrize("d,route", [(512, 2), (1536, 2), (2048, 2),
-                                         (3072, 2), (3584, 2), (1024, 1),
-                                         (12, 0)])
+    @pytest.mark.parametrize("d,route", [(512, 2), (1024, 2), (1536, 2),
+                                         (2048, 2), (3072, 2), (3584, 2),
+                                         (1280, 1), (12, 0)])
     def test_wrapper_passes_the_route(self, launches, d, route):
         x = torch.zeros((4, 1, d), dtype=torch.bfloat16)
         out = R.rmsnorm(x, torch.ones(d, dtype=torch.bfloat16), 1e-6)
@@ -137,6 +142,59 @@ class TestRMSNormRoute:
                 R.rmsnorm(*bad, 1e-6)
         with pytest.raises(TypeError):
             R.rmsnorm(x, torch.ones(256), 1e-6)
+        assert launches == []
+
+
+class TestEncDecAttentionArgs:
+    """The cross-attention's kernel shapes reach the C entry points: flash
+    with S query rows against Sk keys, decode with a row id per query
+    row; what a kernel cannot take is refused before any launch."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_flash_passes_sk(self, launches, dtype):
+        q = torch.zeros((2, 8, 16, 64), dtype=dtype)
+        kv = torch.zeros((2, 1500, 16, 64), dtype=dtype)
+        out = FA.flash_attention(q, kv, kv, causal=False)
+        assert tuple(out.shape) == (2, 8, 16, 64)
+        ((name, a),) = launches
+        assert name == "flash_attention"
+        assert a[4:11] == (2, 8, 1500, 16, 16, 64, 64)  # b, S, Sk, ...
+        assert a[11:14] == q.stride()[:3] and a[14:17] == kv.stride()[:3]
+        assert a[-4] == 0  # not causal
+
+    def test_flash_refuses_sk_when_causal(self, launches):
+        q = torch.zeros((1, 8, 4, 64))
+        kv = torch.zeros((1, 20, 4, 64))
+        with pytest.raises(ValueError, match="Sk = S when causal"):
+            FA.flash_attention(q, kv, kv, causal=True)
+        with pytest.raises(ValueError):
+            FA.flash_attention(q, kv[:, :0], kv[:, :0], causal=False)
+        assert launches == []
+
+    def test_decode_passes_row_ids(self, launches):
+        q = torch.zeros((4, 16, 64), dtype=torch.bfloat16)
+        pool = torch.zeros((6, 1500, 16, 64), dtype=torch.bfloat16)
+        lengths = torch.full((4,), 1500, dtype=torch.int32)
+        ids = torch.tensor([3, 3, 1, 0], dtype=torch.int32)
+        D.decode_attention(q, pool, pool, lengths, row_ids=ids)
+        D.decode_attention(q, pool[:4], pool[:4], lengths)
+        (name, rows), (_, dense) = launches
+        assert name == "decode_attention"
+        assert rows[4] == ids.data_ptr() and dense[4] is None
+        # b, Nq, Nkv, H, Smax: 94 tiles of 16, the last ragged
+        assert rows[7:12] == dense[7:12] == (4, 16, 16, 64, 1500)
+        assert rows[12:15] == pool.stride()[:3]
+
+    def test_decode_refuses_bad_row_ids(self, launches):
+        q = torch.zeros((4, 16, 64))
+        pool = torch.zeros((6, 20, 16, 64))
+        lengths = torch.full((4,), 20, dtype=torch.int32)
+        for ids in (torch.zeros(3, dtype=torch.int32),
+                    torch.zeros(4, dtype=torch.int64)):
+            with pytest.raises(ValueError, match="row_ids"):
+                D.decode_attention(q, pool, pool, lengths, row_ids=ids)
+        with pytest.raises(ValueError, match="no row_ids"):
+            D.decode_attention(q, pool, pool, lengths)
         assert launches == []
 
 
