@@ -36,8 +36,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    encoder's 1500 frames and on the cross-attention prefill, S 1, 8, 40
    and 256 against Sk 1500; dense decode over a 1500-frame cross cache;
    decode through ``row_ids`` over a pool of 6 noisy segments,
-   bit-identical to dense decode of the gathered copy) -- then its median
-   time beside the
+   bit-identical to dense decode of the gathered copy), and every kernel
+   of the VLM path at qwen2-vl-2b widths (rmsnorm at 1536 in registers;
+   the attention kernels at 12 query heads over 2 kv heads of 128, group
+   size 6) -- then its median time beside the
    plain version's, the library call's (where one PyTorch call computes
    the same function) and its bound, each kernel's and library call's
    device time per call from one profiler window, a ranking by device
@@ -49,13 +51,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    32-block table, every hybrid-path kernel at zamba2-7b's widths, and
    the enc-dec path's: the cross-attention prefill at bucket 256 and the
    segment decode of 4 rows on one shared segment, timed rows of their
-   own, and the encoder's flash, for information);
+   own, and the encoder's flash, for information; the VLM path's flash,
+   decode pair and rmsnorm as timed rows of their own);
 4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
-   servers -- must give the greedy tokens of unbatched ``generate``, use
-   both servers and leak no KV block;
-5. GQA path, bf16 (the config's dtype): the same traffic, timed, and a
-   profile of one 4-row paged decode step;
+   servers, after ``precompile`` has warmed every cell and captured each
+   as a CUDA graph -- must give the greedy tokens of unbatched
+   ``generate``, use both servers, leak no KV block, replay a graph in
+   every device call, and launch each kernel as often as the replayed
+   cells' captured counts add up to;
+5. GQA path, bf16 (the config's dtype): the same traffic, timed, served
+   twice -- graphed, then with no cell warm, every call eager -- and a
+   profile of one 4-row paged decode step run eagerly and as a replayed
+   graph (the replay's logits equal to the eager step's bit for bit), and
+   where the decode call's time goes beside the step;
 4b. SSM path, fp32: full-width mamba2-780m served the same way through
    slab-paged decode: greedy tokens equal unbatched ``generate``'s, both
    servers used, no slab leaked, decode calls recorded as ``decode@ssm``;
@@ -92,8 +101,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    paged decode step (``chiprun_out/encdec_decode_step_profile.txt``) and
    one of a 256-token prefill call
    (``chiprun_out/encdec_prefill_profile.txt``);
-6. launch counts of every kernel over phases 4-5e (each must be
+4f. VLM path, fp32: full-width qwen2-vl-2b (28 layers, 12/2 heads of
+   128, vocab 151936 tied) served from tokens through GQA block pools:
+   greedy tokens equal unbatched ``generate``'s, nothing leaked, only
+   ``prefill`` / ``decode`` calls; and the stack's own inputs --
+   embeddings and distinct (t, h, w) M-RoPE positions -- through a
+   prefill and 8 teacher-forced decode steps, within 1e-4 of the full
+   forward;
+5f. VLM path, bf16: the same traffic, timed, and a profile of one decode
+   step, eager and graphed (``chiprun_out/vlm_decode_step_profile.txt``);
+6. launch counts of every kernel over phases 4-5f (each must be
    non-zero), then one JSON line describing every kernel;
+
+Every phase 4-5f serves graphed (phase 5 also eagerly), checks its
+launches against the cells' counts, profiles its decode step both ways
+and prints its peak device memory.
 7. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-from TREE
@@ -107,6 +129,7 @@ card in one call.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -1269,6 +1292,43 @@ class KernelChecks:
             "decode_attention": self.time_decode(
                 cfg, lengths, " (encdec self, information only)")}, "SDPA")
 
+    # -- the VLM path's kernels at qwen2-vl-2b widths ------------------------
+    def run_vlm(self, cfg):
+        """Every kernel of the VLM path at qwen2-vl-2b's widths (12 query
+        heads over 2 kv heads of 128: group size 6, which fills 6 of the 16
+        mma rows of a decode block; d_model 1536), fp32 and bf16: rmsnorm
+        at 1536 (in registers), the attention kernels through
+        ``check_attention`` (flash at buckets 8-256 and ragged 40 and 100,
+        the decode pair at ragged lengths, length 0 and every KV split
+        edge, paged equal to dense bit for bit).  Then timed rows of their
+        own beside the library call and the bound: flash at (1,256,12,128)
+        against Nkv 2, the decode pair at group size 6 and rmsnorm at
+        (4,1,1536)."""
+        from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
+                                                 rmsnorm_route)
+
+        d, eps = cfg.d_model, cfg.norm_eps
+        for dt in (torch.float32, torch.bfloat16):
+            w = (self.randn(d) * 0.1 + 1.0).to(dt)
+            for shape in ((4, 1, d), (1, 256, d)):
+                x = self.randn(*shape, dtype=dt) * 3.0
+                e = self.check("rmsnorm", f"x{shape}, {rmsnorm_route(x, w)} "
+                               "route", rmsnorm(x, w, eps),
+                               rmsnorm_plain(x, w, eps), dt)
+                self.errors["rmsnorm"] = max(self.errors["rmsnorm"], e)
+            self.check_attention(cfg, dt)
+        lengths = [p + STEPS + 1 for p in PROMPT_LENS]
+        w_cols = 1 << (-(-max(lengths) // BLOCK) - 1).bit_length()
+        rows = {"rmsnorm@vlm": self.time_rmsnorm(cfg, "time[vlm]"),
+                "flash_attention@vlm": self.time_flash(cfg, 1, 256, " (vlm)"),
+                "paged_decode_attention@vlm": self.time_paged(
+                    cfg, lengths, w_cols, " (vlm, group size 6)"),
+                "decode_attention@vlm": self.time_decode(
+                    cfg, lengths, " (vlm, group size 6)")}
+        print_rows({k: v for k, v in rows.items() if k != "rmsnorm@vlm"},
+                   "SDPA", "time[vlm]")
+        self.rows.update(rows)
+
 
 # ---------------------------------------------------------------------------
 # phases 4-5: the main path
@@ -1289,18 +1349,42 @@ def _prompts(vocab: int) -> dict[str, np.ndarray]:
             for i, n in enumerate(PROMPT_LENS)}
 
 
-def serve_batched(cfg, params, prompts, dev):
-    """4 streams on 2 servers through the paged batched engine."""
+def free_card() -> None:
+    """Return a finished phase's memory to the card: collect the cycles
+    that may still hold an engine (its weights, pools and graphs), then
+    release the allocator's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None):
+    """4 streams on 2 servers through the paged batched engine.  With
+    ``graphs``, ``precompile`` warms and captures every cell first and
+    every device call of the traffic must replay a graph; without it no
+    cell is warm and every call runs eagerly (the same buckets).  The run
+    carries each cell's launches per call (``cells``: the captured counts,
+    or those of an earlier graphed run of the same model)."""
     from repro_torch.kernels import _build
-    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.engine import PrecompileReport, ServeEngine
 
     eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, num_servers=2,
                       batching=True, max_batch=4, paged=True,
                       kv_block_size=BLOCK, device=dev)
     try:
         t0 = time.monotonic()
-        rep = eng.precompile(prompt_buckets=BUCKETS)
+        rep = (eng.precompile(prompt_buckets=BUCKETS) if graphs
+               else PrecompileReport())
         warm_s = time.monotonic() - t0
+        if graphs:
+            cells = {}
+            for st in eng._paged:
+                for key, cell in st.graphs.items():
+                    if cells.setdefault(key, cell.launches) != cell.launches:
+                        raise SmokeFailure(f"cell {key} launches differ "
+                                           "between servers")
+            if rep.captured != len(eng._paged) * rep.compiled:
+                raise SmokeFailure(f"precompile warmed {rep.compiled} cells "
+                                   f"but captured {rep.captured} graphs")
         # segments each server holds, read after every reservation (the
         # only place one is taken): the peak while the streams ran
         segments = [0] * len(eng._paged)
@@ -1343,11 +1427,16 @@ def serve_batched(cfg, params, prompts, dev):
             raise SmokeFailure("a stream did not finish")
         usage = eng.kv_usage()
         meta = [m for s in eng.pool.servers for m in s.stats.batch_meta]
+        eager = [m for m in meta if m["graphed"] != graphs]
+        if eager:
+            raise SmokeFailure(f"{len(eager)} of {len(meta)} device calls "
+                               f"{'ran eagerly' if graphs else 'replayed'}"
+                               f", e.g. {eager[0]}")
         calls = [m for m in meta if m["kind"] == eng._decode_kind]
         prefills = [m for m in meta if m["kind"] == eng._prefill_kind]
         return dict(results=results, servers=servers, usage=usage,
                     segments_peak=segments, wall_s=wall_s, warm_s=warm_s,
-                    precompile=rep,
+                    precompile=rep, graphs=graphs, cells=cells,
                     launches=launches, decode_calls=calls,
                     prefill_calls=prefills, kinds={m["kind"] for m in meta})
     finally:
@@ -1378,7 +1467,7 @@ def serve_unbatched(cfg, params, prompts, dev):
         eng.close()
 
 
-def check_outputs(run, prompts):
+def check_outputs(tag, run, prompts):
     for name, res in run["results"].items():
         if len(res.tokens) != STEPS or len(res.decode_latencies_s) != STEPS:
             raise SmokeFailure(f"{name}: {len(res.tokens)} tokens, want {STEPS}")
@@ -1386,6 +1475,29 @@ def check_outputs(run, prompts):
         raise SmokeFailure(f"streams used servers {run['servers']}, not both")
     if any(run["usage"].values()):
         raise SmokeFailure(f"leaked KV resources: {run['usage']}")
+    check_cell_launches(tag, run)
+
+
+def check_cell_launches(tag, run):
+    """Each kernel's launches over the traffic must equal the sum, over the
+    traffic's device calls, of the call's cell's launches per call."""
+    calls = run["decode_calls"] + run["prefill_calls"]
+    want = Counter()
+    for m in calls:
+        phase = m["kind"].split("@")[0]
+        want.update(run["cells"][(phase, m["padded"], m["width"]
+                                  if phase == "decode" else m["bucket"])])
+    got = +Counter(run["launches"])
+    if got != want:
+        raise SmokeFailure(f"{tag}: launches {dict(got)} != the sum over the "
+                           f"{len(calls)} device calls of each cell's "
+                           f"launches per call {dict(want)}")
+    hit = sorted({(m["kind"].split("@")[0], m["padded"],
+                   m.get("width", m.get("bucket"))) for m in calls})
+    print(f"{tag}: launches {dict(got)} == the sum over {len(calls)} device "
+          f"calls ({'graph replays' if run['graphs'] else 'eager'}) of each "
+          f"cell's launches per call; per call: " + "; ".join(
+              f"{k[0]} ({k[1]},{k[2]}) {dict(run['cells'][k])}" for k in hit))
 
 
 def check_tokens(tag, run, ref, prompts):
@@ -1415,38 +1527,97 @@ def init_params(cfg, dev, tag):
     return params
 
 
+def print_peak(tag, dev, card) -> None:
+    print(f"{tag} [{card}]: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated, since the phase began)")
+
+
+def check_kinds(tag, run, family_tag) -> None:
+    """Only the family's prefill and decode calls ran, and some decoded."""
+    want = {"prefill" + family_tag, "decode" + family_tag}
+    if run["kinds"] != want or not run["decode_calls"]:
+        raise SmokeFailure(f"{tag}: calls recorded as {sorted(run['kinds'])},"
+                           f" want {sorted(want)}")
+
+
+def fp32_phase(tag, cfg, prompts, dev, card, *, family_tag, check=None,
+               extra=None):
+    """Phases 4-4f: ``cfg`` in fp32, served graphed; the batched greedy
+    tokens must equal unbatched ``generate``'s, every call replay a graph
+    and the launches match the cells' counts.  ``check(tag, run)`` adds the
+    family's own checks, ``extra(cfg, params)`` a model-level one.
+    Returns the launch counts of both runs."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, dev, tag)
+    run = serve_batched(cfg, params, prompts, dev)
+    ref, ref_launches = serve_unbatched(cfg, params, prompts, dev)
+    check_outputs(tag, run, prompts)
+    check_kinds(tag, run, family_tag)
+    if check is not None:
+        check(tag, run)
+    check_tokens(tag, run, ref, prompts)
+    print(f"{tag}: max |batched - unbatched| first-step logit "
+          f"{first_logits_gap(cfg, params, prompts, dev):.3e} "
+          f"(information only)")
+    if extra is not None:
+        extra(cfg, params)
+    report_latency(tag, run, card)
+    print_peak(tag, dev, card)
+    counts = Counter(run["launches"]) + Counter(ref_launches)
+    del params, run, ref
+    free_card()
+    return counts
+
+
+def bf16_phase(tag, cfg, prompts, dev, card, *, family_tag, profile,
+               prefill_file=None, check=None, eager=False):
+    """Phases 5-5f: ``cfg`` in bf16 (the config's dtype), served graphed
+    and timed -- with ``eager`` also served again with no cell warm, every
+    call eager -- then one decode step profiled eagerly and as a replayed
+    graph (``chiprun_out/<profile>``), where the decode call's time goes,
+    and with ``prefill_file`` one prefill call profiled.  Returns the launch
+    counts."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, dev, tag)
+    runs = {"graphed": serve_batched(cfg, params, prompts, dev)}
+    if eager:
+        runs["eager"] = serve_batched(cfg, params, prompts, dev, graphs=False,
+                                      cells=runs["graphed"]["cells"])
+    counts = Counter()
+    for mode, run in runs.items():
+        counts += Counter(run["launches"])
+        check_outputs(f"{tag} {mode}", run, prompts)
+        check_kinds(f"{tag} {mode}", run, family_tag)
+        if check is not None:
+            check(f"{tag} {mode}", run)
+        report_latency(f"{tag} {mode}", run, card)
+    print_peak(tag, dev, card)
+    for name, res in runs["graphed"]["results"].items():
+        print(f"{tag} {name} tokens (information only): {res.tokens}")
+    prof = step_profile(cfg, params, dev, card, f"{tag} step profile",
+                        profile)
+    for mode, run in runs.items():
+        decode_breakdown(f"{tag} {mode}", run, prof[mode], card)
+    if prefill_file is not None:
+        prefill_profile(cfg, params, dev, card, f"{tag} prefill profile",
+                        prefill_file)
+    del params, runs
+    free_card()
+    return counts
+
+
 def gqa_path(dev, card):
-    """Phases 4-5: internlm2-1.8b; returns the launch counts."""
+    """Phases 4-5: internlm2-1.8b, the main path; phase 5 serves the bf16
+    traffic twice, graphed and eager.  Returns the launch counts."""
     from repro_torch.configs.registry import get_config
 
     base = get_config("internlm2_1_8b")
     prompts = _prompts(base.vocab_size)
-
-    # phase 4: fp32, batched tokens must equal unbatched generate's
-    cfg32 = dataclasses.replace(base, dtype="float32")
-    params = init_params(cfg32, dev, "main fp32")
-    run = serve_batched(cfg32, params, prompts, dev)
-    ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
-    counts = Counter(run["launches"]) + Counter(ref_launches)
-    check_outputs(run, prompts)
-    check_tokens("main fp32", run, ref, prompts)
-    report_latency("main fp32", run, card)
-    del params, run, ref
-    torch.cuda.empty_cache()
-
-    # phase 5: bf16, timed
-    params = init_params(base, dev, "main bf16")
-    run = serve_batched(base, params, prompts, dev)
-    counts += Counter(run["launches"])
-    check_outputs(run, prompts)
-    report_latency("main bf16", run, card)
-    for name, res in run["results"].items():
-        print(f"main bf16 {name} tokens (information only): {res.tokens}")
-    del run
-    step_profile(base, params, dev, card, "step profile",
-                 "decode_step_profile.txt")
-    del params
-    torch.cuda.empty_cache()
+    counts = fp32_phase("main fp32", dataclasses.replace(base, dtype="float32"),
+                        prompts, dev, card, family_tag="")
+    counts += bf16_phase("main bf16", base, prompts, dev, card, family_tag="",
+                         profile="decode_step_profile.txt", eager=True)
     return counts
 
 
@@ -1492,40 +1663,12 @@ def ssm_path(dev, card):
 
     base = get_config("mamba2_780m")
     prompts = _prompts(base.vocab_size)
-
-    # phase 4b: fp32, batched tokens must equal unbatched generate's
-    cfg32 = dataclasses.replace(base, dtype="float32")
-    params = init_params(cfg32, dev, "ssm fp32")
-    run = serve_batched(cfg32, params, prompts, dev)
-    ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
-    counts = Counter(run["launches"]) + Counter(ref_launches)
-    check_outputs(run, prompts)
-    if {c["kind"] for c in run["decode_calls"]} != {"decode@ssm"} or not (
-            run["decode_calls"]):
-        raise SmokeFailure(f"SSM decode calls recorded as {run['kinds']}")
-    check_tokens("ssm fp32", run, ref, prompts)
-    print(f"ssm fp32: max |batched - unbatched| first-step logit "
-          f"{first_logits_gap(cfg32, params, prompts, dev):.3e} "
-          f"(information only)")
-    report_latency("ssm fp32", run, card)
-    del params, run, ref
-    torch.cuda.empty_cache()
-
-    # phase 5b: bf16, timed
-    params = init_params(base, dev, "ssm bf16")
-    run = serve_batched(base, params, prompts, dev)
-    counts += Counter(run["launches"])
-    check_outputs(run, prompts)
-    report_latency("ssm bf16", run, card)
-    for name, res in run["results"].items():
-        print(f"ssm bf16 {name} tokens (information only): {res.tokens}")
-    del run
-    step_profile(base, params, dev, card, "ssm step profile",
-                 "ssm_decode_step_profile.txt")
-    prefill_profile(base, params, dev, card, "ssm prefill profile",
-                    "ssm_prefill_profile.txt")
-    del params
-    torch.cuda.empty_cache()
+    counts = fp32_phase("ssm fp32", dataclasses.replace(base, dtype="float32"),
+                        prompts, dev, card, family_tag="@ssm")
+    counts += bf16_phase("ssm bf16", base, prompts, dev, card,
+                         family_tag="@ssm",
+                         profile="ssm_decode_step_profile.txt",
+                         prefill_file="ssm_prefill_profile.txt")
     return counts
 
 
@@ -1544,127 +1687,56 @@ def fp32_depth(base, dev) -> int:
 
 
 def mla_path(dev, card):
-    """Phases 4c-5c: deepseek-v2-lite-16b through MLA latent block pools;
-    returns the launch counts."""
+    """Phases 4c-5c: deepseek-v2-lite-16b through MLA latent block pools
+    (fp32 at the depth that fits, bf16 at full depth); returns the launch
+    counts."""
     from repro_torch.configs.registry import get_config
 
     base = get_config("deepseek_v2_lite_16b")
     prompts = _prompts(base.vocab_size)
-
-    # phase 4c: fp32, batched tokens must equal unbatched generate's
     depth = fp32_depth(base, dev)
     if depth < base.num_layers:
         print(f"mla fp32: depth cut to {depth} of {base.num_layers} layers "
               f"(the fp32 weights of all layers do not fit)")
-    cfg32 = dataclasses.replace(base, dtype="float32", num_layers=depth)
-    torch.cuda.reset_peak_memory_stats(dev)
-    params = init_params(cfg32, dev, f"mla fp32 ({depth} layers)")
-    run = serve_batched(cfg32, params, prompts, dev)
-    ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
-    counts = Counter(run["launches"]) + Counter(ref_launches)
-    check_outputs(run, prompts)
-    if {c["kind"] for c in run["decode_calls"]} != {"decode@mla"} or not (
-            run["decode_calls"]):
-        raise SmokeFailure(f"MLA decode calls recorded as {run['kinds']}")
-    check_tokens("mla fp32", run, ref, prompts)
-    print(f"mla fp32: max |batched - unbatched| first-step logit "
-          f"{first_logits_gap(cfg32, params, prompts, dev):.3e} "
-          f"(information only)")
-    report_latency("mla fp32", run, card)
-    print(f"mla fp32 [{card}]: peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated)")
-    del params, run, ref
-    torch.cuda.empty_cache()
-
-    # phase 5c: bf16, timed, at full depth
-    torch.cuda.reset_peak_memory_stats(dev)
-    params = init_params(base, dev, "mla bf16")
-    run = serve_batched(base, params, prompts, dev)
-    counts += Counter(run["launches"])
-    check_outputs(run, prompts)
-    report_latency("mla bf16", run, card)
-    print(f"mla bf16 [{card}]: peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated)")
-    for name, res in run["results"].items():
-        print(f"mla bf16 {name} tokens (information only): {res.tokens}")
-    del run
-    step_profile(base, params, dev, card, "mla step profile",
-                 "mla_decode_step_profile.txt")
-    del params
-    torch.cuda.empty_cache()
+    counts = fp32_phase(
+        f"mla fp32 ({depth} layers)",
+        dataclasses.replace(base, dtype="float32", num_layers=depth),
+        prompts, dev, card, family_tag="@mla")
+    counts += bf16_phase("mla bf16", base, prompts, dev, card,
+                         family_tag="@mla",
+                         profile="mla_decode_step_profile.txt")
     return counts
 
 
 def hybrid_path(dev, card):
-    """Phases 4d-5d: zamba2-7b through the shared block's KV block pools and
-    the Mamba-2 state slabs in one decode call; returns the launch
-    counts."""
+    """Phases 4d-5d: zamba2-7b at all 81 layers through the shared block's
+    KV block pools and the Mamba-2 state slabs in one decode call; returns
+    the launch counts."""
     from repro_torch.configs.registry import get_config
 
     base = get_config("zamba2_7b")
     prompts = _prompts(base.vocab_size)
-
-    # phase 4d: fp32 at all 81 layers, batched tokens must equal unbatched
-    cfg32 = dataclasses.replace(base, dtype="float32")
-    torch.cuda.reset_peak_memory_stats(dev)
-    params = init_params(cfg32, dev, "hybrid fp32")
-    run = serve_batched(cfg32, params, prompts, dev)
-    ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
-    counts = Counter(run["launches"]) + Counter(ref_launches)
-    check_outputs(run, prompts)
-    if {c["kind"] for c in run["decode_calls"]} != {"decode@hybrid"} or not (
-            run["decode_calls"]):
-        raise SmokeFailure(f"hybrid decode calls recorded as {run['kinds']}")
-    check_tokens("hybrid fp32", run, ref, prompts)
-    print(f"hybrid fp32: max |batched - unbatched| first-step logit "
-          f"{first_logits_gap(cfg32, params, prompts, dev):.3e} "
-          f"(information only)")
-    report_latency("hybrid fp32", run, card)
-    print(f"hybrid fp32 [{card}]: peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated)")
-    del params, run, ref
-    torch.cuda.empty_cache()
-
-    # phase 5d: bf16, timed
-    torch.cuda.reset_peak_memory_stats(dev)
-    params = init_params(base, dev, "hybrid bf16")
-    run = serve_batched(base, params, prompts, dev)
-    counts += Counter(run["launches"])
-    check_outputs(run, prompts)
-    report_latency("hybrid bf16", run, card)
-    print(f"hybrid bf16 [{card}]: peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated)")
-    for name, res in run["results"].items():
-        print(f"hybrid bf16 {name} tokens (information only): {res.tokens}")
-    del run
-    step_profile(base, params, dev, card, "hybrid step profile",
-                 "hybrid_decode_step_profile.txt")
-    prefill_profile(base, params, dev, card, "hybrid prefill profile",
-                    "hybrid_prefill_profile.txt")
-    del params
-    torch.cuda.empty_cache()
+    counts = fp32_phase("hybrid fp32",
+                        dataclasses.replace(base, dtype="float32"), prompts,
+                        dev, card, family_tag="@hybrid")
+    counts += bf16_phase("hybrid bf16", base, prompts, dev, card,
+                         family_tag="@hybrid",
+                         profile="hybrid_decode_step_profile.txt",
+                         prefill_file="hybrid_prefill_profile.txt")
     return counts
 
 
 def encdec_path(dev, card):
-    """Phases 4e-5e: whisper-medium through the decoder's KV block pools and
-    the shared cross-attention segments in one decode call; returns the
-    launch counts."""
+    """Phases 4e-5e: whisper-medium at all 24 + 24 layers through the
+    decoder's KV block pools and the shared cross-attention segments in
+    one decode call; each server must hold exactly one segment while its
+    streams run.  Returns the launch counts."""
     from repro_torch.configs.registry import get_config
 
     base = get_config("whisper_medium")
     prompts = _prompts(base.vocab_size)
 
-    def check_run(tag, run):
-        check_outputs(run, prompts)
-        want = {"prefill@encdec", "decode@encdec"}
-        if run["kinds"] != want or not run["decode_calls"]:
-            raise SmokeFailure(f"{tag}: calls recorded as {run['kinds']}, "
-                               f"want {sorted(want)}")
+    def one_segment(tag, run):
         if run["segments_peak"] != [1, 1]:
             raise SmokeFailure(f"{tag}: servers held at most "
                                f"{run['segments_peak']} segments while their "
@@ -1672,45 +1744,73 @@ def encdec_path(dev, card):
         print(f"{tag}: segments held per server while streams ran "
               f"{run['segments_peak']} (one shared segment each)")
 
-    # phase 4e: fp32 at all 24 + 24 layers, batched tokens must equal
-    # unbatched
-    cfg32 = dataclasses.replace(base, dtype="float32")
-    torch.cuda.reset_peak_memory_stats(dev)
-    params = init_params(cfg32, dev, "encdec fp32")
-    run = serve_batched(cfg32, params, prompts, dev)
-    ref, ref_launches = serve_unbatched(cfg32, params, prompts, dev)
-    counts = Counter(run["launches"]) + Counter(ref_launches)
-    check_run("encdec fp32", run)
-    check_tokens("encdec fp32", run, ref, prompts)
-    print(f"encdec fp32: max |batched - unbatched| first-step logit "
-          f"{first_logits_gap(cfg32, params, prompts, dev):.3e} "
-          f"(information only)")
-    report_latency("encdec fp32", run, card)
-    print(f"encdec fp32 [{card}]: peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated)")
-    del params, run, ref
-    torch.cuda.empty_cache()
+    counts = fp32_phase("encdec fp32",
+                        dataclasses.replace(base, dtype="float32"), prompts,
+                        dev, card, family_tag="@encdec", check=one_segment)
+    counts += bf16_phase("encdec bf16", base, prompts, dev, card,
+                         family_tag="@encdec", check=one_segment,
+                         profile="encdec_decode_step_profile.txt",
+                         prefill_file="encdec_prefill_profile.txt")
+    return counts
 
-    # phase 5e: bf16, timed
-    torch.cuda.reset_peak_memory_stats(dev)
-    params = init_params(base, dev, "encdec bf16")
-    run = serve_batched(base, params, prompts, dev)
-    counts += Counter(run["launches"])
-    check_run("encdec bf16", run)
-    report_latency("encdec bf16", run, card)
-    print(f"encdec bf16 [{card}]: peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated)")
-    for name, res in run["results"].items():
-        print(f"encdec bf16 {name} tokens (information only): {res.tokens}")
-    del run
-    step_profile(base, params, dev, card, "encdec step profile",
-                 "encdec_decode_step_profile.txt")
-    prefill_profile(base, params, dev, card, "encdec prefill profile",
-                    "encdec_prefill_profile.txt")
-    del params
-    torch.cuda.empty_cache()
+
+def mrope_teacher_forced(cfg, params, dev, s=32, steps=8):
+    """The VLM stack's own inputs at full width: embeddings (1, s, d) and
+    (3, 1, s) M-RoPE positions whose t, h and w streams differ (an image's
+    patch grid, 4 wide).  Prefill s - steps positions, then decode the
+    last ``steps`` one at a time with their embeddings and positions: the
+    logits must be the full forward's within 1e-4 (the cache is exact).
+    The prefill and the forward run flash, the decode steps the dense
+    decode kernel."""
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    emb = torch.randn((1, s, cfg.d_model), generator=gen, device=dev)
+    idx = torch.arange(s, device=dev)
+    pos = torch.stack([idx // 4, 2 * (idx // 4) + 1, idx % 4 + 3 * (idx // 4)]
+                      ).to(torch.int32)[:, None, :]
+    n = s - steps
+    with torch.inference_mode():
+        full, _, _ = M.apply(cfg, params, {"embeds": emb,
+                                           "mrope_positions": pos},
+                             mode="train")
+        _, cache, _ = M.apply(cfg, params, {
+            "embeds": emb[:, :n], "mrope_positions": pos[:, :, :n],
+            "max_seq": s}, mode="prefill")
+        outs = []
+        for t in range(n, s):
+            lg, cache, _ = M.apply(cfg, params, {
+                "embeds": emb[:, t:t + 1],
+                "mrope_positions": pos[:, :, t:t + 1]},
+                mode="decode", cache=cache)
+            outs.append(lg[:, 0])
+        got, want = torch.stack(outs, 1), full[:, n:]
+        err = (got - want).abs().max().item()
+        ok = bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    print(f"check vlm M-RoPE teacher-forced decode [{steps} steps after a "
+          f"{n}-position prefill, embeddings and distinct (t, h, w) "
+          f"positions] float32: max_abs_err={err:.3e} against the full "
+          f"forward (tol 1e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"M-RoPE teacher-forced decode is {err} from the "
+                           "full forward")
+
+
+def vlm_path(dev, card):
+    """Phases 4f-5f: qwen2-vl-2b at all 28 layers, served from tokens (the
+    engine's input, plain rope) through GQA block pools; phase 4f also
+    holds the stack's M-RoPE and embedding inputs at full width.  Returns
+    the launch counts."""
+    from repro_torch.configs.registry import get_config
+
+    base = get_config("qwen2_vl_2b")
+    prompts = _prompts(base.vocab_size)
+    counts = fp32_phase("vlm fp32", dataclasses.replace(base, dtype="float32"),
+                        prompts, dev, card, family_tag="",
+                        extra=lambda cfg, params: mrope_teacher_forced(
+                            cfg, params, dev))
+    counts += bf16_phase("vlm bf16", base, prompts, dev, card, family_tag="",
+                         profile="vlm_decode_step_profile.txt")
     return counts
 
 
@@ -1770,49 +1870,122 @@ def decode_step_cache(cfg, dev):
     return cache, w
 
 
-def step_profile(cfg, params, dev, card, tag, outfile):
-    """Where one decode step's time goes: the model's paged decode step
-    alone (no engine, no threads) on 4 rows at phase 5's final lengths --
-    CUDA-event time per step, host time to enqueue it, and the device time
-    of each kernel from one torch.profiler window of 5 steps (the full
-    table goes to chiprun_out/<outfile>)."""
-    from repro_torch.models import model as M
-
-    cache, w = decode_step_cache(cfg, dev)
-    tokens = torch.ones((4, 1), dtype=torch.int32, device=dev)
-
-    def step():
-        with torch.inference_mode():
-            M.apply(cfg, params, {"tokens": tokens}, mode="decode",
-                    cache=dict(cache))
-
-    step_ms = time_ms(step, iters=10, reps=3)
+def profile_calls(fn, n: int = 5) -> dict:
+    """One function's timings: CUDA-event ms per call (10 back to back,
+    median of 3), host ms to issue one call, and the device kernels of one
+    torch.profiler window of ``n`` calls -- device busy per call and the
+    idle share of the event time."""
+    ms = time_ms(fn, iters=10, reps=3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    step()
+    fn()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(5):
-            step()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
     events, key, kernels = device_kernels(prof)
-    dev_us = lambda e: getattr(e, key)
-    kernels.sort(key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / 5
+    kernels.sort(key=lambda e: getattr(e, key), reverse=True)
+    busy = sum(getattr(e, key) for e in kernels) / 1e3 / n
+    return dict(ms=ms, host_ms=host_ms, busy_ms=busy,
+                idle=max(0.0, 1 - busy / ms), events=events, key=key,
+                kernels=kernels, n=n)
+
+
+def step_profile(cfg, params, dev, card, tag, outfile):
+    """Where one decode step's time goes: the model's paged decode step
+    alone (no engine, no threads) on 4 rows at phase 5's final lengths,
+    run eagerly and as one CUDA graph captured from it
+    (``repro_torch.serving.graphs.GraphCell``) and replayed on the same
+    cache -- for each, CUDA-event time per step, host time to issue it,
+    device busy from one torch.profiler window of 5 steps and the idle
+    share (the kernel tables go to chiprun_out/<outfile>).  The replay's
+    logits must equal the eager step's bit for bit (the pools are restored
+    before each: SSM slabs advance in place).  Returns {"eager": ...,
+    "graphed": ...}."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.graphs import GraphCell
+
+    cache, w = decode_step_cache(cfg, dev)
+    tokens = torch.ones((4, 1), dtype=torch.int32, device=dev)
+
+    def run(t):
+        return M.apply(cfg, params, {"tokens": t}, mode="decode",
+                       cache=dict(cache))[0]
+
+    def step():
+        with torch.inference_mode():
+            run(tokens)
+
+    pools = [t for t in cache.values() if isinstance(t, tuple)]
+    pools = [t for leaves in pools for t in leaves]
+    saved = [t.clone() for t in pools]
+
+    def restore():
+        for t, s in zip(pools, saved):
+            t.copy_(s)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.inference_mode():
+        with torch.cuda.stream(side):
+            run(tokens)  # warm the capture stream
+            cell = GraphCell(run, [tokens])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        restore()
+        want = run(tokens).clone()
+        restore()
+        cell.graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(cell.outputs, want):
+            err = (cell.outputs - want).abs().max().item()
+            raise SmokeFailure(f"{tag}: the replayed step's logits differ "
+                               f"from the eager step's (max {err:.3e})")
+    profs = {"eager": profile_calls(step),
+             "graphed": profile_calls(cell.graph.replay)}
     lengths = [p + STEPS for p in PROMPT_LENS]
     print(f"{tag} [{card}] {cfg.name} {cfg.dtype}, 4 rows, W={w}, lengths "
-          f"{lengths}: {step_ms:.3f} ms per step (CUDA events), host "
-          f"enqueue {host_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle "
-          f"share {max(0.0, 1 - busy_ms / step_ms):.3f}")
-    for e in kernels[:8]:
-        print(f"{tag}: {dev_us(e) / 1e3 / 5:8.4f} ms/step "
-              f"{e.count // 5:5d} calls/step  {e.key[:90]}")
+          f"{lengths}: replayed logits == eager logits bit for bit")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / outfile).write_text(events.table(sort_by=key, row_limit=60))
+    tables = []
+    for mode, p in profs.items():
+        busy = (f"device busy {p['busy_ms']:.3f} ms, idle share "
+                f"{p['idle']:.3f}" if p["kernels"] else
+                "device busy not measured (no device activity recorded)")
+        print(f"{tag} [{card}] {mode}: {p['ms']:.3f} ms per step (CUDA "
+              f"events), host {'enqueue' if mode == 'eager' else 'replay'} "
+              f"{p['host_ms']:.3f} ms, {busy}, "
+              f"{sum(e.count for e in p['kernels']) // p['n']} device "
+              "activities per step")
+        for e in p["kernels"][:8]:
+            print(f"{tag} {mode}: {getattr(e, p['key']) / 1e3 / p['n']:8.4f}"
+                  f" ms/step {e.count // p['n']:5d} calls/step  {e.key[:90]}")
+        tables.append(f"{mode}\n" + p["events"].table(sort_by=p["key"],
+                                                      row_limit=60))
+    (out / outfile).write_text("\n".join(tables))
+    del cell, saved
+    return profs
+
+
+def decode_breakdown(tag, run, prof, card) -> None:
+    """Where the engine's decode time goes beside the model's step: the
+    client's step latency (submit to result) is the device call (server
+    thread: staging, copies, the step, the stream sync) plus the time
+    outside it (queueing behind other streams' calls, thread hand-offs);
+    the device call is the model-only step (``prof``: CUDA events) plus
+    the engine's work around it."""
+    client = sorted(x * 1e3 for r in run["results"].values()
+                    for x in r.decode_latencies_s)
+    call = sorted(m["seconds"] * 1e3 for m in run["decode_calls"])
+    c50, d50 = client[len(client) // 2], call[len(call) // 2]
+    print(f"{tag} [{card}]: decode p50 {c50:.3f} ms (client) = device call "
+          f"p50 {d50:.3f} ms + {c50 - d50:.3f} ms outside the call; the "
+          f"call = model-only step {prof['ms']:.3f} ms + {d50 - prof['ms']:.3f}"
+          f" ms around it in the engine")
 
 
 def prefill_profile(cfg, params, dev, card, tag, outfile):
@@ -1921,6 +2094,7 @@ def main() -> int:
     checks.run_mla(get_config("deepseek_v2_lite_16b"))
     checks.run_hybrid(get_config("zamba2_7b"))
     checks.run_encdec(get_config("whisper_medium"))
+    checks.run_vlm(get_config("qwen2_vl_2b"))
     checks.rank()
 
     counts = gqa_path(dev, card)                                # phases 4-5
@@ -1928,8 +2102,9 @@ def main() -> int:
     counts += mla_path(dev, card)                               # phases 4c-5c
     counts += hybrid_path(dev, card)                            # phases 4d-5d
     counts += encdec_path(dev, card)                            # phases 4e-5e
+    counts += vlm_path(dev, card)                               # phases 4f-5f
 
-    print(f"launches over phases 4-5e: {dict(counts)}")         # phase 6
+    print(f"launches over phases 4-5f: {dict(counts)}")         # phase 6
     missing = [k for k in KERNELS if not counts.get(k)]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")

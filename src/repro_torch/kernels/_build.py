@@ -9,11 +9,16 @@ use -- never at import, so every module imports on a machine without
 name that hashes the sources, so a stale library is never loaded.
 
 Each wrapper launches through :func:`launch`, which raises when the C entry
-point reports a CUDA error and counts the launch in :data:`launches`.
+point reports a CUDA error and counts the launch in :data:`launches` -- or,
+on a thread that is capturing a CUDA graph, in the graph's own counter
+(:func:`count_into`): a capture runs nothing, and each replay adds the
+counts it recorded (:func:`add_launches`), so :data:`launches` stays the
+number of kernels that ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,6 +64,8 @@ SIGNATURES = {
 launches: Counter = Counter()
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# per thread: the counter of the CUDA graph this thread is capturing
+_capture = threading.local()
 
 
 def _sources() -> list[pathlib.Path]:
@@ -147,8 +154,28 @@ def launch(name: str, entry: str, *args) -> None:
     if err != 0:
         msg = lib.kernels_error_string(err).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+    counter = getattr(_capture, "counter", None)
     with _lock:
-        launches[name] += 1
+        (launches if counter is None else counter)[name] += 1
+
+
+@contextlib.contextmanager
+def count_into(counter: Counter):
+    """Launches made on this thread inside the block count in ``counter``,
+    not in :data:`launches` (the kernels a graph capture records run only
+    when the graph is replayed)."""
+    prev = getattr(_capture, "counter", None)
+    _capture.counter = counter
+    try:
+        yield counter
+    finally:
+        _capture.counter = prev
+
+
+def add_launches(counts: Counter) -> None:
+    """Count ``counts`` launches at once: one replay of a captured graph."""
+    with _lock:
+        launches.update(counts)
 
 
 def reset_launches() -> None:

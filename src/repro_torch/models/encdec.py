@@ -212,10 +212,12 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
             lc = (*(t[li] for t in cache["self"]), cache["pos"])
         else:
             lc = None
+        if li == 0:  # each row's slot and length, shared by every layer
+            step = L.attention_step(cfg, positions, lc)
         h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
         out, c = L.attention(cfg, lp["attn"], h, positions=positions,
                              cache="build" if mode == "prefill" else None,
-                             layer_cache=lc)
+                             layer_cache=lc, step=step)
         x = x + out
         h = L.rms_norm(x, lp["ln_x"]["scale"], cfg.norm_eps)
         if decode:

@@ -173,6 +173,7 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
     dense = mode == "decode" and not paged
     shared = params["shared_attn"]
     convs, states, ks, vs = [], [], [], []  # the prefill cache, per layer
+    step = None  # the shared block's rope and slots, once per step
 
     def mamba(p, x, li, leaves):
         """Mamba-2 layer ``li`` of the flat index (G*PG + R), against its
@@ -204,8 +205,10 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
             lc = (*(t[gi] for t in cache["groups_attn"]), cache["pos"])
         else:
             lc = None
+        if step is None:  # shared by every application of this step
+            step = L.attention_step(cfg, positions, lc)
         x, c, _ = T.block(cfg, shared, x, positions=positions, mode=mode,
-                          layer_cache=lc)
+                          layer_cache=lc, step=step)
         if mode == "prefill":
             ks.append(c[0])
             vs.append(c[1])

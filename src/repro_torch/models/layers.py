@@ -10,13 +10,19 @@ dense decode on ``decode_attention``; MLA decode, paged and dense alike, on
 ``paged_mla_decode_attention``; every norm on ``rmsnorm``.  On CPU tensors
 each takes its plain version.  Decode caches and pools are updated in
 place.  Absolute sinusoidal positions (whisper) are added at the
-embedding; M-RoPE comes with a later slice (ROADMAP A9).
+embedding; Qwen2-VL's M-RoPE drives each rotary pair from one of three
+position streams.
+
+The values every attention layer of one forward shares -- the rotary
+cos/sin and, in decode, each row's slot and length -- are computed once
+per step by :func:`step_values` and passed down as ``step``; a layer
+called without them computes its own.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -85,6 +91,24 @@ def rope_cos_sin(positions, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_cos_sin(positions, head_dim: int, theta: float, sections):
+    """Qwen2-VL multimodal rotary: ``positions`` (3, B, S) carries the
+    temporal/height/width streams; rotary pair d takes the stream of the
+    section it falls in, as ``jnp.repeat(arange(3), sections,
+    total_repeat_length=head_dim // 2)`` assigns them: sections that sum
+    past head_dim/2 are cut off, and pairs past a shorter sum take stream
+    2.  Returns cos/sin (B, S, head_dim/2) in fp32."""
+    if positions.shape[0] != 3:
+        raise ValueError(f"M-RoPE needs (3, B, S) positions, got "
+                         f"{tuple(positions.shape)}")
+    cos, sin = rope_cos_sin(positions, head_dim, theta)  # (3, B, S, hd/2)
+    pair = torch.arange(head_dim // 2, device=positions.device)
+    stream = ((pair >= sections[0]).long()
+              + (pair >= sections[0] + sections[1]).long())
+    idx = stream.expand(1, *cos.shape[1:])
+    return cos.gather(0, idx)[0], sin.gather(0, idx)[0]
+
+
 def apply_rope(x, cos, sin):
     """x (B, S, N, H); cos/sin (B, S, H/2).  Llama-style rotate-half."""
     dt = x.dtype
@@ -104,6 +128,92 @@ def sinusoidal_positions(positions, d_model: int):
         half, dtype=torch.float32, device=positions.device) / (half - 1))
     ang = positions[..., None].float() * freq
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# values shared by every layer of one step
+# --------------------------------------------------------------------------
+
+
+class StepValues(NamedTuple):
+    """What every attention layer of one forward would otherwise recompute:
+    the rotary cos/sin (None without rope) and, in decode, the rows
+    ``arange(B)``, each row's position as int64, the kernels' lengths
+    ``pos + 1`` (int32) and, with block tables, the block and the offset
+    that each row's new token is written to."""
+
+    cos: Any = None
+    sin: Any = None
+    rows: Any = None
+    pos: Any = None
+    lengths: Any = None
+    tables: Any = None
+    blk: Any = None
+    off: Any = None
+
+
+def step_values(cfg, positions, *, mrope_positions=None, rope_dim=None,
+                pos=None, tables=None, block_size: int = 0) -> StepValues:
+    """:class:`StepValues` of one step.  ``positions`` (B, S) drive plain
+    rope at ``rope_dim`` (default ``cfg.head_dim``), or M-RoPE when the
+    config has it and ``mrope_positions`` (3, B, S) are given.  Decode
+    passes ``pos`` (B,), and paged decode (or MLA's dense cache viewed as
+    a pool) its block ``tables`` (B, W) int32 over blocks of
+    ``block_size`` positions."""
+    cos = sin = None
+    if cfg.rope_theta:
+        dim = rope_dim or cfg.head_dim
+        if cfg.mrope and mrope_positions is not None:
+            cos, sin = mrope_cos_sin(mrope_positions, dim, cfg.rope_theta,
+                                     cfg.mrope_sections)
+        else:
+            cos, sin = rope_cos_sin(positions, dim, cfg.rope_theta)
+    if pos is None:
+        return StepValues(cos, sin)
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    pos_l = pos.long()
+    blk = off = None
+    if tables is not None:
+        blk = tables.long()[rows, pos_l // block_size]
+        off = pos_l % block_size
+    return StepValues(cos, sin, rows, pos_l, (pos + 1).to(torch.int32),
+                      tables, blk, off)
+
+
+def attention_step(cfg, positions, layer_cache=None,
+                   mrope_positions=None) -> StepValues:
+    """:func:`step_values` of a GQA layer against ``layer_cache`` (None,
+    dense or paged, as :func:`attention` takes it); every layer of the
+    step shares them."""
+    if layer_cache is None:
+        return step_values(cfg, positions, mrope_positions=mrope_positions)
+    if len(layer_cache) == 5:
+        return step_values(cfg, positions, mrope_positions=mrope_positions,
+                           pos=layer_cache[4], tables=layer_cache[3],
+                           block_size=layer_cache[0].shape[2])
+    return step_values(cfg, positions, mrope_positions=mrope_positions,
+                       pos=layer_cache[2])
+
+
+def mla_step(cfg, positions, layer_cache=None) -> StepValues:
+    """:func:`step_values` of an MLA layer against ``layer_cache`` (as
+    :func:`mla_attention` takes it): rope at ``qk_rope_head_dim`` and, in
+    decode, the slots of the latent pools -- or of the dense (B, Smax, r)
+    caches viewed as pools of gcd(Smax, DEFAULT_BLOCK_K) positions through
+    identity tables."""
+    pr = cfg.qk_rope_head_dim
+    if layer_cache is None:
+        return step_values(cfg, positions, rope_dim=pr)
+    if len(layer_cache) == 5:
+        return step_values(cfg, positions, rope_dim=pr, pos=layer_cache[4],
+                           tables=layer_cache[3],
+                           block_size=layer_cache[0].shape[2])
+    pos, smax = layer_cache[2], layer_cache[0].shape[1]
+    bk = math.gcd(smax, DEFAULT_BLOCK_K)
+    return step_values(cfg, positions, rope_dim=pr, pos=pos,
+                       tables=_identity_tables(pos.shape[0], smax, bk,
+                                               pos.device),
+                       block_size=bk)
 
 
 # --------------------------------------------------------------------------
@@ -128,8 +238,12 @@ def _project(x, w):
     return torch.matmul(x, w.reshape(d, n * h)).view(*x.shape[:-1], n, h)
 
 
-def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None):
-    """GQA attention.
+def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None,
+              mrope_positions=None, step: StepValues | None = None):
+    """GQA attention.  Rotary positions are ``positions`` (B, S), or
+    ``mrope_positions`` (3, B, S) for a config with M-RoPE; ``step`` holds
+    this step's shared values (:func:`step_values`), else they are computed
+    here.
 
     Training/prefill: ``layer_cache is None`` -> causal self-attention; if
     ``cache == 'build'`` also returns the (k, v) for cache construction.
@@ -147,10 +261,11 @@ def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None):
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
-    if cfg.rope_theta:  # else absolute positions were added at the embedding
-        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    if step is None:
+        step = attention_step(cfg, positions, layer_cache, mrope_positions)
+    if step.cos is not None:  # else absolute positions came at the embedding
+        q = apply_rope(q, step.cos, step.sin)
+        k = apply_rope(k, step.cos, step.sin)
 
     scale = 1.0 / math.sqrt(hd)
     if layer_cache is None:
@@ -160,25 +275,21 @@ def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None):
         # Rows never share a tail block (the paged KV manager copy-on-write
         # forks shared tails), so the scatter is row-disjoint; padding rows
         # duplicate row 0 and write identical values.
-        k_stack, v_stack, lidx, tables, pos = layer_cache
-        bs_blk = k_stack.shape[2]
-        pos_l = pos.long()
-        rows = torch.arange(b, device=x.device)
-        blk = tables.long()[rows, pos_l // bs_blk]
-        off = pos_l % bs_blk
-        k_stack[lidx].index_put_((blk, off), k[:, 0].to(k_stack.dtype))
-        v_stack[lidx].index_put_((blk, off), v[:, 0].to(v_stack.dtype))
+        k_stack, v_stack, lidx, tables, _ = layer_cache
+        k_stack[lidx].index_put_((step.blk, step.off),
+                                 k[:, 0].to(k_stack.dtype))
+        v_stack[lidx].index_put_((step.blk, step.off),
+                                 v[:, 0].to(v_stack.dtype))
         out = paged_decode_attention(q[:, 0], k_stack[lidx], v_stack[lidx],
-                                     tables, (pos + 1).to(torch.int32),
+                                     tables, step.lengths,
                                      scale=scale)[:, None]
         new_cache = (k_stack, v_stack)
     else:
-        k_cache, v_cache, pos = layer_cache  # (B, Smax, Nkv, H), pos (B,)
-        rows = torch.arange(b, device=x.device)
-        k_cache.index_put_((rows, pos.long()), k[:, 0].to(k_cache.dtype))
-        v_cache.index_put_((rows, pos.long()), v[:, 0].to(v_cache.dtype))
-        out = decode_attention(q[:, 0], k_cache, v_cache,
-                               (pos + 1).to(torch.int32), scale=scale)[:, None]
+        k_cache, v_cache, _ = layer_cache  # (B, Smax, Nkv, H), pos (B,)
+        k_cache.index_put_((step.rows, step.pos), k[:, 0].to(k_cache.dtype))
+        v_cache.index_put_((step.rows, step.pos), v[:, 0].to(v_cache.dtype))
+        out = decode_attention(q[:, 0], k_cache, v_cache, step.lengths,
+                               scale=scale)[:, None]
         new_cache = (k_cache, v_cache)
 
     nq = out.shape[2]
@@ -222,7 +333,7 @@ def _identity_tables(b: int, smax: int, bk: int, device):
 
 
 def mla_attention(cfg, p: Params, x, *, positions, cache=None,
-                  layer_cache=None):
+                  layer_cache=None, step: StepValues | None = None):
     """MLA: KV compressed to a ``kv_lora_rank`` latent plus one shared
     rotary key; the cache stores only (c_kv, k_rope).
 
@@ -235,7 +346,9 @@ def mla_attention(cfg, p: Params, x, *, positions, cache=None,
     (B, Smax, r) / (B, Smax, pr), viewed as a block pool with an identity
     table.  Both decode branches write the new row in place and run the
     absorbed formulation (queries projected into the latent space) on the
-    same kernel, so they do the same arithmetic per row.
+    same kernel, so they do the same arithmetic per row.  ``step`` holds
+    this step's shared values (:func:`mla_step`), else they are computed
+    here.
     """
     b, s, _ = x.shape
     n = cfg.num_heads
@@ -248,9 +361,10 @@ def mla_attention(cfg, p: Params, x, *, positions, cache=None,
     ckv_full = torch.matmul(x, p["w_dkv"])  # (B, S, r + pr)
     c_kv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
 
-    cos, sin = rope_cos_sin(positions, pr, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, cos, sin)
-    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    if step is None:
+        step = mla_step(cfg, positions, layer_cache)
+    q_rope = apply_rope(q_rope, step.cos, step.sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], step.cos, step.sin)[:, :, 0, :]
 
     if layer_cache is None:
         k_nope = _project(c_kv, p["w_uk"])
@@ -267,28 +381,24 @@ def mla_attention(cfg, p: Params, x, *, positions, cache=None,
         if len(layer_cache) == 5:
             # Rows never share a tail block (copy-on-write forks), so the
             # scatter is row-disjoint; padding rows duplicate row 0.
-            ckv_stack, krope_stack, lidx, tables, pos = layer_cache
+            ckv_stack, krope_stack, lidx = layer_cache[:3]
             ckv_pool, krope_pool = ckv_stack[lidx], krope_stack[lidx]
             new_cache = (ckv_stack, krope_stack)
         else:  # dense (B, Smax, ...) caches viewed as (B*Smax/bk, bk, ...)
-            ckv_cache, krope_cache, pos = layer_cache
+            ckv_cache, krope_cache, _ = layer_cache
             new_cache = (ckv_cache, krope_cache)
-            smax = ckv_cache.shape[1]
-            bk = math.gcd(smax, DEFAULT_BLOCK_K)
-            tables = _identity_tables(b, smax, bk, x.device)
+            bk = math.gcd(ckv_cache.shape[1], DEFAULT_BLOCK_K)
             ckv_pool = ckv_cache.view(-1, bk, r)
             krope_pool = krope_cache.view(-1, bk, pr)
-        bs_blk = ckv_pool.shape[1]
-        pos_l = pos.long()
-        blk = tables.long()[torch.arange(b, device=x.device), pos_l // bs_blk]
-        off = pos_l % bs_blk
-        ckv_pool.index_put_((blk, off), c_kv[:, 0].to(ckv_pool.dtype))
-        krope_pool.index_put_((blk, off), k_rope[:, 0].to(krope_pool.dtype))
+        ckv_pool.index_put_((step.blk, step.off),
+                            c_kv[:, 0].to(ckv_pool.dtype))
+        krope_pool.index_put_((step.blk, step.off),
+                              k_rope[:, 0].to(krope_pool.dtype))
         # absorbed decode: q_nope @ w_uk -> latent space, in x's dtype
         q_lat = _per_head(q_nope[:, 0], p["w_uk"].permute(2, 1, 0)).contiguous()
         o_lat = paged_mla_decode_attention(
-            q_lat, q_rope[:, 0].contiguous(), ckv_pool, krope_pool, tables,
-            (pos + 1).to(torch.int32), scale=scale)
+            q_lat, q_rope[:, 0].contiguous(), ckv_pool, krope_pool,
+            step.tables, step.lengths, scale=scale)
         out = _per_head(o_lat, p["w_uv"]).reshape(b, s, -1)
 
     out = torch.matmul(out, p["wo"].reshape(-1, p["wo"].shape[-1]))

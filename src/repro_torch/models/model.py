@@ -8,11 +8,10 @@
     param_count(cfg)                          -> analytical N (for rooflines)
 
 Counterpart of ``repro/models/model.py``.  The port has the dense GQA
-decoder, the MoE decoder (GQA or MLA attention, with dense prefix layers)
-and the pure-SSM (Mamba-2) stack in ``transformer``, the hybrid (Mamba-2 +
-shared attention) stack in ``hybrid`` and the whisper-style
-encoder-decoder in ``encdec``; the VLM stack raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+decoder, the MoE decoder (GQA or MLA attention, with dense prefix layers),
+the pure-SSM (Mamba-2) stack and the VLM backbone (M-RoPE, embedding
+inputs) in ``transformer``, the hybrid (Mamba-2 + shared attention) stack
+in ``hybrid`` and the whisper-style encoder-decoder in ``encdec``.
 """
 
 from __future__ import annotations
@@ -31,9 +30,6 @@ def _family_mod(cfg):
         return hybrid
     if cfg.family == "encdec":
         return encdec
-    if cfg.mrope or cfg.embed_inputs:
-        raise NotImplementedError("the VLM stack (M-RoPE, embedding inputs) "
-                                  "is ported in ROADMAP A9")
     return transformer
 
 
@@ -90,7 +86,8 @@ def paged_insert_views(cfg, prefill_cache) -> dict:
 
 
 def apply(cfg, params, batch, *, mode: str, cache=None):
-    """batch: 'tokens' (B,S), plus 'frames' (B,T_enc,D) for the enc-dec
+    """batch: 'tokens' (B,S) -- or 'embeds' (B,S,D) with 'mrope_positions'
+    (3,B,S) for the VLM stack -- plus 'frames' (B,T_enc,D) for the enc-dec
     stack's train and prefill, and the optional keys of its family's
     ``forward``."""
     return _family_mod(cfg).forward(cfg, params, batch, mode=mode, cache=cache)

@@ -124,12 +124,14 @@ def init_params(cfg, *, generator: torch.Generator, device=None):
 
 
 def block(cfg, p, x, *, positions, mode: str, layer_cache=None,
-          lengths=None):
+          lengths=None, mrope_positions=None, step=None):
     """One transformer block.  Returns (x, new_layer_cache, aux): aux is
     the MoE load-balance loss of a block with ``moe`` weights, else None.
     ``lengths`` (B,) are the true prompt lengths of a padded prefill; only
     the SSM prefill needs them (pad positions would otherwise enter its
-    state)."""
+    state).  ``mrope_positions`` (3, B, S) drive M-RoPE where the config
+    has it; ``step`` is the step's shared attention values
+    (``layers.StepValues``), computed by the attention when None."""
     kind = _mixer_kind(cfg)
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     if kind == "mamba":
@@ -140,10 +142,16 @@ def block(cfg, p, x, *, positions, mode: str, layer_cache=None,
             out, new_cache = S.mamba2_block(cfg, p["mamba"], h,
                                             layer_cache=layer_cache)
         return x + out, new_cache, None
-    attend = L.mla_attention if kind == "mla" else L.attention
-    out, new_cache = attend(
-        cfg, p["attn"], h, positions=positions,
-        cache="build" if mode == "prefill" else None, layer_cache=layer_cache)
+    cache_flag = "build" if mode == "prefill" else None
+    if kind == "mla":
+        out, new_cache = L.mla_attention(
+            cfg, p["attn"], h, positions=positions, cache=cache_flag,
+            layer_cache=layer_cache, step=step)
+    else:
+        out, new_cache = L.attention(
+            cfg, p["attn"], h, positions=positions, cache=cache_flag,
+            layer_cache=layer_cache, mrope_positions=mrope_positions,
+            step=step)
     x = x + out
     h = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
     if "moe" in p:
@@ -234,8 +242,8 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=None, *,
     engine passes them per decode call."""
     if not supports_paged(cfg):
         raise NotImplementedError(
-            f"paged decode cache of family {cache_family(cfg)!r} is not "
-            "ported yet (ROADMAP A9)")
+            f"paged decode cache unsupported for family={cfg.family!r} "
+            f"(cache family {cache_family(cfg)!r})")
     device = resolve_device(device)
     dt = _dtype(cfg, dtype)
     slabs = cache_family(cfg) == "ssm"
@@ -270,16 +278,27 @@ def embed_tokens(cfg, params, tokens):
 
 
 def unembed(cfg, params, x):
-    """fp32 logits (the reference accumulates and returns fp32)."""
+    """fp32 logits (the reference accumulates and returns fp32).  A bf16
+    ``x`` on the card takes one GEMM of the bf16 table with fp32
+    accumulation and output, as the reference's ``preferred_element_type``
+    does -- no fp32 copy of the table; CPU tensors (no such kernel there)
+    and fp32 cast to fp32 first, the same arithmetic."""
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if x.is_cuda and x.dtype != torch.float32:
+        b, s, d = x.shape
+        return torch.mm(x.reshape(b * s, d), table,
+                        out_dtype=torch.float32).view(b, s, -1)
     return torch.matmul(x.float(), table.float())
 
 
 def forward(cfg, params, batch, *, mode: str, cache=None):
     """batch: dict with 'tokens' (B,S) (or 'embeds' (B,S,D) for stacks that
-    take embeddings), optional 'lengths' (B,) true prompt lengths of a
-    padded prefill and 'max_seq' (the prefill cache's padded length).
-    Returns (logits, new_cache, aux_loss)."""
+    take embeddings), optional 'mrope_positions' (3,B,S) (M-RoPE; (3,B,1)
+    in decode), 'lengths' (B,) true prompt lengths of a padded prefill and
+    'max_seq' (the prefill cache's padded length).  Returns (logits,
+    new_cache, aux_loss).  The values every attention layer shares (rope,
+    each row's slot and length in decode) are computed once, at the first
+    attention layer, and passed to the others."""
     if cfg.embed_inputs and "embeds" in batch:
         x = batch["embeds"]
     else:
@@ -290,19 +309,22 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
         positions = cache["pos"][:, None]
     else:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    mrope_positions = batch.get("mrope_positions")
     if cfg.rope_theta == 0.0:  # absolute sinusoidal (whisper-style)
         x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
 
     paged = mode == "decode" and cache is not None and (
         "block_tables" in cache or "slab_ids" in cache)
     lengths = batch.get("lengths") if mode == "prefill" else None
-    mamba = _mixer_kind(cfg) == "mamba"
+    kind = _mixer_kind(cfg)
+    mamba = kind == "mamba"
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    step = None
 
     def run(p, x, key, li):
         """Block ``li`` of ``params[key]`` (the prefix list or the stack),
         against the cache entry of the same key in decode."""
-        nonlocal aux_total
+        nonlocal aux_total, step
         if paged and mamba:
             lc = (*cache[key], li, cache["slab_ids"])
         elif paged:  # gqa / mla block pools share the table indirection
@@ -313,8 +335,12 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
             lc = (*dense, cache["pos"])
         else:
             lc = None
+        if step is None and not mamba:
+            step = (L.mla_step(cfg, positions, lc) if kind == "mla" else
+                    L.attention_step(cfg, positions, lc, mrope_positions))
         x, c, aux = block(cfg, p, x, positions=positions, mode=mode,
-                          layer_cache=lc, lengths=lengths)
+                          layer_cache=lc, lengths=lengths,
+                          mrope_positions=mrope_positions, step=step)
         if aux is not None:
             aux_total = aux_total + aux
         return x, c

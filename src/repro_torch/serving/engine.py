@@ -30,13 +30,18 @@ How the reference's device mechanisms map onto PyTorch:
   * buffer donation becomes in-place updates: a server's block or slab
     pools are allocated once and every insert and decode step writes into
     them;
-  * there is no tracing, but the warm-cell discipline stays: ``precompile``
+  * ``jax.jit`` per cell becomes a CUDA graph per cell: ``precompile``
     runs every (rows, width) decode cell and (rows, bucket) prefill cell
-    once per server, and a cell first hit mid-traffic is bumped up to the
-    cheapest warm cell that covers it (widening is sound: extra width lanes
-    read the scratch block past each row's length, extra rows duplicate
-    row 0 and write identical values).  Slab-only families have no gather
-    width: their one width bucket is 0;
+    on each server, eagerly twice on the server's stream, then captures it
+    (``serving/graphs.py``; one graph memory pool per server); a call of a
+    warm cell copies its staged rows into the graph's static inputs and
+    replays it.  A cell first hit mid-traffic is bumped up to the cheapest
+    warm cell that covers it (widening is sound: extra width lanes read
+    the scratch block past each row's length, extra rows duplicate row 0
+    and write identical values); with no warm cover it runs eagerly and is
+    never captured mid-traffic.  On the CPU nothing is captured and every
+    cell runs eagerly.  Slab-only families have no gather width: their one
+    width bucket is 0;
   * the enc-dec frontend is a stub, as in the reference: every prefill
     encodes zero frames, so all of a server's streams share one
     cross-attention segment (the copy-on-write dedup case).
@@ -64,6 +69,7 @@ from repro_torch.core.dispatch.pool import ServerPool
 from repro_torch.core.task_model import GpuSegment, Task
 from repro_torch.models import model as M
 from repro_torch.runtime.straggler import DeadlineAwarePolicy
+from repro_torch.serving.graphs import GraphCell
 from repro_torch.serving.kvcache import FAMILIES, PagedKVCacheManager
 
 
@@ -83,16 +89,27 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def _clone(tree):
+    """Copy of every tensor of a (dicts, lists, tuples) tree."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone()
+
+
 @dataclass
 class PrecompileReport:
     """What one ``precompile()`` call did: ``compiled`` distinct cells
     warmed now, ``skipped`` reachable cells not run (already warm from an
-    earlier call, or filtered out by the traffic model)."""
+    earlier call, or filtered out by the traffic model), ``captured`` CUDA
+    graphs captured over all servers (0 on the CPU)."""
 
     compiled: int = 0
     skipped: int = 0
     decode_cells: tuple = ()
     prefill_cells: tuple = ()
+    captured: int = 0
 
 
 @dataclass
@@ -153,6 +170,10 @@ class _PagedState:
         self.scratch_seg = (scratch.segment if scratch.segment is not None
                             else 0)
         self.pools = None  # allocated once, on the server's thread
+        # ("decode", rows, width) / ("prefill", rows, bucket) -> GraphCell,
+        # captured by precompile on the card, all in one memory pool
+        self.graphs: dict[tuple, GraphCell] = {}
+        self.graph_pool = None
         # preallocated staging for the compacted decode batch, packed into
         # ONE int32 array so each step pays a single host->device copy:
         # row = [token, length, slab, segment, block_table...]
@@ -221,6 +242,8 @@ class ServeEngine:
         self._cuda_streams = ([torch.cuda.Stream(self.device)
                                for _ in range(num_servers)]
                               if self.device.type == "cuda" else None)
+        # warm cells become CUDA graphs on the card only
+        self._graphs = self.device.type == "cuda"
         # shape-bucket boundaries (tunable via tune_buckets()): batch rows
         # and prefill pad lengths default to the full pow2 ladder
         self._row_buckets = _pow2_ladder(max_batch)
@@ -273,19 +296,32 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
-    def _prefill(self, tokens: np.ndarray, lengths: np.ndarray | None = None):
-        """Prefill ``tokens`` (B, S) on the current device context; the
-        cache comes back padded to max_seq.  An enc-dec stack encodes zero
-        frames (B, encoder_seq, d_model) in the config's dtype: the audio
-        frontend is a stub."""
-        batch = {"tokens": self._tensor(tokens), "max_seq": self.max_seq}
+    def _prefill(self, tokens, lengths=None):
+        """Prefill ``tokens`` (B, S) (true ``lengths`` (B,) int32 of a
+        padded batch), numpy arrays or device tensors, on the current
+        device context; the cache comes back padded to max_seq.  An enc-dec
+        stack encodes zero frames (B, encoder_seq, d_model) in the config's
+        dtype: the audio frontend is a stub."""
+        if isinstance(tokens, np.ndarray):
+            tokens = self._tensor(tokens)
+        if isinstance(lengths, np.ndarray):
+            lengths = self._tensor(lengths)
+        batch = {"tokens": tokens, "max_seq": self.max_seq}
         if self.cfg.family == "encdec":
             batch["frames"] = torch.zeros(
                 (tokens.shape[0], self.cfg.encoder_seq, self.cfg.d_model),
                 dtype=getattr(torch, self.cfg.dtype), device=self.device)
         if lengths is not None:
-            batch["lengths"] = self._tensor(lengths)
+            batch["lengths"] = lengths
         return M.apply(self.cfg, self.params, batch, mode="prefill")
+
+    def _prefill_batch_impl(self, tokens: torch.Tensor,
+                            lengths: torch.Tensor):
+        """One bucketed prefill call: tokens (R, bucket), lengths (R,)
+        int32 -> (each row's last-token logits (R, V) fp32, the cache)."""
+        logits, cache, _ = self._prefill(tokens, lengths)
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        return logits[rows, lengths.long() - 1], cache
 
     # -- stream admission (analysis-driven, Eqs (1)-(6) per partition) -----
     def admit(self, spec: StreamSpec, *, cell=None):
@@ -477,20 +513,24 @@ class ServeEngine:
             for i in range(n, n_pad):  # idempotent padding rows
                 pack[i] = pack[0]
             staged = pack[:n_pad, : 4 + w]
+            graph = state.graphs.get(("decode", n_pad, w))
 
             def step():
-                logits = self._decode_paged_impl(self._tensor(staged),
-                                                 state.pools)
+                if graph is not None:
+                    logits = graph.replay(staged)
+                else:
+                    logits = self._decode_paged_impl(self._tensor(staged),
+                                                     state.pools)
                 return logits[:n, -1].cpu().numpy()
 
             t0 = time.monotonic()
             rows = self._on_device(si, step)
             dt = time.monotonic() - t0
-            if cold:  # now run: later hits on this cell are warm
-                self._warm_decode.add((n_pad, w))
+            self._ran_cold(self._warm_decode, cold, (n_pad, w))
             self.pool.servers[si].record_meta(
                 kind=self._decode_kind, rows=n, padded=n_pad, width=w,
-                compacted=n_pad < self.max_batch, seconds=dt, cold=cold)
+                compacted=n_pad < self.max_batch, seconds=dt, cold=cold,
+                graphed=graph is not None)
             return [rows[i] for i in range(n)]
 
         return run
@@ -545,7 +585,10 @@ class ServeEngine:
         """run_batch callable coalescing same-bucket prefills: payloads are
         (prompt_row, true_len); ONE device call prefills them all, padded to
         ``bucket``.  Each result is (last-token logits row, the coalesced
-        cache, this payload's row index) -- the caller inserts its row."""
+        cache, this payload's row index) -- the caller inserts its row in
+        a later call, so a replayed cell's cache is copied out of the
+        graph's static outputs first (another prefill of the same cell may
+        replay in between)."""
 
         def run(payloads):
             n = len(payloads)
@@ -570,23 +613,34 @@ class ServeEngine:
                 toks[i] = toks[0]
                 lens[i] = lens[0]
 
+            graph = self._paged[si].graphs.get(("prefill", n_pad, bucket))
+
             def prefill():
-                logits, cache, _ = self._prefill(toks, lens)
-                last = torch.as_tensor(lens[:n] - 1, device=self.device).long()
-                rows = logits[torch.arange(n, device=self.device), last]
-                return rows.cpu().numpy(), cache
+                if graph is not None:
+                    rows, cache = graph.replay(toks, lens)
+                    cache = _clone(cache)
+                else:
+                    rows, cache = self._prefill_batch_impl(
+                        self._tensor(toks), self._tensor(lens))
+                return rows[:n].cpu().numpy(), cache
 
             t0 = time.monotonic()
             rows, cache = self._on_device(si, prefill)
             dt = time.monotonic() - t0
-            if cold:
-                self._warm_prefill.add((n_pad, bucket))
+            self._ran_cold(self._warm_prefill, cold, (n_pad, bucket))
             self.pool.servers[si].record_meta(
                 kind=self._prefill_kind, rows=n, padded=n_pad, bucket=bucket,
-                seconds=dt, cold=cold)
+                seconds=dt, cold=cold, graphed=graph is not None)
             return [(rows[i], cache, i) for i in range(n)]
 
         return run
+
+    def _ran_cold(self, warm: set, cold: bool, cell: tuple) -> None:
+        """After a cold cell ran eagerly: on the CPU later hits count as
+        warm; on the card a warm cell is a captured one, and a cell is
+        never captured mid-traffic, so it stays cold."""
+        if cold and not self._graphs:
+            warm.add(cell)
 
     def precompile(self, prompt_buckets: tuple[int, ...] = (), *,
                    traffic=None) -> PrecompileReport:
@@ -594,8 +648,10 @@ class ServeEngine:
 
         Every reachable (rows, width) decode cell and each (rows, bucket)
         prefill cell of ``prompt_buckets`` (snapped up into
-        ``prefill_buckets``) runs once on every server, so its allocations,
-        library heuristics and the server's stream are warm.  ``traffic`` --
+        ``prefill_buckets``) runs on every server, so its allocations,
+        library heuristics and the server's stream are warm, and on the
+        card is then captured as a CUDA graph that the hot path replays
+        (a capture that fails raises).  ``traffic`` --
         a ``cost_model.TrafficModel`` or an iterable of CellKeys -- restricts
         the set to the predicted-hit cells PLUS, always, the largest cell on
         each phase: the target the hot path bumps cold cells up to.  Cells
@@ -623,8 +679,9 @@ class ServeEngine:
                   if hot is None or c == fb_p
                   or (self._prefill_kind, *c) in hot]
         todo_p = [c for c in plan_p if c not in self._warm_prefill]
+        captured = 0
         for si, server in enumerate(self.pool.servers):
-            server.submit(lambda si=si: self._precompile_server(
+            captured += server.submit(lambda si=si: self._precompile_server(
                 si, todo_d, todo_p), name=f"precompile-{si}").wait()
         self._warm_decode.update(todo_d)
         self._warm_prefill.update(todo_p)
@@ -632,10 +689,28 @@ class ServeEngine:
                    + (len(reachable_p) - len(todo_p)))
         return PrecompileReport(compiled=len(todo_d) + len(todo_p),
                                 skipped=skipped, decode_cells=tuple(todo_d),
-                                prefill_cells=tuple(todo_p))
+                                prefill_cells=tuple(todo_p),
+                                captured=captured)
 
-    def _precompile_server(self, si: int, decode_cells, prefill_cells):
+    def _precompile_server(self, si: int, decode_cells, prefill_cells) -> int:
+        """Warm the cells on server ``si`` and, on the card, capture each
+        one not captured yet; returns the number of graphs captured."""
         state = self._paged[si]
+        before = len(state.graphs)
+
+        def graph(key, fn, *arrays):
+            """Run ``fn`` once more, eagerly, on the server's stream, then
+            capture it on that stream into the server's graph pool."""
+            if not self._graphs or key in state.graphs:
+                return
+            inputs = [self._tensor(a) for a in arrays]
+            fn(*inputs)
+            if state.graph_pool is None:
+                state.graph_pool = torch.cuda.graph_pool_handle()
+            state.graphs[key] = GraphCell(fn, inputs, pool=state.graph_pool)
+
+        def decode(packed):
+            return self._decode_paged_impl(packed, state.pools)
 
         def warm():
             if state.pools is None:
@@ -649,14 +724,21 @@ class ServeEngine:
                 pack[:, 3] = state.scratch_seg
                 pack[:, 4:] = state.scratch_block
                 self._decode_paged_impl(self._tensor(pack), state.pools)
+                graph(("decode", rows, w), decode, pack)
             table = np.full((state.nb_max,), state.scratch_block, np.int32)
             for rows, bucket in prefill_cells:
-                _, cache, _ = self._prefill(np.zeros((rows, bucket), np.int32),
-                                            np.ones((rows,), np.int32))
+                toks = np.zeros((rows, bucket), np.int32)
+                lens = np.ones((rows,), np.int32)
+                _, cache = self._prefill_batch_impl(self._tensor(toks),
+                                                    self._tensor(lens))
                 self._insert_paged_impl(state.pools, cache, 0, table,
                                         state.scratch_slab, state.scratch_seg)
+                del cache
+                graph(("prefill", rows, bucket), self._prefill_batch_impl,
+                      toks, lens)
+            return len(state.graphs) - before
 
-        self._on_device(si, warm)
+        return self._on_device(si, warm)
 
     # -- generation ---------------------------------------------------------
     def generate(self, name: str, prompt: np.ndarray, *, steps: int,

@@ -12,6 +12,9 @@ D=2048, block 16; mamba2-780m: 48 SSM heads of P=64, N=128, conv_dim
 3328; deepseek-v2-lite-16b: 16 heads, latent R=512, rope PR=64, QK width
 192, V width 128; whisper-medium: 16/16 heads of 64, 1500 encoder frames);
 tolerances those of test_kernels.py (fp32 1e-5, bf16 2e-2, atol and rtol).
+The engines (and ``TestCudaGraphCells``, every warm cell a CUDA graph)
+run at reduced size in fp32, where replays must match eager runs bit for
+bit.
 """
 
 import pytest
@@ -966,5 +969,224 @@ def test_encdec_engine_on_the_card(cuda, monkeypatch):
         for name in ("rmsnorm", "flash_attention", "decode_attention",
                      "paged_decode_attention"):
             assert _build.launches[name] > 0, name
+    finally:
+        eng.close()
+
+
+GRAPH_FAMILIES = ["internlm2_1_8b", "deepseek_v2_lite_16b", "mamba2_780m",
+                  "zamba2_7b", "whisper_medium", "qwen2_vl_2b"]
+
+
+def _graph_engine(arch, device, **kw):
+    """A one-server paged engine at reduced size in fp32, its cells warmed
+    and captured for prefill bucket 8."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = M.init_params(cfg, generator=torch.Generator(device).manual_seed(0),
+                           device=device)
+    eng = ServeEngine(cfg, params, max_seq=32, batching=True, max_batch=2,
+                      paged=True, kv_block_size=8, device=device, **kw)
+    return eng, eng.precompile(prompt_buckets=(8,))
+
+
+def _decode_pack(state, rows, w):
+    """A decode cell's staged rows: tokens, lengths 5 and 9 (and on), slabs
+    1.., one shared segment 1, each row's own blocks 1.. in its table."""
+    import numpy as np
+
+    pack = np.zeros((rows, 4 + w), np.int32)
+    pack[:, 0] = np.arange(rows) * 5 + 3
+    pack[:, 1] = np.arange(rows) * 4 + 5
+    pack[:, 2] = np.arange(rows) + 1
+    pack[:, 3] = 1
+    if w:
+        pack[:, 4:] = 1 + np.arange(rows * w).reshape(rows, w)
+    return pack
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+class TestCudaGraphCells:
+    """Each warm cell as a CUDA graph (``serving/graphs.py``), at reduced
+    size in fp32 for every family: a replay gives its eager run's bits and
+    launches the same kernels, a prefill cell's outputs survive a second
+    replay of the cell, and a second ``precompile`` captures nothing."""
+
+    @pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+    def test_replay_equals_the_eager_call(self, cuda, arch):
+        import numpy as np
+
+        eng, rep = _graph_engine(arch, cuda)
+        try:
+            state = eng._paged[0]
+            assert rep.captured == len(state.graphs) == rep.compiled > 0
+            rows, w = max(rep.decode_cells)
+            cell = state.graphs[("decode", rows, w)]
+            pack = _decode_pack(state, rows, w)
+
+            # both start from the same pools: the step writes each row's
+            # new KV in place, and an SSM step advances its slab's state
+            pools = _leaves(state.pools)
+            saved = [t.clone() for t in pools]
+
+            def restore():
+                for t, s in zip(pools, saved):
+                    t.copy_(s)
+
+            def eager_decode():
+                restore()
+                return eng._decode_paged_impl(eng._tensor(pack),
+                                              state.pools).clone()
+
+            def replay_decode():
+                restore()
+                return cell.replay(pack).clone()
+
+            _build.reset_launches()
+            want = eng._on_device(0, eager_decode)
+            eager_launches = dict(_build.launches)
+            _build.reset_launches()
+            got = eng._on_device(0, replay_decode)
+            assert torch.equal(got, want)
+            assert dict(_build.launches) == eager_launches == dict(
+                cell.launches)
+
+            toks = np.random.default_rng(0).integers(
+                0, 128, (rows, 8)).astype(np.int32)
+            lens = np.array([8, 5][:rows], np.int32)
+            cell = state.graphs[("prefill", rows, 8)]
+            _build.reset_launches()
+            want = eng._on_device(0, lambda: eng._prefill_batch_impl(
+                eng._tensor(toks), eng._tensor(lens)))
+            eager_launches = dict(_build.launches)
+            _build.reset_launches()
+            got = eng._on_device(0, lambda: cell.replay(toks, lens))
+            for g, e in zip(_leaves(got), _leaves(want), strict=True):
+                assert torch.equal(g, e)
+            assert dict(_build.launches) == eager_launches == dict(
+                cell.launches)
+        finally:
+            eng.close()
+
+    @pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+    def test_prefill_outputs_survive_the_next_replay(self, cuda, arch):
+        """Two coalesced prefills of one cell, then another of the same
+        cell, and only then the inserts: the first call's cache was copied
+        out of the graph's static outputs, which the second replay
+        rewrote."""
+        import numpy as np
+
+        eng, _ = _graph_engine(arch, cuda)
+        try:
+            state = eng._paged[0]
+            cell = state.graphs[("prefill", 2, 8)]
+            run = eng._run_prefill_batch(0, 8)
+            rng = np.random.default_rng(1)
+            first = [(rng.integers(0, 128, n).astype(np.int32), n)
+                     for n in (8, 5)]
+            second = [(rng.integers(0, 128, n).astype(np.int32), n)
+                      for n in (7, 3)]
+            got = run(first)
+            run(second)
+            toks = np.zeros((2, 8), np.int32)
+            for i, (p, n) in enumerate(first):
+                toks[i, :n] = p
+            lens = np.array([8, 5], np.int32)
+            rows, cache = eng._on_device(0, lambda: eng._prefill_batch_impl(
+                eng._tensor(toks), eng._tensor(lens)))
+            for i in range(2):
+                assert np.array_equal(got[i][0], rows[i].cpu().numpy())
+            kept = got[0][1]
+            for g, e, s in zip(_leaves(kept), _leaves(cache),
+                               _leaves(cell.outputs[1]), strict=True):
+                assert torch.equal(g, e)
+            # the graph's own outputs now hold the second call's cache
+            assert not all(torch.equal(e, s) for e, s in zip(
+                _leaves(cache), _leaves(cell.outputs[1])))
+            for i in range(2):  # the inserts, last
+                eng._insert_slot_paged(0, kept, i, np.full(
+                    (state.nb_max,), state.scratch_block, np.int32),
+                    state.scratch_slab, state.scratch_seg)
+            assert all(m["graphed"] for s in eng.pool.servers
+                       for m in s.stats.batch_meta)
+        finally:
+            eng.close()
+
+    def test_second_precompile_captures_nothing(self, cuda):
+        eng, rep = _graph_engine("internlm2_1_8b", cuda)
+        try:
+            graphs = dict(eng._paged[0].graphs)
+            again = eng.precompile(prompt_buckets=(8,))
+            assert again.compiled == again.captured == 0
+            assert again.skipped == rep.compiled
+            assert eng._paged[0].graphs == graphs
+        finally:
+            eng.close()
+
+
+@pytest.mark.cuda
+def test_vlm_engine_on_the_card(cuda):
+    """qwen2-vl at reduced size on the card: the graphed batched engine
+    gives unbatched generate's fp32 tokens, every device call of the
+    traffic replays a graph, nothing leaks, and the kernels' launches over
+    the traffic are the replayed cells' captured counts."""
+    import threading
+    from collections import Counter
+
+    import numpy as np
+
+    from repro_torch.serving.engine import ServeEngine, StreamSpec
+
+    eng, _ = _graph_engine("qwen2_vl_2b", cuda)
+    cfg, params = eng.cfg, eng.params
+    eng.close()
+    prompts = {f"v{i}": (np.arange(1, n + 1, dtype=np.int32)[None] * 5) % 128
+               for i, n in enumerate([3, 5, 9, 17])}
+    spec = lambda n, p: StreamSpec(name=n, priority=p, period_ms=8000.0,
+                                   deadline_ms=8000.0, prefill_ms=50.0,
+                                   decode_ms=5.0, decode_steps=6)
+    ref = ServeEngine(cfg, params, max_seq=32, device=cuda)
+    want = {}
+    for i, n in enumerate(prompts):
+        assert ref.admit(spec(n, 4 - i)).admitted
+        want[n] = ref.generate(n, prompts[n], steps=6).tokens
+    ref.close()
+    eng = ServeEngine(cfg, params, max_seq=32, num_servers=2, batching=True,
+                      max_batch=4, paged=True, kv_block_size=8, device=cuda)
+    try:
+        eng.precompile(prompt_buckets=(4, 8, 16, 32))
+        _build.reset_launches()
+        for i, n in enumerate(prompts):
+            assert eng.admit(spec(n, 4 - i)).admitted
+        got = {}
+        threads = [threading.Thread(
+            target=lambda n=n: got.__setitem__(n, eng.generate(
+                n, prompts[n], steps=6))) for n in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert {n: r.tokens for n, r in got.items()} == want
+        assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
+        expected = Counter()
+        for si, server in enumerate(eng.pool.servers):
+            for m in server.stats.batch_meta:
+                assert m["graphed"] and not m["cold"], m
+                key = (m["kind"], m["padded"], m.get("width", m.get("bucket")))
+                expected.update(eng._paged[si].graphs[key].launches)
+        assert Counter(_build.launches) == expected
+        assert expected["paged_decode_attention"] > 0
     finally:
         eng.close()

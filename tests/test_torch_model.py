@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCH_IDS
 from repro.configs.registry import get_config as jax_config
 from repro.models import model as JM
 from repro_torch.configs.registry import get_config
@@ -165,11 +166,21 @@ def test_param_count_and_native_init(setup):
         jax_config("internlm2_1_8b"))
 
 
-@pytest.mark.parametrize("arch,item", [("qwen2_vl_2b", "A9")])
-def test_other_families_name_their_roadmap_item(arch, item):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TM.init_params(cfg, generator=torch.Generator(), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_family_inits_the_reference_tree(arch):
+    """Every registry entry, reduced: the port's native init builds the
+    reference's tree (keys, shapes) and its analytical parameter count,
+    and holds that many parameters."""
+    jcfg, tcfg = jax_config(arch).reduced(), get_config(arch).reduced()
+    jshapes = jax.eval_shape(lambda: JM.init_params(jcfg,
+                                                    jax.random.PRNGKey(0)))
+    tp = TM.init_params(tcfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    leaves = jax.tree.leaves(tp)  # dicts, lists and tuples of tensors
+    assert (jax.tree.map(lambda a: a.shape, jshapes)
+            == jax.tree.map(lambda t: tuple(t.shape), tp))
+    assert TM.param_count(tcfg) == JM.param_count(jcfg) == sum(
+        t.numel() for t in leaves)
 
 
 def test_cache_layouts_match(setup):
