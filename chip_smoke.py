@@ -110,13 +110,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
    forward;
 5f. VLM path, bf16: the same traffic, timed, and a profile of one decode
    step, eager and graphed (``chiprun_out/vlm_decode_step_profile.txt``);
-6. launch counts of every kernel over phases 4-5f (each must be
-   non-zero), then one JSON line describing every kernel;
+7. the engine's stream recovery, live migration, elastic pool and
+   masked-dense layout, inside the phases above (every run graphed, its
+   launches held to the cells' counts):
+   7a. recovery, internlm2-1.8b, 2 servers with fault tolerance on: the
+       server of two streams dies at its FAULT_AT_CALL-th call, then (a
+       second engine) stalls for STALL_S and the 1 s heartbeat must evict
+       it first; in fp32 every stream's tokens equal unbatched
+       ``generate``'s, one degraded report per death, nothing leaks and
+       every survivor call replays; in bf16 (and fp32) the detection time
+       (fault to eviction), the resume latency (fault to the first resumed
+       token), the re-prefill calls' ms and bucket against the recovery
+       segment ``_recovery_cost_ms`` priced, and the memory the dead
+       server keeps;
+   7b. migration, in every family's fp32 phase: stream s1 moves to the
+       other server after MIGRATE_AFTER decode calls of its own; tokens
+       equal unbatched, both sides of the copy replayed, nothing leaks,
+       and the enc-dec stream joins the destination's resident segment;
+       export and import call ms, bytes moved beside the bytes / 3.35 TB/s
+       bound, and the host hop's share;
+   7c. elasticity, internlm2-1.8b bf16: work stealing with every stream
+       pinned on server 0, ``consolidate(1)`` and ``remove_server(1)``
+       mid-traffic, ``add_server()`` mid-traffic (capture count and
+       seconds, device memory around it; every later call of the new
+       server a replay), ``ElasticPoolController.scale_to`` 3 then 1
+       mid-traffic; nothing leaks;
+   7d. masked-dense (``batching=True, paged=False``, every decode call
+       all 4 slot rows), in every family's fp32 phase: tokens equal
+       unbatched, and the slot rows no stream held keep their bits across
+       every masked step; internlm2-1.8b bf16 beside phase 5's paged run
+       on the same traffic (client step p50/p99, tokens/s, decode
+       launches per call);
+8. launch counts of every kernel over phases 4-7 (each must be non-zero),
+   then one JSON line describing every kernel;
 
 Every phase 4-5f serves graphed (phase 5 also eagerly), checks its
 launches against the cells' counts, profiles its decode step both ways
 and prints its peak device memory.
-7. last line: ``{"ok": true, "device": {...}}``.
+9. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-from TREE
 
@@ -1357,18 +1388,70 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None):
-    """4 streams on 2 servers through the paged batched engine.  With
-    ``graphs``, ``precompile`` warms and captures every cell first and
-    every device call of the traffic must replay a graph; without it no
-    cell is warm and every call runs eagerly (the same buckets).  The run
-    carries each cell's launches per call (``cells``: the captured counts,
-    or those of an earlier graphed run of the same model)."""
+def captured_cells(eng, rep) -> dict:
+    """Each warm cell's launches per call, the same on every server;
+    every server captured every cell (a migration width is two graphs,
+    its gather and its scatter)."""
+    states = eng._paged if eng.paged else eng._slots
+    cells = {}
+    for st in states:
+        for key, cell in st.graphs.items():
+            if cells.setdefault(key, cell.launches) != cell.launches:
+                raise SmokeFailure(f"cell {key} launches differ between "
+                                   "servers")
+    want = len(states) * (rep.compiled + len(rep.migrate_cells))
+    if rep.captured != want:
+        raise SmokeFailure(f"precompile warmed {rep.compiled} cells "
+                           f"({len(rep.migrate_cells)} migration widths) but "
+                           f"captured {rep.captured} graphs, want {want}")
+    return cells
+
+
+def run_streams(eng, prompts, *, during=None, timeout=900):
+    """Every stream's job on its own thread; ``during(eng)`` runs on this
+    thread while they do.  Returns (results, what ``during`` returned,
+    wall seconds); a stream's error is raised here."""
+    results, errors = {}, []
+
+    def worker(name):
+        try:
+            results[name] = eng.generate(name, prompts[name], steps=STEPS)
+        except BaseException as e:  # surfaced below, never swallowed
+            errors.append(e)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=worker, args=(n,)) for n in prompts]
+    for t in threads:
+        t.start()
+    try:
+        seen = during(eng) if during is not None else None
+    finally:
+        for t in threads:
+            t.join(timeout=timeout)
+    wall_s = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise SmokeFailure("a stream did not finish")
+    return results, seen, wall_s
+
+
+def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None,
+                  paged=True, during=None, probe=None):
+    """4 streams on 2 servers through the batched engine, paged or
+    masked-dense.  With ``graphs``, ``precompile`` warms and captures every
+    cell first and every device call of the traffic must replay a graph;
+    without it no cell is warm and every call runs eagerly (the same
+    buckets).  The run carries each cell's launches per call (``cells``:
+    the captured counts, or those of an earlier graphed run of the same
+    model).  ``during(eng)`` runs while the streams do (its result is
+    ``run["during"]``); ``probe(eng)``, called before the traffic, returns a
+    check that runs after it (its result is ``run["probe"]``)."""
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import PrecompileReport, ServeEngine
 
     eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, num_servers=2,
-                      batching=True, max_batch=4, paged=True,
+                      batching=True, max_batch=4, paged=paged,
                       kv_block_size=BLOCK, device=dev)
     try:
         t0 = time.monotonic()
@@ -1376,15 +1459,7 @@ def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None):
                else PrecompileReport())
         warm_s = time.monotonic() - t0
         if graphs:
-            cells = {}
-            for st in eng._paged:
-                for key, cell in st.graphs.items():
-                    if cells.setdefault(key, cell.launches) != cell.launches:
-                        raise SmokeFailure(f"cell {key} launches differ "
-                                           "between servers")
-            if rep.captured != len(eng._paged) * rep.compiled:
-                raise SmokeFailure(f"precompile warmed {rep.compiled} cells "
-                                   f"but captured {rep.captured} graphs")
+            cells = captured_cells(eng, rep)
         # segments each server holds, read after every reservation (the
         # only place one is taken): the peak while the streams ran
         segments = [0] * len(eng._paged)
@@ -1400,31 +1475,14 @@ def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None):
             return out
 
         eng._paged_reserve = reserve_and_count
+        after = probe(eng) if probe is not None else None
         _build.reset_launches()  # count the traffic's launches, not warm-up's
         for i, name in enumerate(prompts):
             if not eng.admit(_spec(name, len(prompts) - i)).admitted:
                 raise SmokeFailure(f"stream {name} not admitted")
         servers = {eng.pool.server_of(n) for n in prompts}
-        results, errors = {}, []
-
-        def worker(name):
-            try:
-                results[name] = eng.generate(name, prompts[name], steps=STEPS)
-            except BaseException as e:  # surfaced below, never swallowed
-                errors.append(e)
-
-        t0 = time.monotonic()
-        threads = [threading.Thread(target=worker, args=(n,)) for n in prompts]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall_s = time.monotonic() - t0
+        results, seen, wall_s = run_streams(eng, prompts, during=during)
         launches = dict(_build.launches)
-        if errors:
-            raise errors[0]
-        if any(t.is_alive() for t in threads):
-            raise SmokeFailure("a stream did not finish")
         usage = eng.kv_usage()
         meta = [m for s in eng.pool.servers for m in s.stats.batch_meta]
         eager = [m for m in meta if m["graphed"] != graphs]
@@ -1438,12 +1496,18 @@ def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None):
                     segments_peak=segments, wall_s=wall_s, warm_s=warm_s,
                     precompile=rep, graphs=graphs, cells=cells,
                     launches=launches, decode_calls=calls,
-                    prefill_calls=prefills, kinds={m["kind"] for m in meta})
+                    prefill_calls=prefills, during=seen,
+                    migrations=[m for m in meta
+                                if m["kind"] == eng._migrate_kind],
+                    probe=after() if after is not None else None,
+                    slots_free=[len(st.free) for st in eng._slots],
+                    kinds={m["kind"] for m in meta})
     finally:
         eng.close()
-        # the counting wrapper refers to the engine: drop it, or the cycle
-        # keeps the engine (and the weights it holds) alive on the card
-        vars(eng).pop("_paged_reserve", None)
+        # the wrappers refer to the engine: drop them, or the cycle keeps
+        # the engine (and the weights it holds) alive on the card
+        for attr in ("_paged_reserve", "_execute_migration", "_acquire_slot"):
+            vars(eng).pop(attr, None)
 
 
 def serve_unbatched(cfg, params, prompts, dev):
@@ -1475,6 +1539,9 @@ def check_outputs(tag, run, prompts):
         raise SmokeFailure(f"streams used servers {run['servers']}, not both")
     if any(run["usage"].values()):
         raise SmokeFailure(f"leaked KV resources: {run['usage']}")
+    if any(n != 4 for n in run["slots_free"]):
+        raise SmokeFailure(f"{tag}: free slots per server {run['slots_free']}"
+                           ", want all 4")
     check_cell_launches(tag, run)
 
 
@@ -1534,8 +1601,11 @@ def print_peak(tag, dev, card) -> None:
 
 
 def check_kinds(tag, run, family_tag) -> None:
-    """Only the family's prefill and decode calls ran, and some decoded."""
+    """Only the family's prefill and decode calls ran (and its migration
+    calls, in a run that moved a stream), and some decoded."""
     want = {"prefill" + family_tag, "decode" + family_tag}
+    if run["migrations"]:  # phase 7b's move
+        want.add("migrate" + family_tag)
     if run["kinds"] != want or not run["decode_calls"]:
         raise SmokeFailure(f"{tag}: calls recorded as {sorted(run['kinds'])},"
                            f" want {sorted(want)}")
@@ -1543,41 +1613,50 @@ def check_kinds(tag, run, family_tag) -> None:
 
 def fp32_phase(tag, cfg, prompts, dev, card, *, family_tag, check=None,
                extra=None):
-    """Phases 4-4f: ``cfg`` in fp32, served graphed; the batched greedy
-    tokens must equal unbatched ``generate``'s, every call replay a graph
-    and the launches match the cells' counts.  ``check(tag, run)`` adds the
-    family's own checks, ``extra(cfg, params)`` a model-level one.
-    Returns the launch counts of both runs."""
+    """Phases 4-4f with 7b and 7d: ``cfg`` in fp32, served graphed, one
+    stream migrating mid-decode (phase 7b); the batched greedy tokens must
+    equal unbatched ``generate``'s, every call replay a graph and the
+    launches match the cells' counts; then the masked-dense layout on the
+    same traffic (phase 7d).  ``check(tag, run)`` adds the family's own
+    checks, ``extra(cfg, params, ref)`` a model-level one (its launches,
+    a Counter or None, are counted).  Returns the launch counts of every
+    run."""
     torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(cfg, dev, tag)
-    run = serve_batched(cfg, params, prompts, dev)
+    run = serve_batched(cfg, params, prompts, dev, during=migrate_mid_decode)
     ref, ref_launches = serve_unbatched(cfg, params, prompts, dev)
     check_outputs(tag, run, prompts)
     check_kinds(tag, run, family_tag)
     if check is not None:
         check(tag, run)
     check_tokens(tag, run, ref, prompts)
+    report_migration(tag, run, card)
     print(f"{tag}: max |batched - unbatched| first-step logit "
           f"{first_logits_gap(cfg, params, prompts, dev):.3e} "
           f"(information only)")
-    if extra is not None:
-        extra(cfg, params)
     report_latency(tag, run, card)
-    print_peak(tag, dev, card)
     counts = Counter(run["launches"]) + Counter(ref_launches)
-    del params, run, ref
+    del run
+    free_card()
+    counts += masked_dense_fp32(f"{tag} masked-dense", cfg, params, prompts,
+                                dev, ref)
+    if extra is not None:
+        counts += extra(cfg, params, ref) or Counter()
+    print_peak(tag, dev, card)
+    del params, ref
     free_card()
     return counts
 
 
 def bf16_phase(tag, cfg, prompts, dev, card, *, family_tag, profile,
-               prefill_file=None, check=None, eager=False):
+               prefill_file=None, check=None, eager=False, extra=None):
     """Phases 5-5f: ``cfg`` in bf16 (the config's dtype), served graphed
     and timed -- with ``eager`` also served again with no cell warm, every
     call eager -- then one decode step profiled eagerly and as a replayed
     graph (``chiprun_out/<profile>``), where the decode call's time goes,
-    and with ``prefill_file`` one prefill call profiled.  Returns the launch
-    counts."""
+    and with ``prefill_file`` one prefill call profiled;
+    ``extra(cfg, params, runs)`` adds runs of its own (their launches, a
+    Counter, are counted).  Returns the launch counts."""
     torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(cfg, dev, tag)
     runs = {"graphed": serve_batched(cfg, params, prompts, dev)}
@@ -1592,7 +1671,6 @@ def bf16_phase(tag, cfg, prompts, dev, card, *, family_tag, profile,
         if check is not None:
             check(f"{tag} {mode}", run)
         report_latency(f"{tag} {mode}", run, card)
-    print_peak(tag, dev, card)
     for name, res in runs["graphed"]["results"].items():
         print(f"{tag} {name} tokens (information only): {res.tokens}")
     prof = step_profile(cfg, params, dev, card, f"{tag} step profile",
@@ -1602,6 +1680,9 @@ def bf16_phase(tag, cfg, prompts, dev, card, *, family_tag, profile,
     if prefill_file is not None:
         prefill_profile(cfg, params, dev, card, f"{tag} prefill profile",
                         prefill_file)
+    if extra is not None:
+        counts += extra(cfg, params, runs)
+    print_peak(tag, dev, card)
     del params, runs
     free_card()
     return counts
@@ -1614,10 +1695,15 @@ def gqa_path(dev, card):
 
     base = get_config("internlm2_1_8b")
     prompts = _prompts(base.vocab_size)
-    counts = fp32_phase("main fp32", dataclasses.replace(base, dtype="float32"),
-                        prompts, dev, card, family_tag="")
+    counts = fp32_phase(
+        "main fp32", dataclasses.replace(base, dtype="float32"), prompts,
+        dev, card, family_tag="",
+        extra=lambda cfg, params, ref: recovery_fp32(
+            "recovery fp32", cfg, params, prompts, dev, card, ref))
     counts += bf16_phase("main bf16", base, prompts, dev, card, family_tag="",
-                         profile="decode_step_profile.txt", eager=True)
+                         profile="decode_step_profile.txt", eager=True,
+                         extra=lambda cfg, params, runs: gqa_bf16_phase7(
+                             cfg, params, prompts, dev, card, runs))
     return counts
 
 
@@ -1807,10 +1893,467 @@ def vlm_path(dev, card):
     prompts = _prompts(base.vocab_size)
     counts = fp32_phase("vlm fp32", dataclasses.replace(base, dtype="float32"),
                         prompts, dev, card, family_tag="",
-                        extra=lambda cfg, params: mrope_teacher_forced(
+                        extra=lambda cfg, params, ref: mrope_teacher_forced(
                             cfg, params, dev))
     counts += bf16_phase("vlm bf16", base, prompts, dev, card, family_tag="",
                          profile="vlm_decode_step_profile.txt")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: stream recovery, live migration, elasticity, masked-dense
+# ---------------------------------------------------------------------------
+
+MIGRANT = "s1"            # the stream phase 7b moves (prompt 40)
+MIGRATE_AFTER = 8         # decode calls its server makes before the move
+FT_TIMEOUT_S = 1.0        # heartbeat timeout of the stall runs
+STALL_S = 5.0             # the injected stall (5 heartbeat timeouts)
+FAULT_AT_CALL = 20        # the victim server's call that faults (mid-decode)
+
+
+def wait_for(cond, what, timeout=300.0, poll=0.002):
+    t_end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > t_end:
+            raise SmokeFailure(f"timed out waiting for {what}")
+        time.sleep(poll)
+
+
+def migrate_mid_decode(eng):
+    """Phase 7b, run while the traffic does: once the server of stream
+    MIGRANT has made MIGRATE_AFTER decode calls, admission moves the stream
+    to the other server and the pool records the intent; its own thread
+    then moves its live cache at the next step boundary.  Returns what the
+    move found on the destination: resident segments before and after it,
+    and the refcount of the segment the stream got there."""
+    src = eng.pool.server_of(MIGRANT)
+    dst = 1 - src
+    server = eng.pool.servers[src]
+    wait_for(lambda: sum(m["kind"] == eng._decode_kind
+                         for m in server.stats.batch_meta) >= MIGRATE_AFTER,
+             f"{MIGRATE_AFTER} decode calls on server {src}")
+    seen = dict(src=src, dst=dst)
+    real = eng._execute_migration
+    st = eng._paged[dst]
+
+    def held():
+        with st.lock:
+            return st.mgr.segments_in_use - (
+                st.mgr.seqs["__scratch__"].segment is not None)
+
+    def traced(name, seq_id, src_si, dst_si, prio):
+        if "segment" not in eng._cache_kinds:
+            return real(name, seq_id, src_si, dst_si, prio)
+        seen["segments_before"] = held()
+        out = real(name, seq_id, src_si, dst_si, prio)
+        seen["segments_after"] = held()
+        with st.lock:
+            seen["segment_refs"] = st.mgr.segment_refcount[out[2]]
+        return out
+
+    eng._execute_migration = traced
+    _, d = eng.admission.migrate(MIGRANT, dst)
+    if d != dst or not eng.pool.request_migration(MIGRANT, dst):
+        raise SmokeFailure(f"migration of {MIGRANT} to server {dst} refused")
+    wait_for(lambda: eng.migrations_completed >= 1, "the migration")
+    return seen
+
+
+def report_migration(tag, run, card):
+    """Phase 7b's bars and numbers: exactly one migration, both sides
+    replayed, the stream on its destination; export and import call ms,
+    bytes moved against the bytes / HBM bound, the host hop's share; for
+    a family with segments, the stream joined the destination's resident
+    segment."""
+    seen = run["during"]
+    sides = {m["side"]: m for m in run["migrations"]}
+    if len(run["migrations"]) != 2 or set(sides) != {"export", "import"}:
+        raise SmokeFailure(f"{tag}: migration calls {run['migrations']}, "
+                           "want one export and one import")
+    exp, imp = sides["export"], sides["import"]
+    if not (exp["graphed"] and imp["graphed"]):
+        raise SmokeFailure(f"{tag}: a migration call ran eagerly")
+    mb = exp["nbytes"] / 1e6
+    bound = exp["nbytes"] / HBM_BYTES_S * 1e3
+    hop = exp["hop_seconds"] + imp["hop_seconds"]
+    total = exp["seconds"] + imp["seconds"]
+    print(f"{tag} migration [{card}]: {MIGRANT} server {seen['src']} -> "
+          f"{seen['dst']} after {MIGRATE_AFTER} decode calls, {exp['rows']} "
+          f"blocks in a width-{exp['padded']} cell, {mb:.3f} MB moved; "
+          f"export {exp['seconds'] * 1e3:.3f} ms (device-to-host copy "
+          f"{exp['hop_seconds'] * 1e3:.3f} ms), import "
+          f"{imp['seconds'] * 1e3:.3f} ms (host-to-device copy "
+          f"{imp['hop_seconds'] * 1e3:.3f} ms); bound {bound:.4f} ms per side"
+          f" (bytes / 3.35 TB/s); host hop {hop / total:.3f} of the two "
+          f"calls; tokens == unmigrated unbatched (checked above)")
+    if "segment_refs" in seen and seen["segments_before"]:
+        joined = (seen["segments_after"] == seen["segments_before"]
+                  and seen["segment_refs"] >= 2)
+        print(f"{tag} migration: destination held {seen['segments_before']} "
+              f"segment(s) before, {seen['segments_after']} after, the "
+              f"stream's segment refcount {seen['segment_refs']}: "
+              f"{'joined the resident key' if joined else 'NOT joined'}")
+        if not joined:
+            raise SmokeFailure(f"{tag}: the migrated stream did not join the "
+                               "destination's resident segment")
+
+
+def inactive_rows_probe(eng):
+    """Phase 7d: before the traffic, copy rows 0 and 1 of every server's
+    slot cache (each leaf and ``pos``; precompile's warm-up inserted into
+    row 0) and record every slot a stream acquires; after it, every copied
+    row no stream held must be bit for bit as it was, across every masked
+    step.  Returns the check, which returns the rows it held."""
+    from repro_torch.serving.engine import _cache_leaves
+
+    rows = (0, 1)
+    saved, used = {}, set()
+    acquire = eng._acquire_slot
+
+    def recorded(si):
+        slot = acquire(si)
+        used.add((si, slot))
+        return slot
+
+    eng._acquire_slot = recorded
+    for si, st in enumerate(eng._slots):
+        leaves = [*_cache_leaves(st.cache), st.cache["pos"]]
+        axes = [a for a, _, _ in eng._batch_axes] + [0]
+        saved[si] = [(leaf, ax, {r: leaf.select(ax, r).clone()
+                                 for r in rows})
+                     for leaf, ax in zip(leaves, axes)]
+
+    def check():
+        held = 0
+        for si, leaves in saved.items():
+            for r in rows:
+                if (si, r) in used:
+                    continue
+                for leaf, ax, before in leaves:
+                    if not torch.equal(leaf.select(ax, r), before[r]):
+                        raise SmokeFailure(f"masked-dense: server {si}'s "
+                                           f"inactive slot {r} changed")
+                held += 1
+        if not held:
+            raise SmokeFailure("masked-dense: every probed slot was used")
+        return held
+
+    return check
+
+
+def masked_dense_fp32(tag, cfg, params, prompts, dev, ref):
+    """Phase 7d in fp32: the same traffic through ``batching=True,
+    paged=False`` (every decode call all 4 slot rows, graphed): tokens must
+    equal unbatched ``generate``'s, every call replay, nothing leak, and
+    the inactive slots keep their bits.  Returns the launch counts."""
+    run = serve_batched(cfg, params, prompts, dev, paged=False,
+                        probe=inactive_rows_probe)
+    check_outputs(tag, run, prompts)
+    if any(m["padded"] != 4 for m in run["decode_calls"]):
+        raise SmokeFailure(f"{tag}: a masked decode call ran fewer rows")
+    check_tokens(tag, run, ref, prompts)
+    print(f"{tag}: {run['probe']} inactive slot rows unchanged bit for bit "
+          f"across {len(run['decode_calls'])} masked decode calls")
+    counts = Counter(run["launches"])
+    del run
+    free_card()
+    return counts
+
+
+def serve_with_fault(cfg, params, prompts, dev, kind):
+    """Phase 7a: the traffic on 2 graphed servers with fault tolerance on,
+    the server of stream s0 faulting at its FAULT_AT_CALL-th call --
+    ``die`` (heartbeat FT_TIMEOUT_S * 30) or a ``stall`` of STALL_S that
+    the heartbeat (FT_TIMEOUT_S) must detect.  Every server is woken by a
+    first call before the fault is armed.  Returns the run, with the death
+    timed where it was handled."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.faultinject import FaultInjector, ServerFault
+    from repro_torch.serving.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, num_servers=2,
+                      batching=True, max_batch=4, paged=True,
+                      kv_block_size=BLOCK, device=dev)
+    try:
+        rep = eng.precompile(prompt_buckets=BUCKETS)
+        cells = captured_cells(eng, rep)
+        deaths = []
+        handle = eng._on_server_death
+
+        def timed(si, displaced=None):
+            n, at = len(eng.degraded_reports), time.monotonic()
+            seen = [len(s.stats.batch_meta) for s in eng.pool.servers]
+            handle(si, displaced)
+            if len(eng.degraded_reports) > n:
+                deaths.append(dict(si=si, at=at, meta=seen,
+                                   done=time.monotonic()))
+
+        eng._on_server_death = timed
+        timeout = FT_TIMEOUT_S if kind == "stall" else 30 * FT_TIMEOUT_S
+        eng.enable_fault_tolerance(heartbeat_timeout_s=timeout)
+        for s in eng.pool.servers:  # an idle server beats once woken
+            s.submit(lambda: None).wait(60)
+        for i, name in enumerate(prompts):
+            if not eng.admit(_spec(name, len(prompts) - i)).admitted:
+                raise SmokeFailure(f"stream {name} not admitted")
+        victim = eng.pool.server_of("s0")
+        inj = FaultInjector([ServerFault(server=victim, at_call=FAULT_AT_CALL,
+                                         kind=kind, delay_s=STALL_S)])
+        eng.pool.attach_fault_injector(inj)
+        _build.reset_launches()
+        results, _, wall_s = run_streams(eng, prompts)
+        launches = dict(_build.launches)
+        survivor = 1 - victim
+        meta = eng.pool.servers[survivor].stats.batch_meta
+        dead = eng._paged[victim]
+        kept = sum(t.numel() * t.element_size()
+                   for v in dead.pools.values() for t in v)
+        return dict(results=results, victim=victim, survivor=survivor,
+                    deaths=deaths, events=list(inj.events),
+                    reports=list(eng.degraded_reports),
+                    alive=eng.pool.alive_servers(), usage=eng.kv_usage(),
+                    meta=list(meta), cells=cells, launches=launches,
+                    wall_s=wall_s, kept_bytes=kept,
+                    kept_graphs=len(dead.graphs), graphs=True,
+                    decode_calls=[m for s in eng.pool.servers
+                                  for m in s.stats.batch_meta
+                                  if m["kind"] == "decode"],
+                    prefill_calls=[m for s in eng.pool.servers
+                                   for m in s.stats.batch_meta
+                                   if m["kind"] == "prefill"],
+                    slots_free=len(eng._slots[survivor].free))
+    finally:
+        eng.close()
+        vars(eng).pop("_on_server_death", None)
+
+
+def report_recovery(tag, run, card, ref=None):
+    """Phase 7a's bars -- one death handled once, the victim's streams
+    recovered, nothing leaked, every survivor call a replay, the launches
+    adding up, and (with ``ref``, fp32) every stream's tokens equal to
+    unbatched ``generate``'s -- then detection, resume and the re-prefill
+    call against its priced recovery segment."""
+    if len(run["deaths"]) != 1 or len(run["reports"]) != 1:
+        raise SmokeFailure(f"{tag}: {len(run['reports'])} degraded reports, "
+                           "want one")
+    if run["alive"] != [run["survivor"]]:
+        raise SmokeFailure(f"{tag}: alive servers {run['alive']}")
+    if any(run["usage"].values()) or run["slots_free"] != 4:
+        raise SmokeFailure(f"{tag}: leaked {run['usage']}, "
+                           f"{run['slots_free']} slots free")
+    if not all(m["graphed"] for m in run["meta"]):
+        raise SmokeFailure(f"{tag}: a survivor call ran eagerly")
+    check_cell_launches(tag, run)
+    recovered = {n: r for n, r in run["results"].items() if r.recoveries}
+    if not recovered:
+        raise SmokeFailure(f"{tag}: no stream went through recovery")
+    if ref is not None:
+        for name, res in run["results"].items():
+            if res.tokens != ref[name].tokens:
+                raise SmokeFailure(f"{tag} {name}: recovered tokens "
+                                   f"{res.tokens} != unbatched "
+                                   f"{ref[name].tokens}")
+        print(f"{tag}: every stream's tokens == unbatched ({len(recovered)} "
+              f"recovered: {sorted(recovered)})")
+    death, report = run["deaths"][0], run["reports"][0]
+    fault = run["events"][0]
+    after = run["meta"][death["meta"][run["survivor"]]:]
+    reprefill = [m for m in after if m["kind"] == "prefill"]
+    if not reprefill:
+        raise SmokeFailure(f"{tag}: no re-prefill on the survivor")
+    first = reprefill[0]
+    resume = [(r.resumed_at_monotonic[0] - fault.at_monotonic) * 1e3
+              for r in recovered.values()]
+    priced = sorted(report.recovery_ms.values())
+    print(f"{tag} [{card}]: {fault.kind} on server {run['victim']} at call "
+          f"{fault.call}; detection {(death['at'] - fault.at_monotonic) * 1e3:.3f}"
+          f" ms (fault to eviction), re-admission "
+          f"{(death['done'] - death['at']) * 1e3:.3f} ms, resume "
+          f"{[round(x, 3) for x in resume]} ms (fault to the first resumed "
+          f"token) for {sorted(recovered)}")
+    print(f"{tag} [{card}]: re-prefill calls on the survivor: "
+          + ", ".join(f"{m['rows']} row(s) bucket {m['bucket']} "
+                      f"{m['seconds'] * 1e3:.3f} ms"
+                      for m in reprefill)
+          + f"; priced recovery segment {priced} ms (_recovery_cost_ms: "
+          f"declared prefill_ms, no cost model) against the first call's "
+          f"{first['seconds'] * 1e3:.3f} ms")
+    print(f"{tag}: the dead server keeps {run['kept_bytes'] / 1e9:.3f} GB of "
+          f"pools and {run['kept_graphs']} graphs, never used again")
+    return Counter(run["launches"])
+
+
+def recovery_fp32(tag, cfg, params, prompts, dev, card, ref):
+    """Phase 7a in fp32: a death, then (a second engine) a stall found by
+    the heartbeat; recovered tokens equal unbatched.  The stall must be
+    detected before it ends."""
+    counts = Counter()
+    for kind in ("die", "stall"):
+        run = serve_with_fault(cfg, params, prompts, dev, kind)
+        counts += report_recovery(f"{tag} {kind}", run, card, ref)
+        if kind == "stall":
+            fault = run["events"][0]
+            if run["deaths"][0]["at"] - fault.at_monotonic >= STALL_S:
+                raise SmokeFailure(f"{tag}: the stall was not detected by "
+                                   "the heartbeat before it ended")
+        del run
+        free_card()
+    return counts
+
+
+def elastic_run(cfg, params, prompts, dev, card):
+    """Phase 7c (bf16, graphed): work stealing with every stream pinned on
+    server 0; ``consolidate(1)`` and ``remove_server(1)`` mid-traffic;
+    ``add_server()`` mid-traffic (its capture count and seconds, device
+    memory around it), two streams admitted onto it, every one of its
+    calls a replay; then ``ElasticPoolController.scale_to`` 3 and, with the
+    traffic running, 1.  Nothing may leak."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.elastic import ElasticPoolController
+    from repro_torch.serving.engine import ServeEngine
+
+    tag = "elastic bf16"
+    mem = lambda: torch.cuda.memory_allocated(dev) / 1e9
+    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, num_servers=2,
+                      batching=True, max_batch=4, paged=True,
+                      kv_block_size=BLOCK, device=dev)
+    counts = Counter()
+    try:
+        captured_cells(eng, eng.precompile(prompt_buckets=BUCKETS))
+        eng.enable_work_stealing()
+        for i, name in enumerate(prompts):
+            if not eng.admit(_spec(name, len(prompts) - i)).admitted:
+                raise SmokeFailure(f"stream {name} not admitted")
+            if eng.admission.device_of(name) != 0:
+                eng.admission.migrate(name, 0)
+            eng.pool.reassign(name, 0, priority=len(prompts) - i)
+
+        def round_(label, during=None):
+            _build.reset_launches()
+            t0 = time.monotonic()
+            _, seen, _ = run_streams(eng, prompts, during=during)
+            counts.update(_build.launches)
+            print(f"{tag} {label} [{card}]: {time.monotonic() - t0:.3f} s, "
+                  f"{eng.migrations_completed} migrations so far, servers "
+                  f"alive {eng.pool.alive_servers()}, kv_usage "
+                  f"{eng.kv_usage()}")
+            return seen
+
+        round_("stealing (all streams pinned on server 0)")
+        if eng.migrations_completed < 1:
+            raise SmokeFailure(f"{tag}: work stealing moved no stream")
+
+        def drain_1(eng):
+            wait_for(lambda: len(eng._active_jobs) == len(prompts),
+                     "every stream active")
+            moved = eng.consolidate(1)
+            before = mem()
+            eng.remove_server(1, timeout_s=300.0)
+            return moved, before, mem()
+
+        moved, before, after = round_("consolidate(1) + remove_server(1)",
+                                      drain_1)
+        print(f"{tag}: consolidate(1) moved {moved}; memory_allocated "
+              f"{before:.3f} GB before remove_server(1), {after:.3f} GB after")
+        if eng.pool.alive_servers() != [0]:
+            raise SmokeFailure(f"{tag}: server 1 not retired")
+
+        added = {}
+
+        def grow(eng):
+            wait_for(lambda: len(eng._active_jobs) == len(prompts),
+                     "every stream active")
+            added["before"] = mem()
+            t0 = time.monotonic()
+            added["si"] = eng.add_server()
+            added["s"] = time.monotonic() - t0
+            added["after"] = mem()
+
+        round_("add_server() mid-traffic", grow)
+        si = added["si"]
+        graphs = len(eng._paged[si].graphs)
+        if graphs != len(eng._paged[0].graphs):
+            raise SmokeFailure(f"{tag}: the added server captured {graphs} "
+                               f"graphs, server 0 has "
+                               f"{len(eng._paged[0].graphs)}")
+        print(f"{tag} [{card}]: add_server() -> server {si} captured "
+              f"{graphs} graphs in {added['s']:.3f} s while server 0 served; "
+              f"memory_allocated {added['before']:.3f} GB before, "
+              f"{added['after']:.3f} GB after")
+        late = {f"n{i}": p for i, p in enumerate(prompts.values()) if i < 2}
+        for name in late:
+            if not eng.admit(_spec(name, 1)).admitted:
+                raise SmokeFailure(f"stream {name} not admitted")
+        print(f"{tag}: streams by server after the steals onto server {si} "
+              f"and two more admitted: "
+              f"{ {n: eng.pool.server_of(n) for n in {**prompts, **late}} }")
+        _build.reset_launches()
+        run_streams(eng, {**prompts, **late})
+        counts.update(_build.launches)
+        calls = eng.pool.servers[si].stats.batch_meta
+        if not calls or not all(m["graphed"] for m in calls):
+            raise SmokeFailure(f"{tag}: server {si} made {len(calls)} calls, "
+                               "not all replays")
+        print(f"{tag}: every one of the added server's {len(calls)} calls "
+              f"replayed a graph")
+
+        ctl = ElasticPoolController(eng, min_servers=1, max_servers=4)
+        t0 = time.monotonic()
+        live = ctl.scale_to(3)
+        print(f"{tag} [{card}]: scale_to(3) -> servers {live} in "
+              f"{time.monotonic() - t0:.3f} s, memory_allocated {mem():.3f} GB")
+
+        def shrink(eng):
+            wait_for(lambda: len(eng._active_jobs) == len(prompts),
+                     "every stream active")
+            t0 = time.monotonic()
+            live = ctl.scale_to(1, timeout_s=300.0)
+            return live, time.monotonic() - t0
+
+        live, secs = round_("scale_to(1) mid-traffic", shrink)
+        print(f"{tag} [{card}]: scale_to(1) -> servers {live} in {secs:.3f} "
+              f"s (events {ctl.events}), memory_allocated {mem():.3f} GB after"
+              f" the removals")
+        if len(live) != 1 or any(eng.kv_usage().values()):
+            raise SmokeFailure(f"{tag}: servers {live}, kv_usage "
+                               f"{eng.kv_usage()}")
+        if any(len(eng._slots[i].free) != 4 for i in live):
+            raise SmokeFailure(f"{tag}: slots held after the traffic")
+        print(f"{tag}: {eng.migrations_completed} live migrations in all, "
+              f"nothing leaked")
+    finally:
+        eng.close()
+    del eng
+    free_card()
+    return counts
+
+
+def gqa_bf16_phase7(cfg, params, prompts, dev, card, runs):
+    """Phase 7 at internlm2-1.8b in bf16: the recovery timings (7a: a
+    death and a stall), elasticity (7c), and the masked-dense layout beside
+    the paged engine's graphed run of phase 5 on the same traffic (7d).
+    Returns the launch counts."""
+    counts = Counter()
+    for kind in ("die", "stall"):
+        run = serve_with_fault(cfg, params, prompts, dev, kind)
+        counts += report_recovery(f"recovery bf16 {kind}", run, card)
+        del run
+        free_card()
+    counts += elastic_run(cfg, params, prompts, dev, card)
+    masked = serve_batched(cfg, params, prompts, dev, paged=False)
+    check_outputs("masked-dense bf16", masked, prompts)
+    counts += Counter(masked["launches"])
+    paged = runs["graphed"]
+    for label, run in (("paged", paged), ("masked-dense", masked)):
+        report_latency(f"masked-vs-paged bf16 {label}", run, card)
+    decode_cells = sorted((k, dict(v)) for k, v in paged["cells"].items()
+                          if k[0] == "decode")
+    print(f"masked-vs-paged bf16 [{card}]: decode launches per call, "
+          f"masked-dense (4 rows of {MAX_SEQ} positions) "
+          f"{dict(masked['cells'][('decode', 4, 0)])}; paged (rows, width) "
+          + "; ".join(f"({r},{w}) {v}" for (_, r, w), v in decode_cells))
+    del masked
+    free_card()
     return counts
 
 
@@ -2097,6 +2640,8 @@ def main() -> int:
     checks.run_vlm(get_config("qwen2_vl_2b"))
     checks.rank()
 
+    # phase 7 runs inside these: 7b and 7d in every fp32 phase, 7a, 7c
+    # and 7d's bf16 comparison in the internlm2-1.8b phases
     counts = gqa_path(dev, card)                                # phases 4-5
     counts += ssm_path(dev, card)                               # phases 4b-5b
     counts += mla_path(dev, card)                               # phases 4c-5c
@@ -2104,7 +2649,7 @@ def main() -> int:
     counts += encdec_path(dev, card)                            # phases 4e-5e
     counts += vlm_path(dev, card)                               # phases 4f-5f
 
-    print(f"launches over phases 4-5f: {dict(counts)}")         # phase 6
+    print(f"launches over phases 4-7: {dict(counts)}")          # phase 8
     missing = [k for k in KERNELS if not counts.get(k)]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")

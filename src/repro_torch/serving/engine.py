@@ -1,17 +1,24 @@
 """Serving engine of the port: the paper's GPU server as the dispatch layer
 of a PyTorch inference runtime -- a multi-server pool with continuous,
-paged, length-aware decode batching.
+paged, length-aware decode batching, stream recovery from a dead server,
+live cache migration between servers and an elastic pool.
 
 Counterpart of ``repro/serving/engine.py`` (see its docstring for the
-architecture).  The port has the main path, ``batching=True,
-paged=True`` -- family-generic: GQA KV block pools, MLA latent block
-pools (plus the MoE prefix layer's pools on the same block tables), SSM
-state-slab pools, the hybrid stack's two kinds per row (the shared
-attention block's KV block pools and the Mamba-2 state-slab pools, staged
-in one decode call), and the enc-dec stack's decoder KV block pools beside
-its cross-attention segments (refcounted, read-only, shared by the
-streams of one encoder output) -- and the unbatched ``generate`` path that
-serves as its reference:
+architecture).  Both batched layouts are ported, family-generic:
+
+  * paged (``batching=True, paged=True``): GQA KV block pools, MLA latent
+    block pools (plus the MoE prefix layer's pools on the same block
+    tables), SSM state-slab pools, the hybrid stack's two kinds per row
+    (the shared attention block's KV block pools and the Mamba-2 state-slab
+    pools, staged in one decode call), and the enc-dec stack's decoder KV
+    block pools beside its cross-attention segments (refcounted, read-only,
+    shared by the streams of one encoder output);
+  * masked-dense (``batching=True, paged=False``): one dense slot cache of
+    ``max_batch`` rows per server, every step over all of its rows with the
+    inactive ones masked and carried through untouched -- the reference's
+    yardstick for paged decode;
+
+and the unbatched ``generate`` path that serves as their reference:
 
   client streams --admit--> PoolAdmissionController (Eqs (1)-(6) per
         |                   device partition)
@@ -28,32 +35,43 @@ How the reference's device mechanisms map onto PyTorch:
     client), and the stream is synchronized before the call is timed --
     the counterpart of ``jax.block_until_ready``;
   * buffer donation becomes in-place updates: a server's block or slab
-    pools are allocated once and every insert and decode step writes into
-    them;
-  * ``jax.jit`` per cell becomes a CUDA graph per cell: ``precompile``
-    runs every (rows, width) decode cell and (rows, bucket) prefill cell
-    on each server, eagerly twice on the server's stream, then captures it
-    (``serving/graphs.py``; one graph memory pool per server); a call of a
-    warm cell copies its staged rows into the graph's static inputs and
-    replays it.  A cell first hit mid-traffic is bumped up to the cheapest
-    warm cell that covers it (widening is sound: extra width lanes read
-    the scratch block past each row's length, extra rows duplicate row 0
-    and write identical values); with no warm cover it runs eagerly and is
-    never captured mid-traffic.  On the CPU nothing is captured and every
-    cell runs eagerly.  Slab-only families have no gather width: their one
+    pools, or its slot cache, are allocated once and every insert, decode
+    step and migration import writes into them (the captured graphs read
+    those tensors, so they are never rebound);
+  * the reference's ``where(active, new, old)`` over the whole slot cache
+    becomes a save and restore of what a masked-dense step writes of an
+    inactive row: the position it writes of each sequence leaf and the
+    whole row of each state leaf (SSM conv window and state);
+  * ``jax.jit`` per cell becomes a CUDA graph per cell and server:
+    ``precompile`` runs every (rows, width) decode cell, (rows, bucket)
+    prefill cell and migration width on each server, eagerly twice on the
+    server's stream, then captures it (``serving/graphs.py``; one graph
+    memory pool per server); a call of a warm cell copies its staged rows
+    into the graph's static inputs and replays it.  A cell first hit
+    mid-traffic is bumped up to the cheapest warm cell that covers it
+    (widening is sound: extra width lanes read the scratch block past each
+    row's length, extra rows duplicate row 0 and write identical values);
+    with no warm cover it runs eagerly and is never captured mid-traffic.
+    ``add_server`` captures every warm cell on the new server's own thread
+    while the others serve.  On the CPU nothing is captured and every cell
+    runs eagerly.  Slab-only families have no gather width: their one
     width bucket is 0;
+  * a migration keeps the reference's host hop (its servers are separate
+    devices): a gather on the source server into one packed buffer, one
+    device-to-host copy, one host-to-device copy into the destination's
+    staging, and a scatter into the destination's pools;
   * the enc-dec frontend is a stub, as in the reference: every prefill
     encodes zero frames, so all of a server's streams share one
     cross-attention segment (the copy-on-write dedup case).
 
-Out of this slice, each raising ``NotImplementedError``: the masked-dense
-batched layout and fault tolerance, migration (of blocks, slabs and
-segments), work stealing and elastic scaling (ROADMAP A10), and static
-cell pricing (ROADMAP A5).
+Out of this slice, raising ``NotImplementedError``: static cell pricing
+(ROADMAP A5).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import math
 import threading
 import time
@@ -66,11 +84,13 @@ from repro_torch import resolve_device
 from repro_torch.analysis.cost_model import autotune_buckets, bucket_up
 from repro_torch.core.admission import PoolAdmissionController
 from repro_torch.core.dispatch.pool import ServerPool
+from repro_torch.core.faults import ServerFailedError, StreamShedError
 from repro_torch.core.task_model import GpuSegment, Task
 from repro_torch.models import model as M
-from repro_torch.runtime.straggler import DeadlineAwarePolicy
+from repro_torch.runtime.straggler import DeadlineAwarePolicy, StepTimeWatchdog
 from repro_torch.serving.graphs import GraphCell
-from repro_torch.serving.kvcache import FAMILIES, PagedKVCacheManager
+from repro_torch.serving.kvcache import (FAMILIES, OutOfBlocksError,
+                                         PagedKVCacheManager)
 
 
 def _pow2_ladder(cap: int) -> tuple[int, ...]:
@@ -85,10 +105,6 @@ def _pow2_ladder(cap: int) -> tuple[int, ...]:
     return tuple(out)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def _clone(tree):
     """Copy of every tensor of a (dicts, lists, tuples) tree."""
     if isinstance(tree, dict):
@@ -96,6 +112,22 @@ def _clone(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_clone(v) for v in tree)
     return tree.clone()
+
+
+def _tensors(tree) -> list:
+    """The tensors of a (dicts, lists, tuples) tree in a fixed order: dict
+    keys sorted, sequences in order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+def _cache_leaves(cache) -> list:
+    """A dense decode cache's tensors other than ``pos``, in a fixed
+    order."""
+    return _tensors({k: v for k, v in cache.items() if k != "pos"})
 
 
 @dataclass
@@ -109,6 +141,7 @@ class PrecompileReport:
     skipped: int = 0
     decode_cells: tuple = ()
     prefill_cells: tuple = ()
+    migrate_cells: tuple = ()
     captured: int = 0
 
 
@@ -130,15 +163,53 @@ class GenerationResult:
     tokens: list[int] = field(default_factory=list)
     prefill_latency_s: float = 0.0
     decode_latencies_s: list[float] = field(default_factory=list)
+    recoveries: int = 0  # server deaths this job survived
+    # monotonic timestamp per recovery at which the retained prefix was
+    # re-established on a survivor (resume point, for latency measurement)
+    resumed_at_monotonic: list[float] = field(default_factory=list)
+
+
+@dataclass
+class _RecoveryLog:
+    """Per-stream-job recovery state: the retained token prefix.
+
+    The first attempt's prefill argmax (``first_token``) is fed to decode
+    step 0 but never appended to the result; every decode argmax is
+    appended to both the result and ``generated``.  The retained prefix --
+    prompt ++ [first_token] ++ generated -- is therefore exactly the token
+    sequence whose cache the dead server held, so re-prefilling it on a
+    survivor puts the cache in the state the failed decode step saw, and
+    its last-position argmax is the token that step would have produced."""
+
+    prompt: np.ndarray
+    first_token: int | None = None
+    generated: list[int] = field(default_factory=list)
+
+    def retained_prefix(self) -> np.ndarray:
+        if self.first_token is None:
+            return self.prompt
+        return np.concatenate([
+            self.prompt,
+            np.asarray([self.first_token], np.int32),
+            np.asarray(self.generated, np.int32),
+        ])
 
 
 class _SlotState:
     """Per-server decode slots: at most ``max_batch`` streams hold one at a
-    time, so a server's reserved KV never outgrows its pool."""
+    time, so a server's reserved cache never outgrows its pool.  In the
+    masked-dense layout a slot is a row of ``cache`` (allocated once, on
+    the server's thread) and the server's graphs live here; the staging
+    array of the masked step -- rows of [token, active] -- is preallocated
+    so the decode loop does not allocate."""
 
     def __init__(self, max_batch: int):
         self.free = list(range(max_batch))
         self.cond = threading.Condition()
+        self.cache = None
+        self.pack_scratch = np.zeros((max_batch, 2), np.int32)
+        self.graphs: dict[tuple, GraphCell] = {}
+        self.graph_pool = None
 
 
 class _PagedState:
@@ -170,8 +241,9 @@ class _PagedState:
         self.scratch_seg = (scratch.segment if scratch.segment is not None
                             else 0)
         self.pools = None  # allocated once, on the server's thread
-        # ("decode", rows, width) / ("prefill", rows, bucket) -> GraphCell,
-        # captured by precompile on the card, all in one memory pool
+        # ("decode", rows, width) / ("prefill", rows, bucket) / ("export",
+        # width) / ("import", width) -> GraphCell, captured by precompile
+        # on the card, all in one memory pool
         self.graphs: dict[tuple, GraphCell] = {}
         self.graph_pool = None
         # preallocated staging for the compacted decode batch, packed into
@@ -188,9 +260,6 @@ class ServeEngine:
                  batching: bool = False, max_batch: int = 8,
                  paged: bool = False, cost_model=None, device=None):
         self.device = resolve_device(device)
-        if batching and not paged:
-            _not_ported("the masked-dense batched decode layout "
-                        "(batching=True, paged=False)", "A10")
         if paged and not batching:
             raise ValueError("paged=True requires batching=True (the block "
                              "pools are the batched decode cache layout)")
@@ -212,6 +281,7 @@ class ServeEngine:
         tag = "" if self._family == "gqa" else "@" + self._family
         self._decode_kind = "decode" + tag
         self._prefill_kind = "prefill" + tag
+        self._migrate_kind = "migrate" + tag
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -227,15 +297,31 @@ class ServeEngine:
             num_servers, cores_per_device=admission_cores,
             epsilon_ms=epsilon_ms, cost_model=cost_model)
         self.straggler = DeadlineAwarePolicy()
-        # optional paged-KV accounting for the UNBATCHED path: generate()
-        # holds block allocations for its sequence's lifetime; exhaustion
-        # rejects the request before any device work is dispatched
+        # optional paged-KV accounting for the unpaged paths: a job holds
+        # block allocations for its sequence's lifetime; exhaustion rejects
+        # the request before any device work is dispatched
         self.kv = (PagedKVCacheManager(num_blocks=kv_blocks,
                                        block_size=kv_block_size)
                    if kv_blocks and not paged else None)
         self._kv_lock = threading.Lock()
         self._seq_counter = 0
+        # fault-tolerance state (see enable_fault_tolerance): recovery is
+        # serialized -- concurrent failure observers queue on the lock and
+        # find the server already handled
+        self._recovery_lock = threading.Lock()
+        self._shed: set[str] = set()
         self._held: dict[str, set] = {}  # stream -> {(si | None, seq_id)}
+        self.degraded_reports: list = []
+        # migration state: _mig_lock serializes every _held mutation the
+        # migration protocol and remove() can race on (see
+        # _execute_migration); _active_jobs is the per-server active-stream
+        # depth signal the work-stealing rebalancer reads
+        self._mig_lock = threading.Lock()
+        self._active_jobs: dict[str, int] = {}
+        self._ft_params: dict | None = None  # set by enable_fault_tolerance
+        self._steal_stop: threading.Event | None = None
+        self._steal_min_gain_ms = 0.0
+        self.migrations_completed = 0
         self._streams: dict[str, StreamSpec] = {}
         # one CUDA stream per server: its device calls queue behind each
         # other and never behind another server's
@@ -253,31 +339,48 @@ class ServeEngine:
         # cells in the hot path
         self._warm_decode: set[tuple[int, int]] = set()
         self._warm_prefill: set[tuple[int, int]] = set()
+        self._warm_migrate: set[int] = set()
         self._slots: list[_SlotState] = []
         self._paged: list[_PagedState] = []
         if batching:
             self._slots = [_SlotState(max_batch) for _ in range(num_servers)]
+        if batching and not paged:
+            self._batch_axes = _cache_batch_axes(cfg, max_seq)
+        if paged:
             uses_blocks = "block" in self._cache_kinds
             # default block pool: every slot can hold a max_seq sequence,
             # plus the scratch block (slab-only families carry no blocks)
             num_blocks = ((kv_blocks or max_batch * (max_seq // kv_block_size)
                            + 1) if uses_blocks else 0)
-            # slabs: one per slot, doubled as in the reference (room for a
-            # migration's source and destination), plus scratch; segments:
-            # shared across slots (refcounted), so max_batch distinct keys
-            # plus scratch cover the worst case
-            num_slabs = 2 * max_batch + 2 if "slab" in self._cache_kinds else 0
-            num_segments = (max_batch + 2 if "segment" in self._cache_kinds
-                            else 0)
-            self._paged = [_PagedState(num_blocks, kv_block_size, max_batch,
-                                       max_seq, family=self._family,
-                                       num_slabs=num_slabs,
-                                       num_segments=num_segments)
-                           for _ in range(num_servers)]
+            # slabs: one per slot, doubled so an in-flight migration can
+            # hold its source and destination at once, plus scratch;
+            # segments: shared across slots (refcounted), so max_batch
+            # distinct keys plus scratch cover the worst case
+            self._num_blocks = num_blocks
+            self._num_slabs = (2 * max_batch + 2
+                               if "slab" in self._cache_kinds else 0)
+            self._num_segments = (max_batch + 2
+                                  if "segment" in self._cache_kinds else 0)
+            self._paged = [self._paged_state() for _ in range(num_servers)]
             # slab-only families have no gather width: the single 0 bucket
             # keeps every bucket_up() call well-defined
             self.width_buckets = (_pow2_ladder(self._paged[0].nb_max)
                                   if uses_blocks else (0,))
+
+    def _paged_state(self) -> _PagedState:
+        return _PagedState(self._num_blocks, self.kv_block_size,
+                           self.max_batch, self.max_seq, family=self._family,
+                           num_slabs=self._num_slabs,
+                           num_segments=self._num_segments)
+
+    @property
+    def server(self):
+        """The first pool server (single-server alias)."""
+        return self.pool.servers[0]
+
+    def _cells(self, si: int):
+        """Server ``si``'s state that holds its graphs."""
+        return self._paged[si] if self.paged else self._slots[si]
 
     # -- device calls --------------------------------------------------------
     def _on_device(self, si: int, fn):
@@ -292,6 +395,12 @@ class ServeEngine:
                 out = fn()
             stream.synchronize()
             return out
+
+    def _sync(self) -> None:
+        """Drain the current stream (inside ``_on_device``; no-op on the
+        CPU)."""
+        if self._cuda_streams is not None:
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
@@ -342,25 +451,34 @@ class ServeEngine:
         return decision
 
     def remove(self, name: str) -> None:
-        """Withdraw a stream: admission slot, router binding, and any KV
-        blocks still held for it.  Never call while the stream has a device
-        call in flight."""
+        """Withdraw a stream: admission slot, router binding, and any cache
+        resources still held for it (a stream evicted by failure or shed by
+        degraded admission may leave reservations behind if its generating
+        thread is gone; ``missing_ok`` makes the free race-safe against that
+        thread's own cleanup).  Never call while the stream has a device
+        call in flight.
+
+        The sweep runs under ``_mig_lock``, so it is atomic with respect to
+        an in-flight migration of this stream: during the copy the ledger
+        holds both (src, seq) and (dst, seq); freeing both here is right
+        (the stream is gone), and the migrating thread's commit re-checks
+        the ledger under the same lock and aborts instead of freeing twice
+        (see _execute_migration)."""
         self.admission.remove(name)
         self.pool.remove(name)
         self._streams.pop(name, None)
-        with self._kv_lock:
+        self._shed.discard(name)
+        self._active_jobs.pop(name, None)
+        with self._mig_lock:
             held = self._held.pop(name, set())
-        for si, seq_id in held:
-            self._free(si, seq_id)
-
-    def _free(self, si, seq_id: str) -> None:
-        if si is None:
-            with self._kv_lock:
-                self.kv.free_seq(seq_id, missing_ok=True)
-        else:
-            state = self._paged[si]
-            with state.lock:
-                state.mgr.free_seq(seq_id, missing_ok=True)
+            for si, seq_id in held:
+                if si is None:
+                    with self._kv_lock:
+                        self.kv.free_seq(seq_id, missing_ok=True)
+                else:
+                    state = self._paged[si]
+                    with state.lock:
+                        state.mgr.free_seq(seq_id, missing_ok=True)
 
     # -- bucket auto-tuning (cost-model driven) ----------------------------
     def tune_buckets(self, prompt_lengths, *, steps_hint: int = 0,
@@ -407,6 +525,129 @@ class ServeEngine:
         self._warm_decode.clear()
         self._warm_prefill.clear()
         return self.prefill_buckets, self.width_buckets
+
+    # -- batched decode internals (masked-dense layout) ---------------------
+    def _insert_impl(self, full, batched, src_row: int, slot: int) -> None:
+        """Copy row ``src_row`` of a (possibly coalesced) prefill cache into
+        row ``slot`` of the slot cache, in place."""
+        for f, o, (bax, _, _) in zip(_cache_leaves(full),
+                                     _cache_leaves(batched),
+                                     self._batch_axes, strict=True):
+            f.select(bax, slot).copy_(o.select(bax, src_row))
+        full["pos"][slot] = batched["pos"][src_row]
+
+    def _decode_masked_impl(self, packed: torch.Tensor, cache):
+        """One masked-dense decode step over all ``max_batch`` rows of the
+        slot cache: ``packed`` (B, 2) int32 rows are [token, active].  Rows
+        whose ``active`` is 0 keep every cache leaf bit for bit (their
+        logits are garbage, discarded by the caller).  The dense decode
+        writes in place -- every row's new K/V at its ``pos``, every row's
+        SSM state -- so the step first saves what it would take from an
+        inactive row (the position it writes of each sequence leaf, the
+        whole row of each state leaf) and puts it back after.  An inactive
+        row decodes at position 0 (a finished row's ``pos`` may equal
+        max_seq) and its ``pos`` does not advance.  Returns the (B, 1, V)
+        fp32 logits."""
+        active = packed[:, 1] != 0
+        pos = cache["pos"]
+        pos_in = torch.where(active, pos, torch.zeros_like(pos))
+        at = pos_in.long()
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        leaves = _cache_leaves(cache)
+        saved = []
+        for leaf, (bax, role, sax) in zip(leaves, self._batch_axes):
+            if role == "seq":
+                saved.append(leaf.movedim((bax, sax), (0, 1))[rows, at])
+            else:
+                saved.append(leaf.clone() if role == "state" else None)
+        logits, new, _ = M.apply(self.cfg, self.params,
+                                 {"tokens": packed[:, :1]}, mode="decode",
+                                 cache={**cache, "pos": pos_in})
+        for leaf, out, keep, (bax, role, sax) in zip(
+                leaves, _cache_leaves(new), saved, self._batch_axes):
+            if out is not leaf:
+                leaf.copy_(out)
+            if role == "seq":
+                view = leaf.movedim((bax, sax), (0, 1))
+                mask = active.view(-1, *[1] * (keep.dim() - 1))
+                view[rows, at] = torch.where(mask, view[rows, at], keep)
+            elif role == "state":
+                shape = [1] * leaf.dim()
+                shape[bax] = -1
+                leaf.copy_(torch.where(active.view(shape), leaf, keep))
+        pos.copy_(torch.where(active, new["pos"], pos))
+        return logits
+
+    def _acquire_slot(self, si: int) -> int:
+        state = self._slots[si]
+        with state.cond:
+            while not state.free:
+                state.cond.wait()
+            return state.free.pop()
+
+    def _try_acquire_slot(self, si: int) -> int | None:
+        """Non-blocking slot acquisition -- the migration path must never
+        deadlock holding its source slot while waiting on a destination
+        slot, so no free slot means the steal is cancelled instead."""
+        state = self._slots[si]
+        with state.cond:
+            if not state.free:
+                return None
+            return state.free.pop()
+
+    def _release_slot(self, si: int, slot: int) -> None:
+        state = self._slots[si]
+        with state.cond:
+            state.free.append(slot)
+            state.cond.notify()
+
+    def _slot_cache(self, state: _SlotState):
+        if state.cache is None:
+            state.cache = M.init_cache(self.cfg, self.max_batch, self.max_seq,
+                                       device=self.device)
+        return state.cache
+
+    def _insert_slot(self, si: int, slot: int, cache, src_row: int) -> None:
+        """Runs on server ``si``'s thread (serialized with its batches)."""
+        state = self._slots[si]
+        self._on_device(si, lambda: self._insert_impl(
+            self._slot_cache(state), cache, src_row, slot))
+
+    def _run_decode_batch(self, si: int):
+        """run_batch callable for server ``si`` (masked-dense): payloads are
+        (slot, token) pairs; ONE masked device call over all ``max_batch``
+        rows serves them all.  The staging array is the slot state's
+        preallocated scratch."""
+
+        def run(payloads):
+            state = self._slots[si]
+            pack = state.pack_scratch
+            pack[:] = 0
+            for slot, token in payloads:
+                pack[slot] = (token, 1)
+            cell = (self.max_batch, 0)
+            cold = bool(self._warm_decode) and cell not in self._warm_decode
+            graph = state.graphs.get(("decode", *cell))
+
+            def step():
+                if graph is not None:
+                    logits = graph.replay(pack)
+                else:
+                    logits = self._decode_masked_impl(
+                        self._tensor(pack), self._slot_cache(state))
+                return logits[:, -1].cpu().numpy()
+
+            t0 = time.monotonic()
+            rows = self._on_device(si, step)
+            dt = time.monotonic() - t0
+            self._ran_cold(self._warm_decode, cold, cell)
+            self.pool.servers[si].record_meta(
+                kind=self._decode_kind, rows=len(payloads),
+                padded=self.max_batch, width=0, compacted=False, seconds=dt,
+                cold=cold, graphed=graph is not None)
+            return [rows[slot] for slot, _ in payloads]
+
+        return run
 
     # -- batched decode internals (paged pools, family-generic) -------------
     def _make_pools(self, state):
@@ -565,20 +806,209 @@ class ServeEngine:
                     else state.scratch_slab)
             seg = (alloc.segment if alloc.segment is not None
                    else state.scratch_seg)
-        with self._kv_lock:
+        with self._mig_lock:
             self._held.setdefault(name, set()).add((si, seq_id))
         return seq_id, table, slab, seg
 
-    def _paged_release(self, si, seq_id) -> None:
-        """Free ``seq_id``'s blocks on server ``si`` (``si`` None: the
-        unbatched path's manager) and drop it from the stream's ledger."""
-        if seq_id is None:
-            return
-        with self._kv_lock:
+    def _paged_release(self, si: int, seq_id: str) -> None:
+        with self._mig_lock:
             held = self._held.get(seq_id.rsplit("#", 1)[0])
             if held is not None:
                 held.discard((si, seq_id))
-        self._free(si, seq_id)
+            state = self._paged[si]
+            with state.lock:
+                state.mgr.free_seq(seq_id, missing_ok=True)
+
+    # -- live cache migration (steal / consolidate / elastic drain) --------
+    def _export_kv_impl(self, pools, idx: torch.Tensor) -> list:
+        """Gather one stream's live cache out of every pool: ``idx`` (2+W,)
+        int32 is [slab, segment, block_table...].  Block kinds gather the
+        W blocks of the table (pad lanes point at the source scratch block,
+        never-read content, so the width can be bucketed onto a warm cell),
+        slab and segment kinds their one row.  Returns the gathered
+        tensors, one per pool leaf, in ``_pool_kinds`` order."""
+        slab, seg, table = idx[0:1].long(), idx[1:2].long(), idx[2:].long()
+        out = []
+        for key, kind in self._pool_kinds.items():
+            for pool in pools[key]:
+                if kind == "block":
+                    out.append(pool[:, table])
+                else:
+                    out.append(pool.index_select(
+                        1, slab if kind == "slab" else seg))
+        return out
+
+    def _import_kv_impl(self, pools, rows, idx: torch.Tensor) -> None:
+        """Scatter an export into the destination pools in place (the
+        destination's graphs read these tensors): block rows at the table
+        of ``idx`` (the fresh blocks ``import_seq`` allocated; pad lanes
+        target the destination scratch block -- duplicate scratch writes
+        are benign, nothing reads it), the slab row into the fresh
+        destination slab, the segment row into the destination segment
+        (idempotent when the key was already resident there)."""
+        slab, seg, table = idx[0:1].long(), idx[1:2].long(), idx[2:].long()
+        leaves = iter(rows)
+        for key, kind in self._pool_kinds.items():
+            for pool in pools[key]:
+                r = next(leaves).to(pool.dtype)
+                if kind == "block":
+                    pool[:, table] = r
+                else:
+                    pool.index_copy_(1, slab if kind == "slab" else seg, r)
+
+    def _migrate_cell(self, n_blocks: int) -> tuple[int, bool]:
+        """(padded gather width, cold?) for a migration of ``n_blocks`` --
+        the same warm-cell bump-up as the decode hot path."""
+        w = bucket_up(n_blocks, self.width_buckets)
+        cold = False
+        if self._warm_migrate and w not in self._warm_migrate:
+            covers = [c for c in self._warm_migrate if c >= w]
+            if covers:
+                w = min(covers)
+            else:
+                cold = True
+        return w, cold
+
+    def _export_call(self, si: int, idx: np.ndarray, w: int):
+        """On server ``si``'s thread: the gather (a replay of the export
+        cell of width ``w`` when warm) and the one device-to-host copy of
+        its output.  Returns (host tensors, seconds of the copy, graphed)."""
+        state = self._paged[si]
+        graph = state.graphs.get(("export", w))
+
+        def gather():
+            rows = (graph.replay(idx) if graph is not None else
+                    self._export_kv_impl(state.pools, self._tensor(idx)))
+            self._sync()
+            t0 = time.monotonic()
+            host = [t.cpu() for t in rows]
+            return host, time.monotonic() - t0
+
+        host, hop = self._on_device(si, gather)
+        return host, hop, graph is not None
+
+    def _import_call(self, si: int, idx: np.ndarray, w: int, host) -> tuple:
+        """On server ``si``'s thread: one host-to-device copy of the export
+        (into the import cell's static inputs when warm) and the scatter.
+        Returns (seconds of the copy, graphed)."""
+        state = self._paged[si]
+        graph = state.graphs.get(("import", w))
+
+        def scatter():
+            if state.pools is None:
+                state.pools = self._make_pools(state)
+            t0 = time.monotonic()
+            if graph is not None:
+                graph.load(idx, *host)
+            else:
+                rows = [t.to(self.device) for t in host]
+                dev_idx = self._tensor(idx)
+            self._sync()
+            hop = time.monotonic() - t0
+            if graph is not None:
+                graph.replay()
+            else:
+                self._import_kv_impl(state.pools, rows, dev_idx)
+            return hop
+
+        return self._on_device(si, scatter), graph is not None
+
+    def _execute_migration(self, name: str, seq_id: str, src_si: int,
+                           dst_si: int, prio: int):
+        """Move ``seq_id``'s live cache (blocks, state slab, shared
+        segment -- whatever kinds its family uses) from server ``src_si``
+        to ``dst_si``; returns (new full-width block table, destination
+        slab id, destination segment id).
+
+        Two-phase commit against ``remove()``: under ``_mig_lock`` the
+        destination allocation is made and both sides enter the ``_held``
+        ledger; the copy runs outside the lock (a gather on the source
+        server, the host hop, a scatter on the destination server -- each
+        serialized with that server's own batches); the commit re-takes
+        the lock, checks that the ledger still holds the entries (a
+        concurrent ``remove`` frees both sides itself -- then this raises
+        instead of freeing twice), and frees the source.  Any failure rolls
+        the destination back, leaving the stream where it was.  The gather
+        reads the source rows before the commit frees them."""
+        src, dst = self._paged[src_si], self._paged[dst_si]
+        with self._mig_lock:
+            held = self._held.get(name)
+            if held is None or (src_si, seq_id) not in held:
+                raise StreamShedError(
+                    f"stream {name!r} gone before migration")
+            with src.lock:
+                exp = src.mgr.export_seq(seq_id)
+                src_alloc = src.mgr.seqs[seq_id]
+                src_slab = (src_alloc.slab if src_alloc.slab is not None
+                            else src.scratch_slab)
+                src_seg = (src_alloc.segment
+                           if src_alloc.segment is not None
+                           else src.scratch_seg)
+            with dst.lock:
+                # OutOfBlocks -> clean: all-or-nothing across every kind
+                new_blocks = dst.mgr.import_seq(exp)
+                dst_alloc = dst.mgr.seqs[seq_id]
+                dst_slab = (dst_alloc.slab if dst_alloc.slab is not None
+                            else dst.scratch_slab)
+                dst_seg = (dst_alloc.segment
+                           if dst_alloc.segment is not None
+                           else dst.scratch_seg)
+            held.add((dst_si, seq_id))
+        try:
+            n = len(exp.blocks)
+            w, cold = self._migrate_cell(n)
+            src_idx = np.full((2 + w,), src.scratch_block, np.int32)
+            src_idx[:2] = (src_slab, src_seg)
+            src_idx[2:2 + n] = exp.blocks
+            dst_idx = np.full((2 + w,), dst.scratch_block, np.int32)
+            dst_idx[:2] = (dst_slab, dst_seg)
+            dst_idx[2:2 + n] = new_blocks
+            meta = dict(kind=self._migrate_kind, rows=n, padded=w,
+                        width=self.kv_block_size, cold=cold)
+
+            def gather():
+                t0 = time.monotonic()
+                host, hop, graphed = self._export_call(src_si, src_idx, w)
+                self.pool.servers[src_si].record_meta(
+                    **meta, side="export", seconds=time.monotonic() - t0,
+                    hop_seconds=hop, graphed=graphed,
+                    nbytes=sum(t.numel() * t.element_size() for t in host))
+                return host
+
+            host = self.pool.servers[src_si].submit(
+                gather, priority=prio, name=f"{name}/migrate-export").wait()
+
+            def scatter():
+                t0 = time.monotonic()
+                hop, graphed = self._import_call(dst_si, dst_idx, w, host)
+                self.pool.servers[dst_si].record_meta(
+                    **meta, side="import", seconds=time.monotonic() - t0,
+                    hop_seconds=hop, graphed=graphed,
+                    nbytes=sum(t.numel() * t.element_size() for t in host))
+
+            self.pool.servers[dst_si].submit(
+                scatter, priority=prio, name=f"{name}/migrate-import").wait()
+        except BaseException:
+            with self._mig_lock:
+                held = self._held.get(name)
+                if held is not None:
+                    held.discard((dst_si, seq_id))
+                with dst.lock:
+                    dst.mgr.free_seq(seq_id, missing_ok=True)
+            raise
+        with self._mig_lock:
+            held = self._held.get(name)
+            if held is None or (dst_si, seq_id) not in held:
+                # remove() raced the copy: it freed both sides already
+                raise StreamShedError(
+                    f"stream {name!r} removed mid-migration")
+            held.discard((src_si, seq_id))
+            with src.lock:
+                src.mgr.free_seq(seq_id, missing_ok=True)
+        self.migrations_completed += 1
+        full = np.full((dst.nb_max,), dst.scratch_block, np.int32)
+        full[:n] = new_blocks
+        return full, dst_slab, dst_seg
 
     # -- batched prefill (length-bucketed) ---------------------------------
     def _run_prefill_batch(self, si: int, bucket: int):
@@ -613,7 +1043,7 @@ class ServeEngine:
                 toks[i] = toks[0]
                 lens[i] = lens[0]
 
-            graph = self._paged[si].graphs.get(("prefill", n_pad, bucket))
+            graph = self._cells(si).graphs.get(("prefill", n_pad, bucket))
 
             def prefill():
                 if graph is not None:
@@ -635,7 +1065,7 @@ class ServeEngine:
 
         return run
 
-    def _ran_cold(self, warm: set, cold: bool, cell: tuple) -> None:
+    def _ran_cold(self, warm: set, cold: bool, cell) -> None:
         """After a cold cell ran eagerly: on the CPU later hits count as
         warm; on the card a warm cell is a captured one, and a cell is
         never captured mid-traffic, so it stays cold."""
@@ -644,20 +1074,23 @@ class ServeEngine:
 
     def precompile(self, prompt_buckets: tuple[int, ...] = (), *,
                    traffic=None) -> PrecompileReport:
-        """Warm batched-decode/prefill shape cells before taking load.
+        """Warm batched-decode/prefill shape cells and migration widths
+        before taking load.
 
-        Every reachable (rows, width) decode cell and each (rows, bucket)
+        Every reachable decode cell ((rows, width) when paged; the one
+        (max_batch, 0) masked-dense cell otherwise), each (rows, bucket)
         prefill cell of ``prompt_buckets`` (snapped up into
-        ``prefill_buckets``) runs on every server, so its allocations,
-        library heuristics and the server's stream are warm, and on the
-        card is then captured as a CUDA graph that the hot path replays
-        (a capture that fails raises).  ``traffic`` --
-        a ``cost_model.TrafficModel`` or an iterable of CellKeys -- restricts
+        ``prefill_buckets``) and, when paged, the migration gather and
+        scatter of each width bucket run on every server, so their
+        allocations, library heuristics and the server's stream are warm,
+        and on the card each is then captured as a CUDA graph that the hot
+        path replays (a capture that fails raises).  ``traffic`` -- a
+        ``cost_model.TrafficModel`` or an iterable of CellKeys -- restricts
         the set to the predicted-hit cells PLUS, always, the largest cell on
         each phase: the target the hot path bumps cold cells up to.  Cells
         already warm from an earlier call are skipped.  The dummy inserts
-        scribble on the scratch block, so never call this while streams are
-        live.  No-op unless batching."""
+        scribble on scratch state (a free slot's row when masked-dense), so
+        never call this while streams are live.  No-op unless batching."""
         if not self.batching:
             return PrecompileReport()
         hot = None
@@ -665,8 +1098,14 @@ class ServeEngine:
             hot = (set(traffic.hot_cells())
                    if hasattr(traffic, "hot_cells") else set(traffic))
         rows_ladder = self._row_buckets
-        reachable_d = [(r, w) for r in rows_ladder for w in self.width_buckets]
-        fb_d = (rows_ladder[-1], self.width_buckets[-1])
+        if self.paged:
+            reachable_d = [(r, w) for r in rows_ladder
+                           for w in self.width_buckets]
+            fb_d = (rows_ladder[-1], self.width_buckets[-1])
+        else:
+            # masked-dense always runs the one full-shape cell
+            reachable_d = [(self.max_batch, 0)]
+            fb_d = reachable_d[0]
         plan_d = [c for c in reachable_d
                   if hot is None or c == fb_d
                   or (self._decode_kind, *c) in hot]
@@ -679,23 +1118,38 @@ class ServeEngine:
                   if hot is None or c == fb_p
                   or (self._prefill_kind, *c) in hot]
         todo_p = [c for c in plan_p if c not in self._warm_prefill]
+        # migration gather/scatter cells: one per width bucket, so a
+        # mid-traffic steal replays instead of running eagerly
+        reachable_m = list(self.width_buckets) if self.paged else []
+        fb_m = reachable_m[-1] if reachable_m else None
+        plan_m = [w for w in reachable_m
+                  if hot is None or w == fb_m
+                  or (self._migrate_kind, w, self.kv_block_size) in hot]
+        todo_m = [w for w in plan_m if w not in self._warm_migrate]
         captured = 0
-        for si, server in enumerate(self.pool.servers):
-            captured += server.submit(lambda si=si: self._precompile_server(
-                si, todo_d, todo_p), name=f"precompile-{si}").wait()
+        for si in self.pool.alive_servers():
+            captured += self.pool.servers[si].submit(
+                lambda si=si: self._precompile_server(si, todo_d, todo_p,
+                                                      todo_m),
+                name=f"precompile-{si}").wait()
         self._warm_decode.update(todo_d)
         self._warm_prefill.update(todo_p)
+        self._warm_migrate.update(todo_m)
         skipped = ((len(reachable_d) - len(todo_d))
-                   + (len(reachable_p) - len(todo_p)))
-        return PrecompileReport(compiled=len(todo_d) + len(todo_p),
+                   + (len(reachable_p) - len(todo_p))
+                   + (len(reachable_m) - len(todo_m)))
+        return PrecompileReport(compiled=len(todo_d) + len(todo_p)
+                                + len(todo_m),
                                 skipped=skipped, decode_cells=tuple(todo_d),
                                 prefill_cells=tuple(todo_p),
+                                migrate_cells=tuple(todo_m),
                                 captured=captured)
 
-    def _precompile_server(self, si: int, decode_cells, prefill_cells) -> int:
+    def _precompile_server(self, si: int, decode_cells, prefill_cells,
+                           migrate_cells=()) -> int:
         """Warm the cells on server ``si`` and, on the card, capture each
         one not captured yet; returns the number of graphs captured."""
-        state = self._paged[si]
+        state = self._cells(si)
         before = len(state.graphs)
 
         def graph(key, fn, *arrays):
@@ -703,16 +1157,14 @@ class ServeEngine:
             capture it on that stream into the server's graph pool."""
             if not self._graphs or key in state.graphs:
                 return
-            inputs = [self._tensor(a) for a in arrays]
+            inputs = [a.clone() if isinstance(a, torch.Tensor)
+                      else self._tensor(a) for a in arrays]
             fn(*inputs)
             if state.graph_pool is None:
                 state.graph_pool = torch.cuda.graph_pool_handle()
             state.graphs[key] = GraphCell(fn, inputs, pool=state.graph_pool)
 
-        def decode(packed):
-            return self._decode_paged_impl(packed, state.pools)
-
-        def warm():
+        def warm_paged():
             if state.pools is None:
                 state.pools = self._make_pools(state)
             for rows, w in decode_cells:
@@ -724,15 +1176,44 @@ class ServeEngine:
                 pack[:, 3] = state.scratch_seg
                 pack[:, 4:] = state.scratch_block
                 self._decode_paged_impl(self._tensor(pack), state.pools)
-                graph(("decode", rows, w), decode, pack)
+                graph(("decode", rows, w),
+                      lambda p: self._decode_paged_impl(p, state.pools), pack)
+            for w in migrate_cells:
+                # round-trip the scratch resources through gather and
+                # scatter: identical content lands back where it came from
+                idx = np.full((2 + w,), state.scratch_block, np.int32)
+                idx[:2] = (state.scratch_slab, state.scratch_seg)
+                rows = self._export_kv_impl(state.pools, self._tensor(idx))
+                self._import_kv_impl(state.pools, rows, self._tensor(idx))
+                graph(("export", w),
+                      lambda i: self._export_kv_impl(state.pools, i), idx)
+                graph(("import", w),
+                      lambda i, *r: self._import_kv_impl(state.pools, r, i),
+                      idx, *rows)
+                del rows
             table = np.full((state.nb_max,), state.scratch_block, np.int32)
+            return lambda cache: self._insert_paged_impl(
+                state.pools, cache, 0, table, state.scratch_slab,
+                state.scratch_seg)
+
+        def warm_dense():
+            cache = self._slot_cache(state)
+            for _cell in decode_cells:
+                pack = np.zeros((self.max_batch, 2), np.int32)  # all masked
+                self._decode_masked_impl(self._tensor(pack), cache)
+                graph(("decode", self.max_batch, 0),
+                      lambda p: self._decode_masked_impl(p, cache), pack)
+            # precompile runs with no stream live: slot 0 is free scratch
+            return lambda prefill: self._insert_impl(cache, prefill, 0, 0)
+
+        def warm():
+            insert = warm_paged() if self.paged else warm_dense()
             for rows, bucket in prefill_cells:
                 toks = np.zeros((rows, bucket), np.int32)
                 lens = np.ones((rows,), np.int32)
                 _, cache = self._prefill_batch_impl(self._tensor(toks),
                                                     self._tensor(lens))
-                self._insert_paged_impl(state.pools, cache, 0, table,
-                                        state.scratch_slab, state.scratch_seg)
+                insert(cache)
                 del cache
                 graph(("prefill", rows, bucket), self._prefill_batch_impl,
                       toks, lens)
@@ -785,15 +1266,24 @@ class ServeEngine:
                 last = np.argmax(rows, axis=-1).astype(np.int32)
                 res.tokens.append(int(last[0]))
         finally:
-            self._paged_release(None, seq_id)
+            self._kv_release(seq_id)
         return res
 
     def _generate_batched(self, name: str, prompt: np.ndarray, *,
                           steps: int) -> GenerationResult:
         """Continuous-batching path: length-bucketed batched prefill through
-        the pool, insert into the server's block pools, then submit each
-        decode step as a batchable request that the server coalesces and
-        compacts with other streams' steps."""
+        the pool, insert into a slot row (masked-dense) or the server's
+        pools (paged), then submit each decode step as a batchable request
+        that the server coalesces -- and, when paged, compacts -- with
+        other streams' steps.
+
+        Stream recovery: when the stream's server dies mid-job
+        (``ServerFailedError`` from any segment), the per-job _RecoveryLog
+        holds the retained token prefix; after degraded-mode re-admission
+        routes the stream to a survivor, the attempt re-prefills that
+        prefix through the same bucketed prefill path and decoding resumes
+        at the failed step.  A stream shed by degraded admission raises
+        StreamShedError."""
         if prompt.shape[0] != 1:
             raise ValueError("batched decode serves one sequence per stream "
                              f"job; got prompt batch {prompt.shape[0]}")
@@ -801,18 +1291,57 @@ class ServeEngine:
             raise ValueError(f"prompt {prompt.shape[1]} + steps {steps} "
                              f"exceeds max_seq {self.max_seq}")
         res = GenerationResult()
-        self._attempt_batched(name, self.pool.server_of(name),
-                              np.asarray(prompt[0], np.int32), steps, res)
-        return res
+        log = _RecoveryLog(prompt=np.asarray(prompt[0], np.int32))
+        while True:
+            si = self._await_server(name)
+            try:
+                self._attempt_batched(name, si, log, steps, res)
+                return res
+            except ServerFailedError:
+                # the server declared itself dead (device loss, exhausted
+                # transient retries) or the heartbeat monitor evicted it;
+                # either way run recovery -- idempotent if already handled
+                # -- then loop: re-admission has either moved us or shed us
+                self._on_server_death(si)
+                res.recoveries += 1
 
-    def _attempt_batched(self, name: str, si: int, prompt: np.ndarray,
+    def _await_server(self, name: str, timeout_s: float = 5.0) -> int:
+        """The stream's current server index, waiting out an in-flight
+        recovery (the evict happens before the re-assign, so a client can
+        observe the gap); raises StreamShedError once the stream is shed or
+        recovery never re-placed it."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            if name in self._shed:
+                raise StreamShedError(
+                    f"stream {name!r} shed by degraded-mode admission")
+            try:
+                return self.pool.server_of(name)
+            except KeyError:
+                if time.monotonic() >= deadline:
+                    raise StreamShedError(
+                        f"stream {name!r} lost its server and was not "
+                        "re-placed") from None
+                time.sleep(0.001)
+
+    def _attempt_batched(self, name: str, si: int, log: _RecoveryLog,
                          steps: int, res: GenerationResult) -> None:
-        """Prefill ``prompt`` on server ``si``, then decode ``steps``
-        tokens into ``res``.  Owns its reservation and slot, released on
-        any exit."""
+        """One attempt on server ``si``: prefill the retained prefix, then
+        decode until ``res`` holds ``steps`` tokens.  Owns its reservation
+        and slot, released on any exit, so a failed attempt leaks nothing.
+
+        Token accounting keeps recovery exact: on the first attempt the
+        prefill argmax is the input of decode step 0 (recorded, not
+        appended); on a recovery attempt the prefix already contains that
+        token, so the re-prefill's last-position argmax is the failed
+        step's output and is appended directly.  The reservation shrinks in
+        step: prefix_len + remaining_feeds == prompt_len + steps always."""
         spec = self._streams[name]
         prio = self.straggler.boost(name, spec.priority)
-        true_len = int(prompt.shape[0])
+        prefix = log.retained_prefix()
+        true_len = int(prefix.shape[0])
+        append_first = log.first_token is not None
+        feeds = steps - len(res.tokens) - (1 if append_first else 0)
         bucket = bucket_up(true_len, self.prefill_buckets)
         if self._warm_prefill:
             # precompile warmed a subset of pad lengths: steer to the
@@ -822,56 +1351,111 @@ class ServeEngine:
                            if b >= true_len})
             if warm:
                 bucket = warm[0]
+        # every submit is pinned to server object ``si`` -- not routed by
+        # stream name -- so if a concurrent recovery re-binds this stream
+        # mid-attempt, the next segment hits the dead server and raises
+        # ServerFailedError instead of running against the new server's
+        # pools with this attempt's (old-server) block table
         server = self.pool.servers[si]
-        seq_id, table, slab, seg = self._paged_reserve(si, name, true_len,
-                                                       steps, bucket)
+        table = None
+        slab = seg = 0
+        if self.paged:
+            seq_id, table, slab, seg = self._paged_reserve(
+                si, name, true_len, feeds, bucket)
+        else:
+            seq_id = self._kv_reserve(name, prefix[None, :], feeds)
         try:
             slot = self._acquire_slot(si)
+            self._active_jobs[name] = si
             try:
                 t0 = time.monotonic()
                 row_logits, cache, src_row = server.submit_batch(
-                    (prompt, true_len),
+                    (prefix, true_len),
                     run_batch=self._run_prefill_batch(si, bucket),
                     batch_key=("prefill", si, bucket), priority=prio,
                     name=f"{name}/prefill").wait()
-                server.submit(
-                    lambda: self._insert_slot_paged(si, cache, src_row, table,
-                                                    slab, seg),
-                    priority=prio, name=f"{name}/insert").wait()
+                if self.paged:
+                    insert = (lambda: self._insert_slot_paged(
+                        si, cache, src_row, table, slab, seg))
+                else:
+                    insert = (lambda: self._insert_slot(si, slot, cache,
+                                                        src_row))
+                server.submit(insert, priority=prio,
+                              name=f"{name}/insert").wait()
+                cache = None  # the server holds the inserted row now
                 res.prefill_latency_s = time.monotonic() - t0
                 self.straggler.observe(name, res.prefill_latency_s * 1e3)
+
                 token = int(np.argmax(row_logits))
+                if append_first:  # recovery attempt: resume point reached
+                    res.resumed_at_monotonic.append(time.monotonic())
+                    res.tokens.append(token)
+                    log.generated.append(token)
+                else:
+                    log.first_token = token
                 length = true_len
-                run_batch = self._run_paged_decode(si)
-                for i in range(steps):
+                run_batch = (self._run_paged_decode(si) if self.paged
+                             else self._run_decode_batch(si))
+                i = 0
+                while len(res.tokens) < steps:
+                    if name in self._shed:
+                        raise StreamShedError(
+                            f"stream {name!r} shed by degraded-mode "
+                            "admission")
+                    if self.paged:
+                        # planned migration (steal / consolidate / drain):
+                        # the stream's own thread moves its cache at this
+                        # step boundary -- no decode of this stream can be
+                        # in flight, so the copy sees a quiescent sequence
+                        dst = self.pool.pending_migration(name)
+                        if (dst is not None and dst != si
+                                and dst in self.pool.alive_servers()):
+                            dst_slot = self._try_acquire_slot(dst)
+                            if dst_slot is None:
+                                # destination full right now: abandon the
+                                # steal rather than block holding our slot
+                                self.pool.cancel_migration(name)
+                            else:
+                                try:
+                                    table, slab, seg = (
+                                        self._execute_migration(
+                                            name, seq_id, si, dst, prio))
+                                except OutOfBlocksError:
+                                    self._release_slot(dst, dst_slot)
+                                    self.pool.cancel_migration(name)
+                                except BaseException:
+                                    self._release_slot(dst, dst_slot)
+                                    raise
+                                else:
+                                    self._release_slot(si, slot)
+                                    slot, si = dst_slot, dst
+                                    server = self.pool.servers[si]
+                                    run_batch = self._run_paged_decode(si)
+                                    self._active_jobs[name] = si
+                                    self.pool.complete_migration(name)
+                    payload = ((token, table, length, slab, seg)
+                               if self.paged else (slot, token))
                     t1 = time.monotonic()
                     row = server.submit_batch(
-                        (token, table, length, slab, seg),
-                        run_batch=run_batch, batch_key=("decode", si),
-                        priority=prio, name=f"{name}/decode{i}").wait()
+                        payload, run_batch=run_batch,
+                        batch_key=("decode", si), priority=prio,
+                        name=f"{name}/decode{i}").wait()
                     dt = time.monotonic() - t1
                     res.decode_latencies_s.append(dt)
                     self.straggler.observe(name, dt * 1e3)
                     token = int(np.argmax(row))
                     length += 1
                     res.tokens.append(token)
+                    log.generated.append(token)
+                    i += 1
             finally:
+                self._active_jobs.pop(name, None)
                 self._release_slot(si, slot)
         finally:
-            self._paged_release(si, seq_id)
-
-    def _acquire_slot(self, si: int) -> int:
-        state = self._slots[si]
-        with state.cond:
-            while not state.free:
-                state.cond.wait()
-            return state.free.pop()
-
-    def _release_slot(self, si: int, slot: int) -> None:
-        state = self._slots[si]
-        with state.cond:
-            state.free.append(slot)
-            state.cond.notify()
+            if self.paged:
+                self._paged_release(si, seq_id)
+            else:
+                self._kv_release(seq_id)
 
     # -- unbatched KV accounting --------------------------------------------
     def _kv_reserve(self, name: str, prompt: np.ndarray, steps: int):
@@ -888,8 +1472,365 @@ class ServeEngine:
             except Exception:
                 self.kv.free_seq(seq_id)
                 raise
+        with self._mig_lock:
             self._held.setdefault(name, set()).add((None, seq_id))
         return seq_id
+
+    def _kv_release(self, seq_id) -> None:
+        if seq_id is None:
+            return
+        with self._mig_lock:
+            held = self._held.get(seq_id.rsplit("#", 1)[0])
+            if held is not None:
+                held.discard((None, seq_id))
+        with self._kv_lock:
+            self.kv.free_seq(seq_id, missing_ok=True)
+
+    # -- fault tolerance ----------------------------------------------------
+    def enable_fault_tolerance(self, *, heartbeat_timeout_s: float = 0.5,
+                               poll_s: float = 0.02, max_retries: int = 2,
+                               retry_backoff_s: float = 0.005,
+                               watchdog: bool = False) -> "ServeEngine":
+        """Switch on failure detection + stream recovery.
+
+        Wires the pool's HeartbeatMonitor (servers beat between device
+        calls, so a call outlasting ``heartbeat_timeout_s`` is a stall --
+        the monitor thread evicts the server from outside, making the
+        timeout per-device-call), sets each server's transient-error retry
+        budget, optionally attaches a StepTimeWatchdog, and installs
+        ``_on_server_death`` as the pool's death handler so eviction flows
+        into degraded-mode re-admission instead of blind re-routing.  Warm
+        every cell first: an eager call longer than the timeout is taken
+        for a stall.  Returns self for chaining."""
+        self._ft_params = {"max_retries": max_retries,
+                           "retry_backoff_s": retry_backoff_s,
+                           "watchdog": watchdog}
+        for s in self.pool.servers:
+            s.max_retries = max_retries
+            s.retry_backoff_s = retry_backoff_s
+            if watchdog and s.watchdog is None:
+                s.watchdog = StepTimeWatchdog()
+        self.pool.enable_failure_detection(
+            timeout=heartbeat_timeout_s, poll=poll_s,
+            on_death=self._on_server_death)
+        return self
+
+    def _on_server_death(self, si: int, displaced=None) -> None:
+        """Single recovery entry point, reached from the heartbeat monitor
+        (stall), a server's own failure callback (device loss), or a client
+        thread that caught ServerFailedError.  Serialized and idempotent:
+        whichever caller evicts the server runs degraded-mode re-admission;
+        everyone else returns once it is done.
+
+        Surviving displaced streams are re-bound to the device degraded
+        admission proved them on (with their priced recovery segment);
+        unfitting streams are shed in reverse-priority order and their
+        generator threads observe ``_shed`` at the next segment boundary.
+        The dead server's pools and graphs are never used again."""
+        with self._recovery_lock:
+            if displaced is None:
+                displaced = self.pool.evict_server(si, reroute=False)
+            if displaced is None:
+                return  # another caller already recovered this server
+            # migration race window: a stream whose admission slot already
+            # moved to its steal destination (admission.migrate committed,
+            # pool binding not yet flipped) was displaced here but will NOT
+            # be re-placed by evict_device -- re-bind it to its live
+            # admission placement instead of dropping it
+            for s in list(displaced):
+                d = self.admission.placement.get(s)
+                if d is not None and d != si and self.admission.alive[d]:
+                    task = next(t for t in self.admission.devices[d].streams
+                                if t.name == s)
+                    self.pool.reassign(s, d, utilization=task.G / task.T,
+                                       priority=task.priority)
+                    displaced.pop(s)
+            report = self.admission.evict_device(
+                si, recovery_cost_ms=self._recovery_cost_ms)
+            for s, d in report.moved.items():
+                task = next(t for t in self.admission.devices[d].streams
+                            if t.name == s)
+                self.pool.reassign(s, d, utilization=task.G / task.T,
+                                   priority=task.priority)
+            for s in report.shed:
+                self._shed.add(s)
+            self.degraded_reports.append(report)
+
+    def _recovery_cost_ms(self, task: Task) -> float:
+        """Price a stream's recovery segment -- the re-prefill of its
+        retained prefix on the surviving device.  Declared worst case is
+        the stream's own prefill cost; a fitted cost model caps it at the
+        predicted cost of the largest prefill bucket (never upward,
+        mirroring calibrated admission's min())."""
+        spec = self._streams.get(task.name)
+        declared = (spec.prefill_ms if spec is not None
+                    else task.segments[0].total)
+        if self.cost_model is not None:
+            pred = self.cost_model.predict(self._prefill_kind, 1,
+                                           self.prefill_buckets[-1])
+            if math.isfinite(pred):
+                pred_ms = pred * getattr(self.cost_model, "safety", 1.0) * 1e3
+                declared = min(declared, pred_ms) if declared > 0 else pred_ms
+        return float(declared)
+
+    # -- work stealing / consolidation / elastic scale ---------------------
+    def _migration_cost_ms(self, name: str) -> float:
+        """Price a steal of ``name``: gather + scatter of a full-width
+        block table (worst case -- the mover pays for every lane whether
+        live or scratch-padded) at the cost model's measured "migrate"
+        cell, with the calibration safety margin.  0 when uncalibrated or
+        unmeasured -- the depth-gap rule decides instead."""
+        if not self.paged or self.cost_model is None:
+            return 0.0
+        w = bucket_up(self._paged[0].nb_max, self.width_buckets)
+        pred = self.cost_model.predict(self._migrate_kind, w,
+                                       self.kv_block_size)
+        if not math.isfinite(pred):
+            return 0.0
+        return 2.0 * pred * getattr(self.cost_model, "safety", 1.0) * 1e3
+
+    def _steal_profitable(self, name: str, depth_src: int, depth_dst: int,
+                          mc_ms: float, min_gain_ms: float) -> bool:
+        """Steal only when predicted queueing relief beats the move's cost:
+        the victim's remaining decode steps each save the difference
+        between a depth_src-row and a (depth_dst+1)-row batched decode
+        step.  Without a cost model (or an unmeasured decode phase), fall
+        back to the depth-gap >= 2 rule -- stealing across a 1-deep gap just
+        thrashes."""
+        if self.cost_model is None:
+            return depth_src - depth_dst >= 2
+        spec = self._streams.get(name)
+        if spec is None:
+            return False
+        w = self.width_buckets[-1] if self.width_buckets else 0
+        c_src = self.cost_model.predict(
+            self._decode_kind, bucket_up(depth_src, self._row_buckets), w)
+        c_dst = self.cost_model.predict(
+            self._decode_kind, bucket_up(depth_dst + 1, self._row_buckets),
+            w)
+        if not (math.isfinite(c_src) and math.isfinite(c_dst)):
+            return depth_src - depth_dst >= 2
+        gain_ms = spec.decode_steps * max(0.0, c_src - c_dst) * 1e3
+        return gain_ms - mc_ms >= min_gain_ms
+
+    def rebalance_once(self, *, min_gain_ms: float | None = None) -> int:
+        """One work-stealing pass: move queued-behind streams from the
+        deepest server onto the shallowest until the depth gap closes or
+        no move is profitable.  Returns the number of steals REQUESTED --
+        each victim's own thread performs the copy at its next decode-step
+        boundary (see _attempt_batched), so depth accounting here counts
+        pending migrations at their destination to avoid over-stealing
+        while copies are in flight.
+
+        Runs on the heartbeat tick (or the fallback timer thread) and
+        yields to recovery: if ``_recovery_lock`` is held the pass is
+        skipped -- rebalancing mid-eviction would race degraded-mode
+        re-admission."""
+        if min_gain_ms is None:
+            min_gain_ms = self._steal_min_gain_ms
+        if not self._recovery_lock.acquire(blocking=False):
+            return 0
+        try:
+            stolen = 0
+            draining = self.pool.draining()
+            live = [i for i in self.pool.alive_servers()
+                    if i not in draining]
+            if len(live) < 2:
+                return 0
+            while True:
+                depths = {i: 0 for i in live}
+                for nm, si in list(self._active_jobs.items()):
+                    if si not in depths:
+                        continue
+                    pd = self.pool.pending_migration(nm)
+                    depths[pd if pd in depths else si] += 1
+                src = max(depths, key=lambda i: (depths[i], i))
+                dst = min(depths, key=lambda i: (depths[i], -i))
+                if depths[src] - depths[dst] < 2:
+                    return stolen
+                victims = sorted(
+                    (nm for nm, si in list(self._active_jobs.items())
+                     if si == src and nm in self._streams
+                     and nm not in self._shed
+                     and self.pool.pending_migration(nm) is None),
+                    key=lambda nm: self._streams[nm].priority)
+                moved_one = False
+                for victim in victims:
+                    mc = self._migration_cost_ms(victim)
+                    if not self._steal_profitable(victim, depths[src],
+                                                  depths[dst], mc,
+                                                  min_gain_ms):
+                        continue
+                    decision, d = self.admission.migrate(
+                        victim, dst, migration_cost_ms=mc)
+                    if d < 0:
+                        continue
+                    if not self.pool.request_migration(victim, dst):
+                        # stream vanished / destination became illegal
+                        # between the admission move and the intent: put
+                        # the admission slot back (best-effort -- if the
+                        # stream is gone this is a no-op too)
+                        self.admission.migrate(victim, src)
+                        continue
+                    stolen += 1
+                    moved_one = True
+                    break
+                if not moved_one:
+                    return stolen
+        finally:
+            self._recovery_lock.release()
+
+    def enable_work_stealing(self, *, interval_s: float = 0.05,
+                             min_gain_ms: float = 0.0) -> "ServeEngine":
+        """Switch on periodic rebalancing.  Piggybacks on the heartbeat
+        monitor's tick when fault tolerance is enabled (one thread, one
+        cadence, same teardown guarantees); otherwise runs a dedicated
+        daemon timer at ``interval_s``.  ``min_gain_ms`` is the minimum
+        predicted net win (queueing relief minus migration cost) before a
+        steal fires.  Returns self for chaining."""
+        self._steal_min_gain_ms = float(min_gain_ms)
+
+        def tick() -> None:
+            try:
+                self.rebalance_once()
+            except Exception:  # best-effort: keep the timer/monitor alive
+                logging.getLogger(__name__).exception(
+                    "work-stealing pass failed")
+
+        if self.pool._monitor is not None:
+            self.pool._monitor.on_tick = tick
+            return self
+        stop = threading.Event()
+        self._steal_stop = stop
+
+        def loop() -> None:
+            while not stop.wait(interval_s):
+                tick()
+
+        threading.Thread(target=loop, daemon=True,
+                         name="steal-rebalance").start()
+        return self
+
+    def consolidate(self, si: int) -> dict[str, int]:
+        """Drain server ``si`` by moving every stream it owns elsewhere:
+        streams with a job in flight get a migration intent (their own
+        thread moves the cache at the next step boundary); idle streams are
+        re-bound directly (nothing to copy -- their next job prefills on
+        the new server).  Each move is re-proven by admission first; a
+        stream no destination can prove STAYS PUT and keeps running on the
+        draining server (consolidation is an optimization, never a shed).
+        Returns {stream: destination}.  ``remove_server`` completes the
+        retirement once the server is empty."""
+        self.pool.begin_drain(si)
+        draining = self.pool.draining()
+        dests = sorted((d for d in self.pool.alive_servers()
+                        if d != si and d not in draining),
+                       key=self.admission.gpu_utilization)
+        moved: dict[str, int] = {}
+        for name in self.pool.streams_on(si):
+            active = self._active_jobs.get(name) == si
+            mc = self._migration_cost_ms(name) if active else 0.0
+            got = -1
+            for d in dests:
+                _, got = self.admission.migrate(name, d,
+                                                migration_cost_ms=mc)
+                if got >= 0:
+                    break
+            if got < 0:
+                continue
+            if active:
+                self.pool.request_migration(name, got)
+            else:
+                task = next(t for t in self.admission.devices[got].streams
+                            if t.name == name)
+                self.pool.reassign(name, got, utilization=task.G / task.T,
+                                   priority=task.priority)
+            moved[name] = got
+            dests.sort(key=self.admission.gpu_utilization)
+        return moved
+
+    def add_server(self) -> int:
+        """Elastic scale-up: grow the pool AND the admission partition by
+        one device mid-traffic; returns the new server index.  The server
+        inherits the pool's fault-tolerance settings (retry budget,
+        watchdog, heartbeat wiring -- the pool handles the monitor), gets
+        its own CUDA stream, slot and paged state, and warms its pools on
+        its own thread.  Graphs belong to one server, so every warm cell
+        (decode, prefill, migration) is run and captured there while the
+        other servers serve.  Until that is done the server is no steal
+        destination (``rebalance_once`` yields to ``_recovery_lock``) and
+        admission does not know the device, so its first request replays
+        as the others' do; a recovery meanwhile waits for the capture."""
+        with self._recovery_lock:
+            si = self.pool.add_server()
+            if self._cuda_streams is not None:
+                self._cuda_streams.append(torch.cuda.Stream(self.device))
+            if self.batching:
+                self._slots.append(_SlotState(self.max_batch))
+            if self.paged:
+                self._paged.append(self._paged_state())
+            s = self.pool.servers[si]
+            if self._ft_params is not None:
+                s.max_retries = self._ft_params["max_retries"]
+                s.retry_backoff_s = self._ft_params["retry_backoff_s"]
+                if self._ft_params["watchdog"] and s.watchdog is None:
+                    s.watchdog = StepTimeWatchdog()
+            if self.batching:
+                cells = (sorted(self._warm_decode),
+                         sorted(self._warm_prefill),
+                         sorted(self._warm_migrate))
+                s.submit(lambda: self._precompile_server(si, *cells),
+                         name=f"precompile-{si}").wait()
+            di = self.admission.add_device()
+            if si != di:
+                raise RuntimeError(
+                    f"pool/admission index drift: server {si} vs device "
+                    f"{di}")
+        return si
+
+    def remove_server(self, si: int, *, timeout_s: float = 10.0) -> None:
+        """Elastic scale-down: drain server ``si``, migrate its streams to
+        proven destinations (live cache migration for in-flight streams, a
+        plain re-bind for idle ones), shed what the shrunk pool cannot
+        prove, wait for the server to empty, and retire it.  Unlike
+        ``consolidate`` this is a committed shrink -- admission re-proves
+        the whole placement via ``drain_device`` (the machinery of failure
+        eviction, priced as a cache copy instead of a re-prefill) and
+        appends the resulting DegradedReport.  The retired server's pools,
+        slot cache and graphs are released.  Raises TimeoutError if
+        in-flight work does not clear in ``timeout_s``."""
+        with self._recovery_lock:
+            self.pool.begin_drain(si)
+            report = self.admission.drain_device(
+                si, migration_cost_ms=lambda t: self._migration_cost_ms(
+                    t.name))
+            for s, d in report.moved.items():
+                if self._active_jobs.get(s) == si:
+                    self.pool.request_migration(s, d)
+                else:
+                    task = next(t for t in self.admission.devices[d].streams
+                                if t.name == s)
+                    self.pool.reassign(s, d, utilization=task.G / task.T,
+                                       priority=task.priority)
+            for s in report.shed:
+                self._shed.add(s)
+                self.pool.remove(s)
+            self.degraded_reports.append(report)
+        deadline = time.monotonic() + timeout_s
+        while (any(d == si for d in self._active_jobs.values())
+               or self.pool.streams_on(si)):
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"server {si} did not drain within {timeout_s}s")
+            time.sleep(0.005)
+        self.pool.retire_server(si)
+        # the server's thread has joined: nothing reads its device state
+        if self.batching:
+            slots = self._slots[si]
+            slots.cache, slots.graphs, slots.graph_pool = None, {}, None
+        if self.paged:
+            state = self._paged[si]
+            state.pools, state.graphs, state.graph_pool = None, {}, None
 
     # -- occupancy and teardown ---------------------------------------------
     def kv_usage(self) -> dict:
@@ -911,26 +1852,44 @@ class ServeEngine:
         return sum(self.kv_usage().values())
 
     def close(self) -> None:
+        if self._steal_stop is not None:
+            self._steal_stop.set()
         self.pool.shutdown()
 
     # -- engine features of later slices ------------------------------------
     def static_cell_costs(self, cells=None) -> dict:
-        _not_ported("static cell pricing", "A5")
+        raise NotImplementedError(
+            "static cell pricing is not ported yet (ROADMAP A5)")
 
-    def enable_fault_tolerance(self, **kwargs) -> "ServeEngine":
-        _not_ported("fault tolerance and stream recovery", "A10")
 
-    def rebalance_once(self, **kwargs) -> int:
-        _not_ported("work stealing", "A10")
+def _cache_batch_axes(cfg, max_seq: int) -> list[tuple]:
+    """Per leaf of the dense decode cache (``_cache_leaves`` order): (batch
+    axis, what one decode step writes of a row, the sequence axis or None).
+    Found by diffing ``init_cache`` shapes on the meta device -- 1 and 2
+    rows give the batch axis, ``max_seq`` and ``2 * max_seq`` the sequence
+    axis, two encoder lengths the leaves that follow the encoder's output:
 
-    def enable_work_stealing(self, **kwargs) -> "ServeEngine":
-        _not_ported("work stealing", "A10")
+      "seq"   one position per row, at the row's ``pos`` (attention K/V);
+      "read"  nothing: the cross-attention K/V, which decode only reads;
+      "state" the whole row (the SSM conv window and recurrent state)."""
 
-    def consolidate(self, si: int) -> dict:
-        _not_ported("consolidation (live KV migration)", "A10")
+    def leaves(rows, seq, **change):
+        c = dataclasses.replace(cfg, **change) if change else cfg
+        return _cache_leaves(M.init_cache(c, rows, seq, device="meta"))
 
-    def add_server(self) -> int:
-        _not_ported("elastic scale-up", "A10")
+    def diff(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                     if x != y), None)
 
-    def remove_server(self, si: int, **kwargs) -> None:
-        _not_ported("elastic scale-down", "A10")
+    out = []
+    for one, two, longer, enc in zip(
+            leaves(1, max_seq), leaves(2, max_seq), leaves(1, 2 * max_seq),
+            leaves(1, max_seq, encoder_seq=cfg.encoder_seq + 1)):
+        bax = diff(one, two)
+        if bax is None:
+            raise ValueError(f"no batch axis in cache leaf {tuple(one.shape)}")
+        sax = diff(one, longer)
+        role = ("seq" if sax is not None
+                else "read" if diff(one, enc) is not None else "state")
+        out.append((bax, role, sax))
+    return out

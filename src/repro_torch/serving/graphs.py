@@ -52,12 +52,18 @@ class GraphCell:
                 raise
             self.graph.capture_end()
 
-    def replay(self, *arrays: np.ndarray):
-        """Copy ``arrays`` into the static inputs (one host-to-device copy
-        each, on the current stream), replay the graph there and return its
-        static outputs."""
+    def load(self, *arrays) -> None:
+        """Copy ``arrays`` (numpy arrays or tensors) into the static inputs:
+        one copy each, on the current stream."""
         for dst, src in zip(self.inputs, arrays, strict=True):
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+            dst.copy_(src if isinstance(src, torch.Tensor)
+                      else torch.from_numpy(np.ascontiguousarray(src)))
+
+    def replay(self, *arrays):
+        """:meth:`load` ``arrays`` when given, replay the graph on the
+        current stream and return its static outputs."""
+        if arrays:
+            self.load(*arrays)
         self.graph.replay()
         _build.add_launches(self.launches)
         return self.outputs

@@ -1031,7 +1031,9 @@ class TestCudaGraphCells:
         eng, rep = _graph_engine(arch, cuda)
         try:
             state = eng._paged[0]
-            assert rep.captured == len(state.graphs) == rep.compiled > 0
+            # a migration width is two graphs: its gather and its scatter
+            assert rep.captured == len(state.graphs) == (
+                rep.compiled + len(rep.migrate_cells)) > 0
             rows, w = max(rep.decode_cells)
             cell = state.graphs[("decode", rows, w)]
             pack = _decode_pack(state, rows, w)
@@ -1190,3 +1192,126 @@ def test_vlm_engine_on_the_card(cuda):
         assert expected["paged_decode_attention"] > 0
     finally:
         eng.close()
+
+
+def _a10_streams(eng, prompts, steps, during=None):
+    import threading
+
+    from repro_torch.serving.engine import StreamSpec
+
+    for i, n in enumerate(prompts):
+        assert eng.admit(StreamSpec(
+            name=n, priority=len(prompts) - i, period_ms=8000.0,
+            deadline_ms=8000.0, prefill_ms=50.0, decode_ms=5.0,
+            decode_steps=steps)).admitted
+    got = {}
+    threads = [threading.Thread(target=lambda n=n: got.__setitem__(
+        n, eng.generate(n, prompts[n], steps=steps).tokens))
+        for n in prompts]
+    for t in threads:
+        t.start()
+    if during is not None:
+        during()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    return got
+
+
+@pytest.mark.cuda
+class TestCudaEngineA10:
+    """Recovery, migration, elasticity and the masked-dense layout on the
+    card at reduced size in fp32, every warm cell a graph: tokens equal
+    unbatched ``generate``'s and every call of the traffic replays."""
+
+    STEPS = 6
+
+    def _setup(self, arch, cuda):
+        import numpy as np
+
+        from repro_torch.serving.engine import ServeEngine
+
+        eng, _ = _graph_engine(arch, cuda)
+        cfg, params = eng.cfg, eng.params
+        eng.close()
+        prompts = {f"a{i}": (np.arange(1, n + 1, dtype=np.int32)[None] * 3)
+                   % 128 for i, n in enumerate([3, 6, 9, 13])}
+        ref = ServeEngine(cfg, params, max_seq=32, device=cuda)
+        want = {n: _a10_streams(ref, {n: p}, self.STEPS)[n]
+                for n, p in prompts.items()}
+        ref.close()
+        return cfg, params, prompts, want
+
+    @pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+    def test_masked_dense_replays_and_keeps_inactive_rows(self, cuda, arch):
+        from repro_torch.serving.engine import ServeEngine, _cache_leaves
+
+        cfg, params, prompts, want = self._setup(arch, cuda)
+        eng = ServeEngine(cfg, params, max_seq=32, num_servers=1,
+                          batching=True, max_batch=6, paged=False,
+                          kv_block_size=8, device=cuda)
+        try:
+            rep = eng.precompile(prompt_buckets=(4, 8, 16))
+            assert rep.captured == rep.compiled
+            cache = eng._slots[0].cache
+            rows = [leaf.select(ax, 0).clone() for leaf, (ax, _, _) in
+                    zip(_cache_leaves(cache), eng._batch_axes)]
+            assert _a10_streams(eng, prompts, self.STEPS) == want
+            meta = eng.pool.servers[0].stats.batch_meta
+            assert meta and all(m["graphed"] for m in meta)
+            # slot 0 (precompile's scratch row) was never acquired
+            for leaf, (ax, _, _), row in zip(_cache_leaves(cache),
+                                             eng._batch_axes, rows):
+                assert torch.equal(leaf.select(ax, 0), row)
+        finally:
+            eng.close()
+
+    @pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+    def test_migration_and_added_server_replay(self, cuda, arch):
+        from repro_torch.serving.engine import ServeEngine
+
+        cfg, params, prompts, want = self._setup(arch, cuda)
+        eng = ServeEngine(cfg, params, max_seq=32, num_servers=2,
+                          batching=True, max_batch=4, paged=True,
+                          kv_block_size=8, device=cuda)
+        try:
+            eng.precompile(prompt_buckets=(4, 8, 16))
+            si = eng.add_server()
+            assert len(eng._paged[si].graphs) == len(eng._paged[0].graphs)
+
+            def move():
+                mover = next(iter(prompts))
+                src = eng.pool.server_of(mover)
+                dst = si if src != si else 0
+                assert eng.admission.migrate(mover, dst)[1] == dst
+                assert eng.pool.request_migration(mover, dst)
+
+            assert _a10_streams(eng, prompts, self.STEPS, during=move) == want
+            assert eng.migrations_completed == 1
+            meta = [m for s in eng.pool.servers for m in s.stats.batch_meta]
+            assert all(m["graphed"] for m in meta)
+            assert sum(m["kind"].startswith("migrate") for m in meta) == 2
+            assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
+        finally:
+            eng.close()
+
+    def test_recovery_replays_on_the_survivor(self, cuda):
+        from repro_torch.runtime.faultinject import FaultInjector, ServerFault
+        from repro_torch.serving.engine import ServeEngine
+
+        cfg, params, prompts, want = self._setup("internlm2_1_8b", cuda)
+        eng = ServeEngine(cfg, params, max_seq=32, num_servers=2,
+                          batching=True, max_batch=4, paged=True,
+                          kv_block_size=8, device=cuda)
+        try:
+            eng.precompile(prompt_buckets=(4, 8, 16, 32))
+            eng.enable_fault_tolerance(heartbeat_timeout_s=30.0)
+            eng.pool.attach_fault_injector(FaultInjector(
+                [ServerFault(server=0, at_call=6, kind="die")]))
+            assert _a10_streams(eng, prompts, self.STEPS) == want
+            assert len(eng.degraded_reports) == 1
+            assert all(m["graphed"] for m in
+                       eng.pool.servers[1].stats.batch_meta)
+            assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
+        finally:
+            eng.close()

@@ -10,8 +10,9 @@ The bar: paged batched greedy tokens equal the unbatched dense path's and
 the JAX engine's on the same weights and prompts; each server holds
 exactly one segment while its streams run; afterwards every pool kind
 reads zero in ``kv_usage``; calls are recorded under the family-tagged
-kinds ``prefill@encdec`` and ``decode@encdec``.  Migration is not ported
-yet (ROADMAP A10).
+kinds ``prefill@encdec`` and ``decode@encdec``.  Migration, and a
+migrated stream joining a resident segment, are held in
+test_torch_paged_families.py.
 
 Config: whisper-medium reduced (2 + 2 layers, d 64, 16 frames) and the
 same with 20 frames and group size 1, fp32, on the CPU (every kernel

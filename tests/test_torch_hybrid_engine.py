@@ -9,7 +9,8 @@ the JAX engine's on the same weights and prompts; each stream holds blocks
 and a slab of its own (never the scratch ones) and the rest of the pools
 keeps its bits; afterwards every pool kind reads zero in ``kv_usage``;
 calls are recorded under the family-tagged kinds ``prefill@hybrid`` and
-``decode@hybrid``.  Migration is not ported yet (ROADMAP A10).
+``decode@hybrid``.  Migration of both kinds is held in
+test_torch_paged_families.py.
 
 Config: zamba2-7b reduced (G 2, PG 1, R 1) and the same with 8 layers
 every 3rd shared (G 2, PG 2, R 2), fp32, on the CPU (every kernel takes

@@ -27,13 +27,17 @@ COPIES = (
                                 "admission", "server_runtime")]
     + [f"core/dispatch/{m}.py" for m in ("__init__", "policy", "batching",
                                          "pool")]
-    + ["runtime/straggler.py", "serving/kvcache.py", "analysis/cost_model.py",
-       "analysis/roofline.py"])
+    + ["runtime/straggler.py", "runtime/faultinject.py", "serving/kvcache.py",
+       "analysis/cost_model.py", "analysis/roofline.py"])
 
-# classes the port copies word for word out of a module it does not copy
-# whole: (module, class names)
+# classes and functions the port copies word for word out of a module it
+# does not copy whole: (module, names)
 CLASS_COPIES = [("runtime/fault_tolerance.py", ("WorkerState",
-                                                "HeartbeatMonitor"))]
+                                                "HeartbeatMonitor")),
+                ("runtime/elastic.py", ("plan_after_failure",
+                                        "degraded_throughput_fraction",
+                                        "LoadTrajectory",
+                                        "ElasticPoolController"))]
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
@@ -69,10 +73,12 @@ def test_copies_differ_only_by_package_name(rel):
 
 
 def _class_text(path: pathlib.Path, name: str) -> str:
-    """The source lines of class ``name``, its decorators included."""
+    """The source lines of class or function ``name``, its decorators
+    included."""
     text = path.read_text()
     node = next(n for n in ast.parse(text).body
-                if isinstance(n, ast.ClassDef) and n.name == name)
+                if isinstance(n, (ast.ClassDef, ast.FunctionDef))
+                and n.name == name)
     first = min([node.lineno] + [d.lineno for d in node.decorator_list])
     return "\n".join(text.splitlines()[first - 1:node.end_lineno])
 
