@@ -143,11 +143,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
        launches per call);
 8. launch counts of every kernel over phases 4-7 (each must be non-zero),
    then one JSON line describing every kernel;
+9. static cell pricing (``ServeEngine.static_cell_costs``, on meta twins
+   of the weights and pools: it launches nothing, so phase 8's counts do
+   not move), inside the phases above, on each engine once its traffic
+   is counted:
+   9.1. each bf16 engine of phases 5-5f prices every warm decode, prefill
+       and migrate cell (flops / bytes per cell, the seconds it took; the
+       launch counters, the graphs and the warm sets must not change); the
+       GQA decode cell's flops beside the analytic count;
+   9.2. a ``StepCostModel`` with those static features and one with the
+       default (rows, rows*width) ones, each scored leave one out on the
+       measured cells (median and worst relative error per phase); in each
+       fp32 phase, the one migrate cell phase 7b measured predicts every
+       other width from its static bytes (per-cell table in
+       ``chiprun_out/static_pricing.txt``);
+   9.3. phase 7a's engines run with the fitted model attached (fp32: the
+       model of phase 4's run; bf16: of phase 5's): ``_recovery_cost_ms``
+       and ``_migration_cost_ms`` beside the measured re-prefill and
+       migration and the declared 50 ms; fp32 tokens still equal
+       unbatched;
+   9.4. the paper's ``measured_costs`` scenario on the bf16 GQA model
+       beside ``default_cost_model()``, the reference's CPU timings;
 
 Every phase 4-5f serves graphed (phase 5 also eagerly), checks its
 launches against the cells' counts, profiles its decode step both ways
 and prints its peak device memory.
-9. last line: ``{"ok": true, "device": {...}}``.
+10. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-from TREE
 
@@ -1437,7 +1458,7 @@ def run_streams(eng, prompts, *, during=None, timeout=900):
 
 
 def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None,
-                  paged=True, during=None, probe=None):
+                  paged=True, during=None, probe=None, after=None):
     """4 streams on 2 servers through the batched engine, paged or
     masked-dense.  With ``graphs``, ``precompile`` warms and captures every
     cell first and every device call of the traffic must replay a graph;
@@ -1446,7 +1467,9 @@ def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None,
     the captured counts, or those of an earlier graphed run of the same
     model).  ``during(eng)`` runs while the streams do (its result is
     ``run["during"]``); ``probe(eng)``, called before the traffic, returns a
-    check that runs after it (its result is ``run["probe"]``)."""
+    check that runs after it (its result is ``run["probe"]``);
+    ``after(eng)`` runs once the traffic's launches are counted, before
+    the engine closes (its result is ``run["after"]``)."""
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import PrecompileReport, ServeEngine
 
@@ -1475,7 +1498,7 @@ def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None,
             return out
 
         eng._paged_reserve = reserve_and_count
-        after = probe(eng) if probe is not None else None
+        after_probe = probe(eng) if probe is not None else None
         _build.reset_launches()  # count the traffic's launches, not warm-up's
         for i, name in enumerate(prompts):
             if not eng.admit(_spec(name, len(prompts) - i)).admitted:
@@ -1492,6 +1515,7 @@ def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None,
                                f", e.g. {eager[0]}")
         calls = [m for m in meta if m["kind"] == eng._decode_kind]
         prefills = [m for m in meta if m["kind"] == eng._prefill_kind]
+        priced = after(eng) if after is not None else None
         return dict(results=results, servers=servers, usage=usage,
                     segments_peak=segments, wall_s=wall_s, warm_s=warm_s,
                     precompile=rep, graphs=graphs, cells=cells,
@@ -1499,7 +1523,8 @@ def serve_batched(cfg, params, prompts, dev, *, graphs=True, cells=None,
                     prefill_calls=prefills, during=seen,
                     migrations=[m for m in meta
                                 if m["kind"] == eng._migrate_kind],
-                    probe=after() if after is not None else None,
+                    probe=after_probe() if after_probe is not None else None,
+                    after=priced,
                     slots_free=[len(st.free) for st in eng._slots],
                     kinds={m["kind"] for m in meta})
     finally:
@@ -1618,12 +1643,15 @@ def fp32_phase(tag, cfg, prompts, dev, card, *, family_tag, check=None,
     equal unbatched ``generate``'s, every call replay a graph and the
     launches match the cells' counts; then the masked-dense layout on the
     same traffic (phase 7d).  ``check(tag, run)`` adds the family's own
-    checks, ``extra(cfg, params, ref)`` a model-level one (its launches,
-    a Counter or None, are counted).  Returns the launch counts of every
-    run."""
+    checks, ``extra(cfg, params, ref, priced)`` a model-level one (its
+    launches, a Counter or None, are counted; ``priced`` is phase 9's
+    migrate case on the graphed run's engine).  Returns the launch counts
+    of every run."""
     torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(cfg, dev, tag)
-    run = serve_batched(cfg, params, prompts, dev, during=migrate_mid_decode)
+    run = serve_batched(cfg, params, prompts, dev, during=migrate_mid_decode,
+                        after=lambda eng: migrate_pricing(
+                            f"{tag} phase 9", eng, card))
     ref, ref_launches = serve_unbatched(cfg, params, prompts, dev)
     check_outputs(tag, run, prompts)
     check_kinds(tag, run, family_tag)
@@ -1636,30 +1664,37 @@ def fp32_phase(tag, cfg, prompts, dev, card, *, family_tag, check=None,
           f"(information only)")
     report_latency(tag, run, card)
     counts = Counter(run["launches"]) + Counter(ref_launches)
+    priced = run["after"]
     del run
     free_card()
     counts += masked_dense_fp32(f"{tag} masked-dense", cfg, params, prompts,
                                 dev, ref)
     if extra is not None:
-        counts += extra(cfg, params, ref) or Counter()
+        counts += extra(cfg, params, ref, priced) or Counter()
     print_peak(tag, dev, card)
-    del params, ref
+    del params, ref, priced
     free_card()
     return counts
 
 
 def bf16_phase(tag, cfg, prompts, dev, card, *, family_tag, profile,
-               prefill_file=None, check=None, eager=False, extra=None):
+               prefill_file=None, check=None, eager=False, extra=None,
+               gqa=False):
     """Phases 5-5f: ``cfg`` in bf16 (the config's dtype), served graphed
     and timed -- with ``eager`` also served again with no cell warm, every
     call eager -- then one decode step profiled eagerly and as a replayed
     graph (``chiprun_out/<profile>``), where the decode call's time goes,
     and with ``prefill_file`` one prefill call profiled;
     ``extra(cfg, params, runs)`` adds runs of its own (their launches, a
-    Counter, are counted).  Returns the launch counts."""
+    Counter, are counted).  Phase 9 prices the graphed run's warm cells
+    and fits a cost model on its measured ones (``runs["graphed"]
+    ["after"]``; with ``gqa``, the analytic decode flops and the paper's
+    scenario too).  Returns the launch counts."""
     torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(cfg, dev, tag)
-    runs = {"graphed": serve_batched(cfg, params, prompts, dev)}
+    runs = {"graphed": serve_batched(
+        cfg, params, prompts, dev, after=lambda eng: static_pricing(
+            f"{tag} phase 9", eng, card, gqa=gqa, scenario=gqa))}
     if eager:
         runs["eager"] = serve_batched(cfg, params, prompts, dev, graphs=False,
                                       cells=runs["graphed"]["cells"])
@@ -1698,10 +1733,11 @@ def gqa_path(dev, card):
     counts = fp32_phase(
         "main fp32", dataclasses.replace(base, dtype="float32"), prompts,
         dev, card, family_tag="",
-        extra=lambda cfg, params, ref: recovery_fp32(
-            "recovery fp32", cfg, params, prompts, dev, card, ref))
+        extra=lambda cfg, params, ref, priced: recovery_fp32(
+            "recovery fp32", cfg, params, prompts, dev, card, ref, priced))
     counts += bf16_phase("main bf16", base, prompts, dev, card, family_tag="",
                          profile="decode_step_profile.txt", eager=True,
+                         gqa=True,
                          extra=lambda cfg, params, runs: gqa_bf16_phase7(
                              cfg, params, prompts, dev, card, runs))
     return counts
@@ -1893,7 +1929,7 @@ def vlm_path(dev, card):
     prompts = _prompts(base.vocab_size)
     counts = fp32_phase("vlm fp32", dataclasses.replace(base, dtype="float32"),
                         prompts, dev, card, family_tag="",
-                        extra=lambda cfg, params, ref: mrope_teacher_forced(
+                        extra=lambda cfg, params, ref, _: mrope_teacher_forced(
                             cfg, params, dev))
     counts += bf16_phase("vlm bf16", base, prompts, dev, card, family_tag="",
                          profile="vlm_decode_step_profile.txt")
@@ -2060,20 +2096,22 @@ def masked_dense_fp32(tag, cfg, params, prompts, dev, ref):
     return counts
 
 
-def serve_with_fault(cfg, params, prompts, dev, kind):
+def serve_with_fault(cfg, params, prompts, dev, kind, cost_model=None):
     """Phase 7a: the traffic on 2 graphed servers with fault tolerance on,
     the server of stream s0 faulting at its FAULT_AT_CALL-th call --
     ``die`` (heartbeat FT_TIMEOUT_S * 30) or a ``stall`` of STALL_S that
     the heartbeat (FT_TIMEOUT_S) must detect.  Every server is woken by a
-    first call before the fault is armed.  Returns the run, with the death
-    timed where it was handled."""
+    first call before the fault is armed.  ``cost_model`` (phase 9's
+    fitted model) prices the recovery and a migration in place of the
+    declared costs.  Returns the run, with the death timed where it was
+    handled."""
     from repro_torch.kernels import _build
     from repro_torch.runtime.faultinject import FaultInjector, ServerFault
     from repro_torch.serving.engine import ServeEngine
 
     eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, num_servers=2,
                       batching=True, max_batch=4, paged=True,
-                      kv_block_size=BLOCK, device=dev)
+                      kv_block_size=BLOCK, device=dev, cost_model=cost_model)
     try:
         rep = eng.precompile(prompt_buckets=BUCKETS)
         cells = captured_cells(eng, rep)
@@ -2115,6 +2153,14 @@ def serve_with_fault(cfg, params, prompts, dev, kind):
                     meta=list(meta), cells=cells, launches=launches,
                     wall_s=wall_s, kept_bytes=kept,
                     kept_graphs=len(dead.graphs), graphs=True,
+                    cost_model=cost_model is not None,
+                    migration_ms=eng._migration_cost_ms("s0"),
+                    recovery_cell=(eng._prefill_kind, 1,
+                                   eng.prefill_buckets[-1]),
+                    recovery_pred_ms=(
+                        cost_model.predict(eng._prefill_kind, 1,
+                                           eng.prefill_buckets[-1]) * 1e3
+                        if cost_model is not None else None),
                     decode_calls=[m for s in eng.pool.servers
                                   for m in s.stats.batch_meta
                                   if m["kind"] == "decode"],
@@ -2127,12 +2173,14 @@ def serve_with_fault(cfg, params, prompts, dev, kind):
         vars(eng).pop("_on_server_death", None)
 
 
-def report_recovery(tag, run, card, ref=None):
+def report_recovery(tag, run, card, ref=None, migrate_ms=None):
     """Phase 7a's bars -- one death handled once, the victim's streams
     recovered, nothing leaked, every survivor call a replay, the launches
     adding up, and (with ``ref``, fp32) every stream's tokens equal to
     unbatched ``generate``'s -- then detection, resume and the re-prefill
-    call against its priced recovery segment."""
+    call against its priced recovery segment, and (phase 9.3, with a cost
+    model attached) the priced migration beside 7b's measured one
+    (``migrate_ms``)."""
     if len(run["deaths"]) != 1 or len(run["reports"]) != 1:
         raise SmokeFailure(f"{tag}: {len(run['reports'])} degraded reports, "
                            "want one")
@@ -2176,21 +2224,37 @@ def report_recovery(tag, run, card, ref=None):
                       f"{m['seconds'] * 1e3:.3f} ms"
                       for m in reprefill)
           + f"; priced recovery segment {priced} ms (_recovery_cost_ms: "
-          f"declared prefill_ms, no cost model) against the first call's "
+          + ("phase 9's fitted cost model, capped at" if run["cost_model"]
+             else "no cost model:")
+          + f" the declared prefill_ms 50.0) against the first call's "
           f"{first['seconds'] * 1e3:.3f} ms")
+    if run["cost_model"]:
+        print(f"{tag} phase 9 [{card}]: the model's {run['recovery_cell']} "
+              f"(the largest bucket, what _recovery_cost_ms prices) "
+              f"{run['recovery_pred_ms']:.3f} ms, x safety 1.2 = "
+              f"{run['recovery_pred_ms'] * 1.2:.3f} ms")
+        moved = (f"phase 7b's measured export + import {migrate_ms:.3f} ms"
+                 if migrate_ms is not None else
+                 "no migrate cell measured in this dtype (0 = unpriced)")
+        print(f"{tag} phase 9 [{card}]: _migration_cost_ms "
+              f"{run['migration_ms']:.3f} ms (full-width table, both sides, "
+              f"x safety 1.2) beside {moved}; declared: none")
     print(f"{tag}: the dead server keeps {run['kept_bytes'] / 1e9:.3f} GB of "
           f"pools and {run['kept_graphs']} graphs, never used again")
     return Counter(run["launches"])
 
 
-def recovery_fp32(tag, cfg, params, prompts, dev, card, ref):
+def recovery_fp32(tag, cfg, params, prompts, dev, card, ref, priced):
     """Phase 7a in fp32: a death, then (a second engine) a stall found by
-    the heartbeat; recovered tokens equal unbatched.  The stall must be
-    detected before it ends."""
+    the heartbeat; recovered tokens equal unbatched with phase 9's fitted
+    cost model attached (``priced``).  The stall must be detected before it
+    ends."""
     counts = Counter()
     for kind in ("die", "stall"):
-        run = serve_with_fault(cfg, params, prompts, dev, kind)
-        counts += report_recovery(f"{tag} {kind}", run, card, ref)
+        run = serve_with_fault(cfg, params, prompts, dev, kind,
+                               cost_model=priced["model"])
+        counts += report_recovery(f"{tag} {kind}", run, card, ref,
+                                  migrate_ms=priced["migrate_ms"])
         if kind == "stall":
             fault = run["events"][0]
             if run["deaths"][0]["at"] - fault.at_monotonic >= STALL_S:
@@ -2332,10 +2396,12 @@ def gqa_bf16_phase7(cfg, params, prompts, dev, card, runs):
     """Phase 7 at internlm2-1.8b in bf16: the recovery timings (7a: a
     death and a stall), elasticity (7c), and the masked-dense layout beside
     the paged engine's graphed run of phase 5 on the same traffic (7d).
-    Returns the launch counts."""
+    The recovery runs carry phase 9's model fitted on phase 5's graphed
+    run.  Returns the launch counts."""
     counts = Counter()
     for kind in ("die", "stall"):
-        run = serve_with_fault(cfg, params, prompts, dev, kind)
+        run = serve_with_fault(cfg, params, prompts, dev, kind,
+                               cost_model=runs["graphed"]["after"])
         counts += report_recovery(f"recovery bf16 {kind}", run, card)
         del run
         free_card()
@@ -2581,6 +2647,212 @@ def prefill_profile(cfg, params, dev, card, tag, outfile):
         "by device time\n" + events.table(sort_by=key, row_limit=60)
         + "\nby host time\n"
         + events.table(sort_by="self_cpu_time_total", row_limit=60))
+
+
+# ---------------------------------------------------------------------------
+# phase 9: static cell pricing on the card's engines
+# ---------------------------------------------------------------------------
+
+PRICING_FILE = "static_pricing.txt"  # per-cell table, under chiprun_out/
+
+
+def warm_cells(eng) -> list:
+    """Every warm cell of a paged engine as a cost-model CellKey."""
+    return ([(eng._decode_kind, r, w) for r, w in sorted(eng._warm_decode)]
+            + [(eng._prefill_kind, r, b)
+               for r, b in sorted(eng._warm_prefill)]
+            + [(eng._migrate_kind, w, eng.kv_block_size)
+               for w in sorted(eng._warm_migrate)])
+
+
+def price_cells(tag, eng, cells, card) -> dict:
+    """Phase 9.1: ``static_cell_costs`` over ``cells``.  Pricing runs on
+    meta twins: it must launch no kernel, capture no graph and leave every
+    captured cell's launch count and the warm sets as they were.  Prints
+    each phase's cells (flops / bytes) and the seconds pricing took."""
+    from repro_torch.kernels import _build
+
+    def state():
+        return (dict(_build.launches),
+                [{k: dict(g.launches) for k, g in st.graphs.items()}
+                 for st in eng._paged],
+                (set(eng._warm_decode), set(eng._warm_prefill),
+                 set(eng._warm_migrate)))
+
+    before = state()
+    t0 = time.monotonic()
+    costs = eng.static_cell_costs(cells)
+    secs = time.monotonic() - t0
+    if state() != before:
+        raise SmokeFailure(f"{tag}: static pricing changed the launch "
+                           "counters, the graphs or the warm sets")
+    bad = [c for c, (f, b) in costs.items()
+           if not (math.isfinite(f) and math.isfinite(b) and b > 0)]
+    if len(costs) != len(cells) or bad:
+        raise SmokeFailure(f"{tag}: static pricing gave {len(costs)} of "
+                           f"{len(cells)} cells, not finite or no bytes: "
+                           f"{bad}")
+    by_phase: dict = {}
+    for c in cells:
+        by_phase.setdefault(c[0], []).append(c)
+    print(f"{tag} [{card}]: priced {len(costs)} warm cells ("
+          + ", ".join(f"{len(v)} {k}" for k, v in by_phase.items())
+          + f") in {secs:.2f} s on meta twins; launch counters, "
+          f"{sum(len(st.graphs) for st in eng._paged)} graphs and the warm "
+          "sets unchanged")
+    for phase, keys in by_phase.items():
+        print(f"{tag} {phase} (rows,width|bucket) flops/bytes: " + "; ".join(
+            f"({k[1]},{k[2]}) {costs[k][0]:.4g}/{costs[k][1]:.4g}"
+            for k in keys))
+    return costs
+
+
+def gqa_decode_flops(cfg, rows, width, block) -> int:
+    """2 x rows x (matmul parameters) + 4 x rows x heads x head_dim x
+    width x block_size: the projections, the SwiGLU MLP and the unembed,
+    then QK and PV over the gathered blocks, per layer."""
+    d, hd = cfg.d_model, cfg.head_dim
+    params = cfg.num_layers * (2 * d * cfg.num_heads * hd
+                               + 2 * d * cfg.num_kv_heads * hd
+                               + 3 * d * cfg.d_ff) + d * cfg.vocab_size
+    attn = 4 * rows * cfg.num_heads * hd * width * block * cfg.num_layers
+    return 2 * rows * params + attn
+
+
+def leave_one_out(measured: dict, work) -> dict:
+    """Phase 9.2: each measured cell in turn predicted by a model fitted
+    without it (the fitted surface, never the cell's own mean).  Returns
+    {phase: [relative error]} over cells whose phase kept a measured cell."""
+    from repro_torch.analysis.cost_model import StepCostModel
+
+    errs: dict = {}
+    for key, stats in measured.items():
+        rest = {k: s for k, s in measured.items() if k != key}
+        if not any(k[0] == key[0] for k in rest):
+            continue
+        model = StepCostModel(work=work)
+        model.ingest(rest)
+        pred = model.predict(*key, surface_only=True)
+        errs.setdefault(key[0], []).append(
+            abs(pred - stats.mean_s) / stats.mean_s)
+    return errs
+
+
+def print_errors(tag, label, errs) -> None:
+    for phase, e in sorted(errs.items()):
+        print(f"{tag} leave-one-out, {label}: {phase} over {len(e)} measured "
+              f"cells, median relative error {statistics.median(e):.3f}, "
+              f"worst {max(e):.3f}")
+
+
+def static_pricing(tag, eng, card, *, gqa=False, scenario=False) -> dict:
+    """Phase 9 on a bf16 engine after its graphed traffic: price every warm
+    cell (9.1; with ``gqa``, the decode cell's flops beside the analytic
+    count), fit ``StepCostModel`` on the measured cells with the static
+    features and with the default (rows, rows*width) ones, each scored
+    leave one out (9.2), and with ``scenario`` run the paper's
+    ``measured_costs`` scenario on this card's model beside the
+    reference's CPU file (9.4).  Returns the model fitted on every
+    measured cell with the static features."""
+    from repro_torch.analysis.cost_model import (StepCostModel,
+                                                 hlo_cell_features)
+
+    costs = price_cells(tag, eng, warm_cells(eng), card)
+    if gqa:
+        cell = max(c for c in costs if c[0] == eng._decode_kind)
+        want = gqa_decode_flops(eng.cfg, cell[1], cell[2], eng.kv_block_size)
+        got = costs[cell][0]
+        print(f"{tag}: decode cell {cell} flops {got:.6g}, analytic "
+              f"2*rows*(matmul params) + 4*rows*heads*head_dim*width*block "
+              f"{want:.6g}")
+        if abs(got - want) > 1e-6 * want:
+            raise SmokeFailure(f"{tag}: decode flops {got} != analytic {want}")
+    measured = {k: s for k, s in eng.pool.cell_stats().items() if s.timed}
+    work = hlo_cell_features(costs)
+    print_errors(tag, "static features", leave_one_out(measured, work))
+    print_errors(tag, "default (rows, rows*width)",
+                 leave_one_out(measured, StepCostModel().work))
+    model = StepCostModel(work=work)
+    model.ingest(measured)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    default = StepCostModel()
+    default.ingest(measured)
+    with open(out / PRICING_FILE, "a") as f:
+        f.write(f"# {tag} [{card}]: cell, flops, bytes, measured mean ms, "
+                "surface ms static, surface ms default\n")
+        for c in sorted(costs):
+            ms = (f"{measured[c].mean_s * 1e3:.4f}" if c in measured
+                  else "-")
+            f.write(f"{c} {costs[c][0]:.6g} {costs[c][1]:.6g} {ms} "
+                    f"{model.predict(*c, surface_only=True) * 1e3:.4f} "
+                    f"{default.predict(*c, surface_only=True) * 1e3:.4f}\n")
+    if scenario:
+        paper_scenario(tag, model, card)
+    return model
+
+
+def migrate_pricing(tag, eng, card) -> dict:
+    """Phase 9.2's migrate case on an fp32 engine after phase 7b moved one
+    stream: price every warm migrate width, fit on the measured cells (7b's
+    one migrate cell among them) and predict every width that was never
+    measured -- finite, positive, not falling with width.  Returns the
+    model and 7b's measured export + import ms."""
+    from repro_torch.analysis.cost_model import (StepCostModel,
+                                                 hlo_cell_features)
+
+    cells = [c for c in warm_cells(eng) if c[0] == eng._migrate_kind]
+    costs = price_cells(tag, eng, cells, card)
+    measured = {k: s for k, s in eng.pool.cell_stats().items() if s.timed}
+    seen = [k for k in measured if k[0] == eng._migrate_kind]
+    if len(seen) != 1:
+        raise SmokeFailure(f"{tag}: measured migrate cells {seen}, want one")
+    moves = [m for s in eng.pool.servers for m in s.stats.batch_meta
+             if m["kind"] == eng._migrate_kind]
+    moved_ms = sum(m["seconds"] for m in moves) * 1e3
+    model = StepCostModel(work=hlo_cell_features(costs))
+    model.ingest(measured)
+    preds = [(c[1], model.predict(*c) * 1e3) for c in sorted(cells)
+             if c not in measured]
+    print(f"{tag} [{card}]: migrate cell {seen[0]} measured "
+          f"{measured[seen[0]].mean_s * 1e3:.3f} ms per side (export + import "
+          f"{moved_ms:.3f} ms); predicted ms per side from static bytes at "
+          "the widths never measured: " + (", ".join(
+              f"w{w} {p:.3f}" for w, p in preds) or "none (one width)"))
+    vals = [p for _, p in preds]
+    if not all(math.isfinite(v) and v > 0 for v in vals) or any(
+            b < a for a, b in zip(vals, vals[1:])):
+        raise SmokeFailure(f"{tag}: migrate predictions {preds} not finite, "
+                           "positive and monotone in width")
+    return dict(model=model, migrate_ms=moved_ms)
+
+
+def paper_scenario(tag, model, card) -> None:
+    """Phase 9.4: the paper's experiment, ``measured_costs`` (every GPU
+    segment at min(declared, 1.2 x the cost model's decode (4, 64)
+    cell)), on this card's fitted model beside ``default_cost_model()`` --
+    the reference's CPU timings of reduced internlm2 in
+    benchmarks/BENCH_cost_model.json, not this card's."""
+    from repro_torch.scenarios import SCENARIOS, default_cost_model, run
+
+    for label, cm in ((f"this card's model [{card}]", model),
+                      ("the reference's CPU BENCH_cost_model.json [a CPU, "
+                       "not this card]", default_cost_model())):
+        for seed in (0, 3):
+            res = run(SCENARIOS.create("measured_costs", seed=seed),
+                      cost_model=cm)
+            pairs = {n: (round(res.bounds[n], 3), round(res.wcrt[n], 3))
+                     for n in sorted(res.bounds)}
+            over = [n for n, (b, w) in pairs.items()
+                    if math.isfinite(b) and w > b + 1e-6]
+            if over:
+                raise SmokeFailure(f"{tag} scenario: simulated WCRT over the "
+                                   f"bound for {over}")
+            pred = cm.predict("decode", 4, 64) * 1e3
+            print(f"{tag} measured_costs seed {seed}, {label}: decode "
+                  f"(4,64) predicted {pred:.3f} ms; schedulable "
+                  f"{res.schedulable}, any miss {res.any_miss}; (bound, "
+                  f"simulated WCRT) ms per task {pairs}")
 
 
 def time_kernels_of(tree: pathlib.Path) -> int:

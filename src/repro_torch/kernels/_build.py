@@ -200,14 +200,16 @@ def kernel_dtype(*tensors: torch.Tensor) -> int:
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU (the plain version serves
-    them); False when all lie on one CUDA device (the kernel launches).
-    Anything else raises: no wrapper falls back from a CUDA tensor."""
+    """True when every tensor lies on the CPU, or on the meta device, which
+    holds no values (the plain version serves them: static pricing runs
+    the model there); False when all lie on one CUDA device (the kernel
+    launches).  Anything else raises: no wrapper falls back from a CUDA
+    tensor."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"kernel inputs on several devices: {devices}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return True
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")

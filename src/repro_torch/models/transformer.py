@@ -281,10 +281,11 @@ def unembed(cfg, params, x):
     """fp32 logits (the reference accumulates and returns fp32).  A bf16
     ``x`` on the card takes one GEMM of the bf16 table with fp32
     accumulation and output, as the reference's ``preferred_element_type``
-    does -- no fp32 copy of the table; CPU tensors (no such kernel there)
-    and fp32 cast to fp32 first, the same arithmetic."""
+    does -- no fp32 copy of the table -- and so does one on the meta
+    device, where static pricing follows the card's path; CPU tensors (no
+    such kernel there) and fp32 cast to fp32 first, the same arithmetic."""
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if x.is_cuda and x.dtype != torch.float32:
+    if x.device.type != "cpu" and x.dtype != torch.float32:
         b, s, d = x.shape
         return torch.mm(x.reshape(b * s, d), table,
                         out_dtype=torch.float32).view(b, s, -1)

@@ -64,8 +64,10 @@ How the reference's device mechanisms map onto PyTorch:
     encodes zero frames, so all of a server's streams share one
     cross-attention segment (the copy-on-write dedup case).
 
-Out of this slice, raising ``NotImplementedError``: static cell pricing
-(ROADMAP A5).
+``static_cell_costs`` prices cells without running them on the card: each
+cell's impl runs once on meta twins of the weights and pools under
+``analysis.op_cost``, the counterpart of the reference's compile-and-walk
+of each cell's HLO.
 """
 
 from __future__ import annotations
@@ -105,13 +107,25 @@ def _pow2_ladder(cap: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+def _map_tree(fn, tree):
+    """``fn`` applied to every leaf of a (dicts, lists, tuples) tree."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
 def _clone(tree):
     """Copy of every tensor of a (dicts, lists, tuples) tree."""
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_clone(v) for v in tree)
-    return tree.clone()
+    return _map_tree(torch.Tensor.clone, tree)
+
+
+def _meta_twin(tree):
+    """The tree with every tensor replaced by an empty one of its shape and
+    dtype on the meta device (no memory, no values)."""
+    return _map_tree(lambda t: (torch.empty_like(t, device="meta")
+                                if isinstance(t, torch.Tensor) else t), tree)
 
 
 def _tensors(tree) -> list:
@@ -405,12 +419,13 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
-    def _prefill(self, tokens, lengths=None):
+    def _prefill(self, tokens, lengths=None, params=None):
         """Prefill ``tokens`` (B, S) (true ``lengths`` (B,) int32 of a
         padded batch), numpy arrays or device tensors, on the current
         device context; the cache comes back padded to max_seq.  An enc-dec
         stack encodes zero frames (B, encoder_seq, d_model) in the config's
-        dtype: the audio frontend is a stub."""
+        dtype: the audio frontend is a stub.  ``params`` (default: the
+        engine's) lets pricing run on meta twins of the weights."""
         if isinstance(tokens, np.ndarray):
             tokens = self._tensor(tokens)
         if isinstance(lengths, np.ndarray):
@@ -419,16 +434,17 @@ class ServeEngine:
         if self.cfg.family == "encdec":
             batch["frames"] = torch.zeros(
                 (tokens.shape[0], self.cfg.encoder_seq, self.cfg.d_model),
-                dtype=getattr(torch, self.cfg.dtype), device=self.device)
+                dtype=getattr(torch, self.cfg.dtype), device=tokens.device)
         if lengths is not None:
             batch["lengths"] = lengths
-        return M.apply(self.cfg, self.params, batch, mode="prefill")
+        return M.apply(self.cfg, self.params if params is None else params,
+                       batch, mode="prefill")
 
     def _prefill_batch_impl(self, tokens: torch.Tensor,
-                            lengths: torch.Tensor):
+                            lengths: torch.Tensor, params=None):
         """One bucketed prefill call: tokens (R, bucket), lengths (R,)
         int32 -> (each row's last-token logits (R, V) fp32, the cache)."""
-        logits, cache, _ = self._prefill(tokens, lengths)
+        logits, cache, _ = self._prefill(tokens, lengths, params)
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         return logits[rows, lengths.long() - 1], cache
 
@@ -650,12 +666,12 @@ class ServeEngine:
         return run
 
     # -- batched decode internals (paged pools, family-generic) -------------
-    def _make_pools(self, state):
+    def _make_pools(self, state, device=None):
         return M.init_paged_cache(self.cfg, state.mgr.num_blocks,
                                   state.mgr.block_size,
                                   num_slabs=state.mgr.num_slabs,
                                   num_segments=state.mgr.num_segments,
-                                  device=self.device)
+                                  device=device or self.device)
 
     def _insert_paged_impl(self, pools, cache, src_row: int,
                            table: np.ndarray, slab: int, seg: int) -> None:
@@ -682,14 +698,15 @@ class ServeEngine:
                     pool[:, slab if kind == "slab" else seg] = (
                         leaf[:, src_row].to(pool.dtype))
 
-    def _decode_paged_impl(self, packed: torch.Tensor, pools):
+    def _decode_paged_impl(self, packed: torch.Tensor, pools, params=None):
         """One compacted paged decode step.  ``packed`` (n, 4+W) int32 rows
         are [token, length, slab, segment, block_table...] -- one header
         for every family; the columns a family does not use carry scratch
         ids and are never read.  The table width W addresses only the
         blocks the live rows need.  Rows write their new KV or state into
         their own blocks or slabs in place.  Returns the (n, 1, V) fp32
-        logits."""
+        logits.  ``params`` (default: the engine's) lets pricing run on
+        meta twins of the weights."""
         cache = dict(pools)
         cache["pos"] = packed[:, 1]
         if "block" in self._cache_kinds:
@@ -698,7 +715,8 @@ class ServeEngine:
             cache["slab_ids"] = packed[:, 2].contiguous()
         if "segment" in self._cache_kinds:
             cache["segment_ids"] = packed[:, 3].contiguous()
-        logits, _, _ = M.apply(self.cfg, self.params,
+        logits, _, _ = M.apply(self.cfg,
+                               self.params if params is None else params,
                                {"tokens": packed[:, :1]}, mode="decode",
                                cache=cache)
         return logits
@@ -1856,10 +1874,59 @@ class ServeEngine:
             self._steal_stop.set()
         self.pool.shutdown()
 
-    # -- engine features of later slices ------------------------------------
+    # -- static cell pricing (op_cost -> cost-model features) ---------------
     def static_cell_costs(self, cells=None) -> dict:
-        raise NotImplementedError(
-            "static cell pricing is not ported yet (ROADMAP A5)")
+        """Price shape cells STATICALLY: run each cell's impl once on meta
+        twins of the weights and of the pools ``_make_pools`` makes, and
+        count its aten ops with ``analysis.op_cost`` for per-cell (flops,
+        hbm_bytes).  Returns {CellKey: (flops, hbm_bytes)} ready for
+        ``cost_model.hlo_cell_features`` -- the feed that lets a
+        ``StepCostModel`` price a migration width (or any cell) it never
+        measured off static analysis instead of the declared worst case.
+
+        ``cells`` is an iterable of CellKeys (``("decode", rows, width)``,
+        ``("prefill", rows, bucket)``, ``("migrate", width, block_size)``;
+        family-tagged phases price alike); default: every migrate width
+        bucket -- the cells a steal can hit cold.  A migrate cell is its
+        export plus its import.  Pricing runs on the caller's thread,
+        launches no kernel, captures no graph and touches neither the live
+        pools nor the warm sets.  Paged engines only (the masked-dense
+        decode has a single full-shape cell that measurement always
+        covers)."""
+        from repro_torch.analysis import op_cost
+
+        if not self.paged:
+            raise ValueError("static_cell_costs requires paged=True")
+        if cells is None:
+            cells = [(self._migrate_kind, w, self.kv_block_size)
+                     for w in self.width_buckets]
+        meta = torch.device("meta")
+        params = _meta_twin(self.params)
+        pools = self._make_pools(self._paged[0], device=meta)
+
+        def ints(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=meta)
+
+        out: dict[tuple, tuple[float, float]] = {}
+        for cell in cells:
+            phase, a, b = cell
+            base = phase.split("@", 1)[0]  # family-tagged phases price alike
+            if base == "migrate":
+                idx = ints(2 + a)
+                fg, bg = op_cost.cost_of(self._export_kv_impl, pools, idx)
+                rows = self._export_kv_impl(pools, idx)
+                fs, bs = op_cost.cost_of(self._import_kv_impl, pools, rows,
+                                         idx)
+                out[cell] = (fg + fs, bg + bs)
+            elif base == "decode":
+                out[cell] = op_cost.cost_of(self._decode_paged_impl,
+                                            ints(a, 4 + b), pools, params)
+            elif base == "prefill":
+                out[cell] = op_cost.cost_of(self._prefill_batch_impl,
+                                            ints(a, b), ints(a), params)
+            else:
+                raise ValueError(f"unknown phase in cell {cell!r}")
+        return out
 
 
 def _cache_batch_axes(cfg, max_seq: int) -> list[tuple]:

@@ -285,17 +285,6 @@ def test_pool_exhaustion_rejects_before_dispatch(setup):
         eng.close()
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda e: e.static_cell_costs(), "A5"),
-])
-def test_later_features_name_their_roadmap_item(setup, call, item):
-    cfg, params, _, _ = setup
-    eng = _engine(cfg, params, max_batch=2)
-    try:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call(eng)
-    finally:
-        eng.close()
 
 
 def test_remove_frees_held_blocks(setup):

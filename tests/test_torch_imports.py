@@ -28,7 +28,17 @@ COPIES = (
     + [f"core/dispatch/{m}.py" for m in ("__init__", "policy", "batching",
                                          "pool")]
     + ["runtime/straggler.py", "runtime/faultinject.py", "serving/kvcache.py",
-       "analysis/cost_model.py", "analysis/roofline.py"])
+       "analysis/cost_model.py", "analysis/roofline.py",
+       "analysis/hlo_cost.py", "core/mpcp_analysis.py",
+       "core/fmlp_analysis.py", "core/simulator.py"]
+    + [f"scenarios/{m}.py" for m in ("registry", "arrivals", "etm",
+                                     "overheads", "schedulers", "protocols",
+                                     "lp_alloc", "scenario", "matrix",
+                                     "__init__")])
+
+# data files the port keeps byte for byte
+DATA_COPIES = [f"scenarios/traces/{name}" for name in
+               ("README.md", "bursty_pool.jsonl", "diurnal_ramp.jsonl")]
 
 # classes and functions the port copies word for word out of a module it
 # does not copy whole: (module, names)
@@ -70,6 +80,11 @@ def test_no_jax_and_no_reference_imports(path):
 def test_copies_differ_only_by_package_name(rel):
     source = (SRC / "repro" / rel).read_text()
     assert (PORT / rel).read_text() == source.replace("repro.", "repro_torch.")
+
+
+@pytest.mark.parametrize("rel", DATA_COPIES)
+def test_data_files_are_byte_copies(rel):
+    assert (PORT / rel).read_bytes() == (SRC / "repro" / rel).read_bytes()
 
 
 def _class_text(path: pathlib.Path, name: str) -> str:

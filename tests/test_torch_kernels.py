@@ -10,6 +10,8 @@ The CUDA kernels themselves run only on a card: test_torch_cuda.py holds
 each against its plain version there.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -251,11 +253,18 @@ class TestWrappers:
 
     def test_no_fallback_for_other_devices(self):
         """A wrapper serves CPU tensors with its plain version and launches
-        its kernel for CUDA tensors; anything else raises."""
+        its kernel for CUDA tensors; meta tensors, which hold no values,
+        take the plain version too (static pricing runs there); anything
+        else raises."""
         x = torch.empty((2, 8), device="meta")
         w = torch.empty((8,), device="meta")
+        _build.reset_launches()
+        y = rmsnorm(x, w, 1e-5)
+        assert y.device.type == "meta" and y.shape == x.shape
+        assert sum(_build.launches.values()) == 0
+        other = types.SimpleNamespace(device=torch.device("xpu"))
         with pytest.raises(ValueError, match="no kernel for device"):
-            rmsnorm(x, w, 1e-5)
+            _build.on_cpu(other, other)
         with pytest.raises(ValueError, match="several devices"):
             rmsnorm(torch.zeros(2, 8), w, 1e-5)
 
