@@ -39,7 +39,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bit-identical to dense decode of the gathered copy), and every kernel
    of the VLM path at qwen2-vl-2b widths (rmsnorm at 1536 in registers;
    the attention kernels at 12 query heads over 2 kv heads of 128, group
-   size 6) -- then its median time beside the
+   size 6), and the training path's kernels at internlm2-1.8b widths in
+   fp32 and bf16 (the flash forward's row lse; the flash backward's dq, dk
+   and dv at B 4 x S 1024, B 1 x S 1000, S 64 and S 8; the rmsnorm
+   backward's dx and dw at (4096, 2048) in registers, 1032 on the vector
+   loop and 37 on the scalar loop; each within 1e-4 (fp32) / 2e-2 (bf16)
+   of the plain gradient's max |.|, and a second run bit-identical) --
+   then its median time beside the
    plain version's, the library call's (where one PyTorch call computes
    the same function) and its bound, each kernel's and library call's
    device time per call from one profiler window, a ranking by device
@@ -52,7 +58,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the enc-dec path's: the cross-attention prefill at bucket 256 and the
    segment decode of 4 rows on one shared segment, timed rows of their
    own, and the encoder's flash, for information; the VLM path's flash,
-   decode pair and rmsnorm as timed rows of their own);
+   decode pair and rmsnorm as timed rows of their own; the two backward
+   kernels at the training shape beside the backward of SDPA and of
+   ``F.rms_norm``);
 4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
    servers, after ``precompile`` has warmed every cell and captured each
@@ -141,8 +149,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
        every masked step; internlm2-1.8b bf16 beside phase 5's paged run
        on the same traffic (client step p50/p99, tokens/s, decode
        launches per call);
-8. launch counts of every kernel over phases 4-7 (each must be non-zero),
-   then one JSON line describing every kernel;
+8. launch counts of every kernel over phases 4-7 and 10 (each must be
+   non-zero), then one JSON line describing every kernel;
 9. static cell pricing (``ServeEngine.static_cell_costs``, on meta twins
    of the weights and pools: it launches nothing, so phase 8's counts do
    not move), inside the phases above, on each engine once its traffic
@@ -168,7 +176,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
 Every phase 4-5f serves graphed (phase 5 also eagerly), checks its
 launches against the cells' counts, profiles its decode step both ways
 and prints its peak device memory.
-10. last line: ``{"ok": true, "device": {...}}``.
+10. training, after the serving phases:
+   10a. one fp32 train step of full-width internlm2-1.8b at depth 2 on
+       the card against the same step on the CPU (plain kernel versions),
+       same weights and ``SyntheticLM`` batch of 2 x 128, grad_clip on:
+       loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+       max |.| and non-zero on the card, params after AdamW within 1e-5;
+   10b. full-width, full-depth internlm2-1.8b in bf16 through
+       ``repro_torch.launch.train.main`` (4 x 1024 tokens, 8 steps, default
+       AdamW, remat dots_no_batch, a checkpoint every 4 steps into a
+       temporary directory): finite losses that fall from step 1 to step
+       8; per step each layer's flash forward twice (with the remat
+       recompute), its flash backward once, its two norms' forward twice
+       and backward once, the final norm's once each; a second run
+       resumed from step 4 gives steps 5-8's losses within 1e-6; step ms
+       p50, tokens/s, peak memory, and a profile of one step by kernel
+       category (``chiprun_out/train_step_profile.txt``);
+11. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-from TREE
 
@@ -205,6 +229,11 @@ BUCKETS = (8, 64, 128, 256)
 NUM_SLABS = 2 * 4 + 2  # the engine's slab pool at max_batch 4
 NUM_SEGMENTS = 4 + 2  # the engine's segment pool at max_batch 4
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+# the backward kernels' tolerances, against the reference gradient's max |.|
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the forward's lse (fp32 in both dtypes), absolute in natural-log units:
+# exp(1e-3) scales the backward's recomputed P by 0.1% at most
+LSE_TOL = 1e-3
 # published H100 SXM peaks (dense): HBM bytes/s and flop/s by input type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -226,6 +255,13 @@ KERNELS = {
     "paged_mla_decode_attention": (
         "src/repro_torch/csrc/paged_mla_decode_attention.cu",
         "src/repro/kernels/paged_decode_attention.py:142"),
+    # the backward kernels: the reference has no kernel of its own there
+    # (XLA differentiates the jnp path), so each names the TPU kernel whose
+    # function it differentiates
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:76"),
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:34"),
 }
 # device memory kept free beside the fp32 MLA weights: pools, the prefill
 # activations of 4 x 256 tokens through every expert, logits
@@ -246,8 +282,10 @@ def card_line() -> str:
 # sources reported in phase 2: registers and spills (ptxas -v), HMMA
 # instructions (cuobjdump); their bf16 tensor-core kernels must hold HMMA
 SASS_SOURCES = ("decode_attention.cu", "paged_decode_attention.cu",
-                "ssd_intra.cu", "rmsnorm.cu", "flash_attention.cu")
-TENSOR_CORE_KERNELS = ("decode_tc_kernel", "ssd_tc_kernel", "flash_tc_kernel")
+                "ssd_intra.cu", "rmsnorm.cu", "flash_attention.cu",
+                "flash_attention_bwd.cu")
+TENSOR_CORE_KERNELS = ("decode_tc_kernel", "ssd_tc_kernel", "flash_tc_kernel",
+                       "dkdv_tc_kernel", "dq_tc_kernel")
 
 
 def start_sass_report(csrc: pathlib.Path, nvcc: str):
@@ -454,15 +492,20 @@ class KernelChecks:
     def randn(self, *shape, dtype=torch.float32):
         return torch.randn(shape, generator=self.gen, device=self.dev).to(dtype)
 
-    def check(self, name: str, case: str, got, want, dtype) -> float:
+    def check(self, name: str, case: str, got, want, dtype,
+              atol: float | None = None) -> float:
+        """``got`` within TOL[dtype] (absolute and relative) of ``want``,
+        or within ``atol`` alone when it is given."""
         torch.cuda.synchronize()
         got, want = got.float(), want.float()
         err = (got - want).abs().max().item() if got.numel() else 0.0
-        tol = TOL[dtype]
+        tol = TOL[dtype] if atol is None else atol
+        rtol = tol if atol is None else 0.0
         ok = bool(torch.isfinite(got).all()) and bool(
-            ((got - want).abs() <= tol + tol * want.abs()).all())
+            ((got - want).abs() <= tol + rtol * want.abs()).all())
         print(f"check {name} [{case}] {str(dtype)[6:]}: max_abs_err={err:.3e}"
-              f" (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+              f" (tol {tol:g}{'' if rtol else ' absolute'}) "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SmokeFailure(f"{name} [{case}] disagrees with its plain "
                                f"version: max_abs_err={err}")
@@ -1380,6 +1423,154 @@ class KernelChecks:
         print_rows({k: v for k, v in rows.items() if k != "rmsnorm@vlm"},
                    "SDPA", "time[vlm]")
         self.rows.update(rows)
+
+    # -- the backward kernels, at the training shapes -----------------------
+    def check_grad(self, name: str, case: str, got, want, dtype) -> float:
+        """``got`` against ``want`` with the tolerance stated against the
+        reference gradient's scale: max |got - want| <= BWD_TOL * max
+        |want|."""
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        scale = want.abs().max().item() if want.numel() else 0.0
+        tol = BWD_TOL[dtype]
+        ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+        print(f"check {name} [{case}] {str(dtype)[6:]}: max_abs_err={err:.3e}"
+              f" (max |ref| {scale:.3e}, tol {tol:g} of it) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"{name} [{case}] disagrees with its plain "
+                               f"version: max_abs_err={err}")
+        self.errors[name] = max(self.errors.get(name, 0.0), err)
+        return err
+
+    def same_bits(self, name: str, case: str, first, second) -> None:
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise SmokeFailure(f"{name} [{case}]: a second run differs")
+        print(f"check {name} [{case}]: a second run bit-identical ok")
+
+    def run_backward(self, cfg):
+        """The training path's kernels at ``cfg``'s widths (16/8 heads of
+        128, rows of 2048), fp32 and bf16: the forward's lse (LSE_TOL
+        absolute); the flash backward's dq, dk and dv at B 4 x S 1024 (the
+        training shape), B 1 x S 1000 (ragged tiles), B 1 x S 128 (32
+        blocks over two KV tiles: the bf16 forward's 8-warp configuration,
+        whose warp pairs merge their softmax states and lse), S 64 and S 8;
+        the rmsnorm backward's dx and dw at (4096, 2048) on the register
+        route, at 1032 on the vector loop and 37 on the scalar loop -- each
+        against its plain
+        version, and a second run bit-identical to the first.  Then timed
+        rows at the training shape in bf16 beside the library calls'
+        backward and the bound."""
+        from repro_torch.kernels.flash_attention import (
+            _flash_forward, flash_attention_bwd, flash_attention_bwd_plain,
+            flash_attention_plain)
+        from repro_torch.kernels.rmsnorm import (rmsnorm_bwd,
+                                                 rmsnorm_bwd_plain,
+                                                 rmsnorm_route)
+
+        nq, nkv, h, d, eps = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                              cfg.d_model, cfg.norm_eps)
+        for dt in (torch.float32, torch.bfloat16):
+            for b, s in ((4, 1024), (1, 1000), (1, 128), (2, 64), (2, 8)):
+                q = self.randn(b, s, nq, h, dtype=dt)
+                k = self.randn(b, s, nkv, h, dtype=dt)
+                v = self.randn(b, s, nkv, h, dtype=dt)
+                do = self.randn(b, s, nq, h, dtype=dt)
+                case = f"B={b} S={s} Nq={nq} Nkv={nkv} H={h}"
+                out, lse = _flash_forward(q, k, v, True, h ** -0.5,
+                                          with_lse=True)
+                o_ref, lse_ref = flash_attention_plain(q, k, v, with_lse=True)
+                e = self.check("flash_attention", f"{case} out, lse written",
+                               out, o_ref, dt)
+                self.errors["flash_attention"] = max(
+                    self.errors["flash_attention"], e)
+                self.check("flash_attention", f"{case} lse", lse, lse_ref, dt,
+                           atol=LSE_TOL)
+                got = flash_attention_bwd(q, k, v, out, lse, do)
+                want = flash_attention_bwd_plain(q, k, v, out, lse, do)
+                for what, g, w in zip(("dq", "dk", "dv"), got, want):
+                    self.check_grad("flash_attention_bwd", f"{case} {what}",
+                                    g, w, dt)
+                del want
+                self.same_bits("flash_attention_bwd", case, got,
+                               flash_attention_bwd(q, k, v, out, lse, do))
+            for rows, dw_ in ((4096, d), (256, 1032), (256, 37)):
+                x = self.randn(rows, dw_, dtype=dt) * 3.0
+                w = (self.randn(dw_) * 0.1 + 1.0).to(dt)
+                dy = self.randn(rows, dw_, dtype=dt)
+                case = f"x({rows}, {dw_}), {rmsnorm_route(x, w)} route"
+                got = rmsnorm_bwd(x, w, dy, eps)
+                for what, g, ref in zip(("dx", "dw"), got,
+                                        rmsnorm_bwd_plain(x, w, dy, eps)):
+                    self.check_grad("rmsnorm_bwd", f"{case} {what}", g, ref,
+                                    dt)
+                self.same_bits("rmsnorm_bwd", case, got,
+                               rmsnorm_bwd(x, w, dy, eps))
+        rows = {"flash_attention_bwd": self.time_flash_bwd(cfg, 4, 1024),
+                "rmsnorm_bwd": self.time_rmsnorm_bwd(cfg, 4096)}
+        print_rows({"flash_attention_bwd": rows["flash_attention_bwd"]},
+                   "SDPA backward")
+        print_rows({"rmsnorm_bwd": rows["rmsnorm_bwd"]}, "F.rms_norm backward")
+        self.rows.update(rows)
+
+    def time_flash_bwd(self, cfg, b, s):
+        """The flash backward in bf16 on ``b`` causal rows of ``s`` tokens
+        at ``cfg``'s heads, beside the backward of SDPA (is_causal,
+        enable_gqa) on the same inputs."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.flash_attention import (
+            _flash_forward, flash_attention_bwd, flash_attention_bwd_plain)
+
+        dt, el = torch.bfloat16, 2
+        nq, nkv, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = self.randn(b, s, nq, h, dtype=dt)
+        k = self.randn(b, s, nkv, h, dtype=dt)
+        v = self.randn(b, s, nkv, h, dtype=dt)
+        do = self.randn(b, s, nq, h, dtype=dt)
+        out, lse = _flash_forward(q, k, v, True, h ** -0.5, with_lse=True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+        lib_do = do.transpose(1, 2)
+        pairs = s * (s + 1) // 2
+        # q, k, v, o, do and lse read once; dq, dk, dv written once
+        nbytes = (4 * q.numel() + 4 * k.numel()) * el + 4 * lse.numel()
+        return timed(
+            lambda: flash_attention_bwd(q, k, v, out, lse, do),
+            lambda: flash_attention_bwd_plain(q, k, v, out, lse, do),
+            lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
+                                        retain_graph=True),
+            bound_ms(nbytes, 10 * b * nq * h * pairs, dt),
+            f"q ({b},{s},{nq},{h}) causal, dq dk dv")
+
+    def time_rmsnorm_bwd(self, cfg, rows):
+        """The rmsnorm backward in bf16 on ``rows`` rows of cfg's d_model
+        (4096 = the training step's 4 x 1024 tokens), beside the backward
+        of F.rms_norm on the same inputs."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+
+        dt, el, d, eps = torch.bfloat16, 2, cfg.d_model, cfg.norm_eps
+        x = self.randn(rows, d, dtype=dt)
+        w = (self.randn(d) * 0.1 + 1.0).to(dt)
+        dy = self.randn(rows, d, dtype=dt)
+        xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        lib_y = F.rms_norm(xl, (d,), wl, eps)
+        n = x.numel()
+        return timed(
+            lambda: rmsnorm_bwd(x, w, dy, eps),
+            lambda: rmsnorm_bwd_plain(x, w, dy, eps),
+            lambda: torch.autograd.grad(lib_y, (xl, wl), dy,
+                                        retain_graph=True),
+            # x and dy read, dx written; w read, dw written; ~12 flops an
+            # element (the statistics, dx and the dw term)
+            bound_ms((3 * n + 2 * d) * el, 12 * n, dt),
+            f"x ({rows},{d}), dx dw")
 
 
 # ---------------------------------------------------------------------------
@@ -2855,6 +3046,293 @@ def paper_scenario(tag, model, card) -> None:
                   f"simulated WCRT) ms per task {pairs}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2_1_8b"
+TRAIN_STEPS = 8            # 10b: steps of the straight run
+TRAIN_RESUME_AT = 4        # 10b: the checkpoint the second run resumes from
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+PARITY_LAYERS = 2          # 10a: depth of the full-width fp32 parity step
+PARITY_BATCH, PARITY_SEQ = 2, 128
+TRAIN_PROFILE_FILE = "train_step_profile.txt"  # under chiprun_out/
+
+
+def train_parity(dev, card) -> None:
+    """Phase 10a: one fp32 train step of full-width internlm2-1.8b at depth
+    PARITY_LAYERS on the card against the same step on the CPU through the
+    port's plain path -- same weights (initialised on the CPU from the
+    seed), the same SyntheticLM batch, the default settings (grad_clip on,
+    remat dots_no_batch) but ``warmup_steps=1``, so the step runs at the
+    full lr.  The loss within 1e-5 relative, every gradient leaf within
+    1e-4 of its max |.| and non-zero on the card.  The card's AdamW step is
+    held against the CPU's AdamW step on the card's own gradients: every
+    weight's update within 1e-3 lr of it (a first Adam step moves a weight
+    by about lr, so a missing, halved or sign-flipped update fails).  The
+    CPU's whole step (its own gradients) is compared for information only:
+    a gradient near 0 whose sign differs between the two devices flips
+    that weight's first update, by up to 2 lr."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import (TrainSettings, make_loss,
+                                                 value_and_grad)
+    from repro_torch.training.tree import leaves, tree_map, unflatten
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=PARITY_LAYERS,
+                              dtype="float32")
+    settings = TrainSettings(adamw=opt.AdamWConfig(warmup_steps=1))
+    loss_fn = make_loss(cfg, settings)
+    cpu = torch.device("cpu")
+    init = M.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device=cpu)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, PARITY_SEQ,
+                                  PARITY_BATCH)).batch(0)
+
+    def step(where, grads=None):
+        """One step from ``init`` on ``where``, with ``grads`` (a tree on
+        ``where``) when given instead of the step's own; returns the loss
+        (None with ``grads``), the gradients and params after AdamW as CPU
+        lists, the step's lr and seconds."""
+        params = tree_map(lambda t: t.to(where, copy=True), init)
+        state = opt.init(params, settings.adamw)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in data.items()}
+        t0 = time.monotonic()
+        loss = None
+        if grads is None:
+            (loss, _), grads = value_and_grad(loss_fn, params, batch)
+        _, _, m = opt.update(grads, state, params, settings.adamw)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        return (None if loss is None else loss.item(),
+                [g.to(cpu, copy=True) for g in leaves(grads)],
+                [t.to(cpu, copy=True) for t in leaves(params)],
+                float(m["lr"]), time.monotonic() - t0)
+
+    l_gpu, g_gpu, p_gpu, lr, s_gpu = step(dev)
+    free_card()
+    l_cpu, g_cpu, p_cpu, _, s_cpu = step(cpu)
+    _, _, p_want, _, _ = step(cpu, grads=unflatten(init, g_gpu))
+    p_init = leaves(init)
+    tag = f"train 10a [{card}]"
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    g_err = max((a - b).abs().max().item() / b.abs().max().item()
+                for a, b in zip(g_gpu, g_cpu))
+    zero = sum(1 for g in g_gpu if not g.abs().max() > 0)
+    u_err = max((a - b).abs().max().item() for a, b in zip(p_gpu, p_want))
+    u_max = max((b - p0).abs().max().item() for b, p0 in zip(p_want, p_init))
+    flips = sum(int(((a - b).abs() > 1e-3 * lr).sum())
+                for a, b in zip(p_gpu, p_cpu))
+    n = sum(p.numel() for p in p_init)
+    print(f"{tag}: internlm2-1.8b full width, {PARITY_LAYERS} layers, fp32, "
+          f"batch {PARITY_BATCH} x {PARITY_SEQ}: loss card {l_gpu:.7f} cpu "
+          f"{l_cpu:.7f} (rel {rel:.2e}, tol 1e-5); worst gradient leaf "
+          f"{g_err:.2e} of its max |.| (tol 1e-4) over {len(g_gpu)} leaves, "
+          f"{zero} all-zero on the card; AdamW at lr {lr:.3e}: the card's "
+          f"update against the CPU's on the card's gradients max abs diff "
+          f"{u_err:.2e} = {u_err / lr:.2e} lr (tol 1e-3 lr; largest update "
+          f"{u_max / lr:.3f} lr); against the CPU's whole step, {flips} of "
+          f"{n} weights differ by more than 1e-3 lr (gradients near 0 of "
+          f"other sign; information); step {s_gpu:.2f} s card, {s_cpu:.2f} "
+          f"s cpu")
+    if not (rel <= 1e-5 and g_err <= 1e-4 and zero == 0
+            and u_err <= 1e-3 * lr and u_max >= 0.5 * lr):
+        raise SmokeFailure(f"{tag}: the card's train step differs from the "
+                           f"CPU's (or a leaf got no gradient)")
+
+
+def train_launches_per_step(cfg) -> Counter:
+    """The kernels one train step launches under remat dots_no_batch: each
+    layer's flash forward and its two norms run again in the backward's
+    recompute (the GEMM outputs are saved), the final norm is outside the
+    checkpointed layers."""
+    n = cfg.num_layers
+    return Counter({"flash_attention": 2 * n, "flash_attention_bwd": n,
+                    "rmsnorm": 2 * n + 1 + 2 * n, "rmsnorm_bwd": 2 * n + 1})
+
+
+def train_run(argv, steps, dev):
+    """One ``repro_torch.launch.train.main`` run with the launches counted
+    from zero; returns (result, launches)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as TL
+
+    _build.reset_launches()
+    result = TL.main(argv)
+    torch.cuda.synchronize()
+    launches = Counter(_build.launches)
+    if len(result["losses"]) != steps:
+        raise SmokeFailure(f"train: {len(result['losses'])} steps, want "
+                           f"{steps}")
+    return result, launches
+
+
+def train_trainer(dev, card) -> Counter:
+    """Phase 10b: full-width, full-depth internlm2-1.8b in bf16 through
+    ``repro_torch.launch.train.main`` -- TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ, default AdamW, remat dots_no_batch, a checkpoint every
+    TRAIN_RESUME_AT steps into a temporary directory; then a second run
+    resumed from step TRAIN_RESUME_AT.  Returns the straight run's
+    launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(TRAIN_ARCH)
+    tag = f"train 10b [{card}]"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        def argv(interval):
+            return ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                    "--global-batch", str(TRAIN_BATCH), "--seq-len",
+                    str(TRAIN_SEQ), "--checkpoint-dir", ckdir,
+                    "--checkpoint-interval", str(interval), "--log-every", "1",
+                    "--device", dev.type]
+
+        print(f"{tag}: checkpoints under a temporary directory with "
+              f"{shutil.disk_usage(ckdir).free / 1e9:.1f} GB free")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.monotonic()
+        run, launches = train_run(argv(TRAIN_RESUME_AT), TRAIN_STEPS, dev)
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = run["losses"]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise SmokeFailure(f"{tag}: losses not finite and falling: {losses}")
+        want = Counter({k: v * TRAIN_STEPS
+                        for k, v in train_launches_per_step(cfg).items()})
+        got = Counter({k: launches[k] for k in want})
+        print(f"{tag}: launches over {TRAIN_STEPS} steps {dict(launches)}; "
+              f"the code implies {dict(want)}")
+        if got != want:
+            raise SmokeFailure(f"{tag}: launches {dict(got)} differ from "
+                               f"{dict(want)}")
+        ms = sorted(1e3 * x for x in run["step_seconds"])
+        p50 = statistics.median(ms)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        n = M.param_count(cfg)
+        print(f"{tag}: losses {', '.join(f'{x:.4f}' for x in losses)}; step "
+              f"ms p50 {p50:.1f} (min {ms[0]:.1f}, max {ms[-1]:.1f}, the first "
+              f"step included); {tokens / p50 * 1e3:.0f} tokens/s; peak "
+              f"device memory {peak / 1e9:.2f} GB; 6*N*tokens/step/989 TF/s = "
+              f"{6 * n * tokens / (p50 / 1e3) / 989e12:.3f} (N {n / 1e9:.3f} B, "
+              f"for information); run {wall:.1f} s with 2 checkpoints")
+
+        # the second run resumes from the step-TRAIN_RESUME_AT checkpoint
+        root = pathlib.Path(ckdir)
+        keep = f"step_{TRAIN_RESUME_AT:08d}"
+        for d in root.iterdir():
+            if d.is_dir() and d.name.startswith("step_") and d.name != keep:
+                shutil.rmtree(d)
+        (root / "LATEST").write_text(keep)
+        del run
+        free_card()
+        t0 = time.monotonic()
+        # it writes no checkpoint of its own: the interval passes its end
+        resumed, resumed_launches = train_run(
+            argv(TRAIN_STEPS + 1) + ["--resume"],
+            TRAIN_STEPS - TRAIN_RESUME_AT, dev)
+        tail = losses[TRAIN_RESUME_AT:]
+        err = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], tail))
+        print(f"{tag}: resumed from step {TRAIN_RESUME_AT} in "
+              f"{time.monotonic() - t0:.1f} s: losses "
+              f"{', '.join(f'{x:.6f}' for x in resumed['losses'])} against "
+              f"the straight run's {', '.join(f'{x:.6f}' for x in tail)} "
+              f"(worst rel {err:.2e}, tol 1e-6)")
+        if err > 1e-6:
+            raise SmokeFailure(f"{tag}: the resumed run's losses differ")
+        want_r = Counter({k: v * (TRAIN_STEPS - TRAIN_RESUME_AT)
+                          for k, v in train_launches_per_step(cfg).items()})
+        if Counter({k: resumed_launches[k] for k in want_r}) != want_r:
+            raise SmokeFailure(f"{tag}: resumed launches "
+                               f"{dict(resumed_launches)}, want {dict(want_r)}")
+        train_profile(cfg, resumed["params"], dev, card)
+    del resumed
+    free_card()
+    return launches
+
+
+# kernel name patterns of a train step's device time, by category
+TRAIN_CATEGORIES = (
+    ("flash forward", ("flash_tc_kernel", "flash_kernel")),
+    ("flash backward", ("delta_kernel", "dkdv_kernel", "dq_kernel",
+                        "dkdv_tc_kernel", "dq_tc_kernel")),
+    ("rmsnorm forward", ("row_kernel", "vec_kernel", "scalar_kernel")),
+    ("rmsnorm backward", ("bwd_kernel", "dw_reduce_kernel")),
+    ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+)
+
+
+def train_category(name: str) -> str:
+    import re
+
+    for cat, pats in TRAIN_CATEGORIES:
+        for pat in pats:
+            if (re.search(rf"::{pat}[<(]", name) if pat.endswith("kernel")
+                    else pat in name):
+                return cat
+    return "elementwise and other"
+
+
+def train_profile(cfg, params, dev, card) -> None:
+    """Where one train step's device time goes: forward + backward in one
+    torch.profiler window and the AdamW update in another, on the params
+    of 10b's last step and its next batch.  Shares of the step's device
+    time by category; the table under chiprun_out/."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import (TrainSettings, make_loss,
+                                                 value_and_grad)
+
+    settings = TrainSettings(adamw=opt.AdamWConfig(
+        warmup_steps=1, total_steps=TRAIN_STEPS))
+    state = opt.init(params, settings.adamw)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)).batch(
+            TRAIN_STEPS).items()}
+    loss_fn = make_loss(cfg, settings)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as fb:
+        _, grads = value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as up:
+        opt.update(grads, state, params, settings.adamw)
+        torch.cuda.synchronize()
+    by = Counter()
+    lines = []
+    for window, prof in (("forward+backward", fb), ("optimizer", up)):
+        _, key, rows = device_kernels(prof)
+        for e in rows:
+            cat = "optimizer" if window == "optimizer" else train_category(e.key)
+            by[cat] += getattr(e, key) / 1e3
+            lines.append(f"{window}\t{cat}\t{getattr(e, key) / 1e3:.3f} ms\t"
+                         f"{e.count}\t{e.key[:160]}")
+    total = sum(by.values())
+    shares = ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)"
+                       for k, v in by.most_common())
+    print(f"train 10b profile [{card}]: one step's device time {total:.1f} ms:"
+          f" {shares}")
+    out = ROOT / "chiprun_out" / TRAIN_PROFILE_FILE
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(f"{card}\none bf16 train step of {TRAIN_ARCH}, batch "
+                   f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat dots_no_batch\n"
+                   f"{shares}\n\nwindow\tcategory\tdevice\tcalls\tkernel\n"
+                   + "\n".join(lines) + "\n")
+
+
+def train_path(dev, card) -> Counter:
+    """Phase 10: 10a's fp32 parity step, then 10b's trainer.  Returns 10b's
+    straight run's launches."""
+    train_parity(dev, card)
+    free_card()
+    return train_trainer(dev, card)
+
+
 def time_kernels_of(tree: pathlib.Path) -> int:
     """``--kernels-from TREE``: build the kernels of another checkout's
     ``src/repro_torch`` (for instance the parent commit, unpacked with git
@@ -2910,6 +3388,7 @@ def main() -> int:
     checks.run_hybrid(get_config("zamba2_7b"))
     checks.run_encdec(get_config("whisper_medium"))
     checks.run_vlm(get_config("qwen2_vl_2b"))
+    checks.run_backward(get_config("internlm2_1_8b"))
     checks.rank()
 
     # phase 7 runs inside these: 7b and 7d in every fp32 phase, 7a, 7c
@@ -2920,8 +3399,9 @@ def main() -> int:
     counts += hybrid_path(dev, card)                            # phases 4d-5d
     counts += encdec_path(dev, card)                            # phases 4e-5e
     counts += vlm_path(dev, card)                               # phases 4f-5f
+    counts += train_path(dev, card)                             # phase 10
 
-    print(f"launches over phases 4-7: {dict(counts)}")          # phase 8
+    print(f"launches over phases 4-7 and 10: {dict(counts)}")   # phase 8
     missing = [k for k in KERNELS if not counts.get(k)]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")

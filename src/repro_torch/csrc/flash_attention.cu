@@ -49,6 +49,11 @@
 // the launch refuses any other.  Every global base and row stride must be
 // 16-byte aligned (the wrapper checks).
 //
+// Both kernels can also write each query row's log-sum-exp of its scaled
+// scores, lse = log(sum_j exp(scale * q.k_j)) in the natural log, fp32,
+// (B, Nq, S): the backward kernel (flash_attention_bwd.cu) recomputes the
+// probabilities from it.  With a null lse pointer nothing more is done.
+//
 // fp32, CUDA cores (flash_kernel): fp32 inputs cannot use bf16 tensor
 // cores and must hold 1e-5, so they keep the first kernel: one block per
 // (16 query rows, head, row), KV tiles of 32 positions up to the diagonal,
@@ -78,7 +83,8 @@ int flash_smem_floats(int h, int hv) {
 
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int seq, int seq_k, int nq,
+             const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+             int seq, int seq_k, int nq,
              int nkv, int h, int hv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
              float scale) {
   extern __shared__ float smem[];
@@ -135,9 +141,13 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (i0 + r < seq)
       ob[static_cast<long long>(i0 + r) * os.s + d] = online_softmax_finalize(st, i, hv);
   }
+  if (lse != nullptr && threadIdx.x < kBQ && i0 + threadIdx.x < seq)
+    lse[(static_cast<long long>(b) * nq + n) * seq + i0 + threadIdx.x] =
+        st.m[threadIdx.x] + logf(fmaxf(st.l[threadIdx.x], 1e-30f));
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int b, int seq,
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+               int seq,
                int seq_k, int nq, int nkv, int h, int hv, Strides qs, Strides ks, Strides vs,
                Strides os, int causal, float scale, cudaStream_t s) {
   const size_t bytes = sizeof(float) * flash_smem_floats(h, hv);
@@ -146,8 +156,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b, in
   const dim3 grid((seq + kBQ - 1) / kBQ, nq, b);
   flash_kernel<<<grid, kThreads, bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), seq, seq_k, nq, nkv, h, hv, qs, ks,
-      vs, os, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, seq, seq_k, nq, nkv, h, hv, qs,
+      ks, vs, os, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,9 +230,9 @@ __device__ __forceinline__ void pv_tile(float (&o)[HV / 8][4], const uint32_t (&
 template <int H, int HV, int KS, int kStages>
 __global__ void __launch_bounds__(128 * KS)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int seq, int seq_k, int nq,
-                int nkv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                float scale_log2) {
+                const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                int seq, int seq_k, int nq, int nkv, Strides qs, Strides ks, Strides vs,
+                Strides os, int causal, float scale_log2) {
   using L = TcLayout<H, HV, kStages>;
   constexpr int kThreadsT = 128 * KS;
   constexpr int kAhead = 2 * kStages - 3;  // copy groups committed after K(j) or V(j)
@@ -403,6 +413,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float mx = fmaxf(m_run[r], m2);
       const float w1 = exp2f(m_run[r] - mx), w2 = exp2f(m2 - mx);
       l_tot[r] = l_tot[r] * w1 + sl[r_loc + 8 * r] * w2;
+      m_run[r] = mx;  // the merged state's max, for the lse
 #pragma unroll
       for (int dn = 0; dn < HV / 8; ++dn) {
         const float2 x = *reinterpret_cast<const float2*>(so + (r_loc + 8 * r) * HV + dn * 8 +
@@ -413,6 +424,14 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
+  if (lse != nullptr && quad == 0) {
+    // natural log: the scores' max and sum live in the log2 domain
+    float* lb = lse + (static_cast<long long>(b) * nq + n) * seq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < seq)
+        lb[row0 + 8 * r] = (m_run[r] + log2f(fmaxf(l_tot[r], 1e-30f))) * kLn2;
+  }
   bf16* ob = out + b * os.b + n * os.n;
   float inv[2];
 #pragma unroll
@@ -430,7 +449,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int H, int HV, int KS, int kStages>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int b, int seq, int seq_k,
+int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int b, int seq,
+              int seq_k,
               int nq, int nkv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
               float scale, cudaStream_t s) {
   constexpr size_t bytes = TcLayout<H, HV, kStages>::kBytes;
@@ -439,7 +459,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b, int
   const dim3 grid((seq + kTile - 1) / kTile, nq, b);
   flash_tc_kernel<H, HV, KS, kStages><<<grid, 128 * KS, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), seq, seq_k, nq, nkv, qs, ks, vs, os, causal, scale * kLog2e);
+      static_cast<bf16*>(out), lse, seq, seq_k, nq, nkv, qs, ks, vs, os, causal,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -451,7 +472,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b, int
 // 4 warps and a 2-deep ring leave room for two blocks per SM (the batched
 // buckets, the encoder).
 template <int H, int HV>
-int launch_widths(const void* q, const void* k, const void* v, void* out, int b, int seq,
+int launch_widths(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                  int seq,
                   int seq_k, int nq, int nkv, Strides qs, Strides ks, Strides vs, Strides os,
                   int causal, float scale, cudaStream_t s) {
   int dev = 0, sms = 0;
@@ -462,19 +484,20 @@ int launch_widths(const void* q, const void* k, const void* v, void* out, int b,
   const int kv_tiles = (seq_k + kTile - 1) / kTile;
   const long long blocks = static_cast<long long>((seq + kTile - 1) / kTile) * nq * b;
   if (kv_tiles > 1 && blocks <= sms)
-    return launch_tc<H, HV, 2, 4>(q, k, v, out, b, seq, seq_k, nq, nkv, qs, ks, vs, os, causal,
-                                  scale, s);
-  return launch_tc<H, HV, 1, 2>(q, k, v, out, b, seq, seq_k, nq, nkv, qs, ks, vs, os, causal,
-                                scale, s);
+    return launch_tc<H, HV, 2, 4>(q, k, v, out, lse, b, seq, seq_k, nq, nkv, qs, ks, vs, os,
+                                  causal, scale, s);
+  return launch_tc<H, HV, 1, 2>(q, k, v, out, lse, b, seq, seq_k, nq, nkv, qs, ks, vs, os,
+                                causal, scale, s);
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, int seq,
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                int seq,
                 int seq_k, int nq, int nkv, int h, int hv, Strides qs, Strides ks, Strides vs,
                 Strides os, int causal, float scale, cudaStream_t s) {
 #define REPRO_FLASH_TC(H, HV)                                                             \
   if (h == H && hv == HV)                                                                 \
-    return launch_widths<H, HV>(q, k, v, out, b, seq, seq_k, nq, nkv, qs, ks, vs, os, causal, \
-                                scale, s);
+    return launch_widths<H, HV>(q, k, v, out, lse, b, seq, seq_k, nq, nkv, qs, ks, vs, os, \
+                                causal, scale, s);
   REPRO_FLASH_TC(64, 64)
   REPRO_FLASH_TC(112, 112)
   REPRO_FLASH_TC(128, 128)
@@ -487,11 +510,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, i
 
 // q (B, S, Nq, H), k (B, Sk, Nkv, H), v (B, Sk, Nkv, Hv), out (B, S, Nq, Hv);
 // each given by its batch/position/head strides, head dim unit-stride; Sk
-// equals S when causal.  fp32 runs on the CUDA cores; bf16 on the tensor
-// cores, for the (H, Hv) pairs instantiated above only, with 16-byte
-// aligned bases and strides.
+// equals S when causal.  lse, when not null, receives each query row's
+// natural-log log-sum-exp of its scaled scores, fp32 (B, Nq, S)
+// contiguous.  fp32 runs on the CUDA cores; bf16 on the tensor cores, for
+// the (H, Hv) pairs instantiated above only, with 16-byte aligned bases and
+// strides.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int b, int seq, int seq_k, int nq, int nkv, int h, int hv,
+                                      void* lse, int b, int seq, int seq_k, int nq, int nkv,
+                                      int h, int hv,
                                       long long q_sb, long long q_ss, long long q_sn,
                                       long long k_sb, long long k_ss, long long k_sn,
                                       long long v_sb, long long v_ss, long long v_sn,
@@ -502,10 +528,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides qs{q_sb, q_ss, q_sn}, ks{k_sb, k_ss, k_sn}, vs{v_sb, v_ss, v_sn},
       os{o_sb, o_ss, o_sn};
   if (dtype == kFloat32)
-    return launch_f32(q, k, v, out, b, seq, seq_k, nq, nkv, h, hv, qs, ks, vs, os, causal,
-                      scale, s);
+    return launch_f32(q, k, v, out, static_cast<float*>(lse), b, seq, seq_k, nq, nkv, h, hv, qs,
+                      ks, vs, os, causal, scale, s);
   if (dtype == kBFloat16)
-    return launch_bf16(q, k, v, out, b, seq, seq_k, nq, nkv, h, hv, qs, ks, vs, os, causal,
-                       scale, s);
+    return launch_bf16(q, k, v, out, static_cast<float*>(lse), b, seq, seq_k, nq, nkv, h, hv, qs,
+                       ks, vs, os, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -105,3 +105,4 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;

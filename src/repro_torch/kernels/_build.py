@@ -49,9 +49,12 @@ SIGNATURES = {
     "paged_mla_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _I, _I, _I,
                                           _L, _L, _L, _L, _F, _I, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                _I, _F, _I, _P],
+    "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _F, _I, _P],
     "ssd_intra_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_L), _I, _I, _P],
     "ssd_slab_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -15,6 +15,20 @@ probabilities in fp32 (agreeing with the plain version to 1e-5); bf16 runs
 on the tensor cores and rounds the unnormalised probabilities to bf16
 (agreeing to the bf16 tolerance), for the head widths in
 :data:`TENSOR_CORE_WIDTHS` only and with 16-byte aligned operands.
+
+The backward (``csrc/flash_attention_bwd.cu``; the reference has none of
+its own: XLA differentiates the jnp path) is FlashAttention-2's recompute
+backward from the forward's row log-sum-exp, which the forward kernel
+writes when asked (natural log, fp32, (B, Nq, S)).  It takes what the GQA
+decoder's training needs -- causal, Sk = S, H = Hv in :data:`BWD_WIDTHS`
+(bf16 on the tensor cores at 128 only, with 16-byte aligned operands, as
+the forward) -- and :class:`FlashAttentionFunction` refuses anything else
+on the card before any launch (ROADMAP A12 and A13 widen it); its plain
+version takes every shape, so the CPU differentiates every family.
+:func:`flash_attention` goes through the Function only when grad is
+enabled and an input requires grad: under ``no_grad`` or
+``inference_mode`` (the serving path, its CUDA graphs) the call is the
+forward launch alone, with no lse.
 """
 
 from __future__ import annotations
@@ -29,6 +43,16 @@ from repro_torch.kernels import _build
 # MLA prefill (192 / 128)
 TENSOR_CORE_WIDTHS = frozenset({(64, 64), (112, 112), (128, 128),
                                 (192, 128)})
+# head widths (H = Hv) the backward kernel is instantiated for, by dtype
+# (csrc/flash_attention_bwd.cu): internlm2's 128 in both, on the tensor
+# cores in bf16; the reduced configs' 16 and 32 in fp32 on the CUDA cores
+BWD_WIDTHS = {torch.float32: frozenset({16, 32, 128}),
+              torch.bfloat16: frozenset({128})}
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32, or float64 for float64 inputs (the CPU gradient checks)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def sdpa(q, k, v, *, mask, scale: float):
@@ -38,27 +62,73 @@ def sdpa(q, k, v, *, mask, scale: float):
     nkv = k.shape[2]
     hv = v.shape[-1]
     g = nq // nkv
+    acc = _acc_dtype(q.dtype)
     qg = q.reshape(b, sq, nkv, g, h)
-    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.to(acc), k.to(acc)) * scale
     if mask is not None:
         logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).float(),
-                       v.float())
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).to(acc),
+                       v.to(acc))
     return out.reshape(b, sq, nq, hv).to(v.dtype)
 
 
+def _causal_mask(s: int, device):
+    idx = torch.arange(s, device=device)
+    return (idx[None, :] <= idx[:, None])[None, None, None]
+
+
+def _lse(q, k, mask, scale):
+    """Row log-sum-exp of the scaled scores, (B, Nq, S) fp32 (or float64)."""
+    b, sq, nq, h = q.shape
+    nkv = k.shape[2]
+    acc = _acc_dtype(q.dtype)
+    qg = q.reshape(b, sq, nkv, nq // nkv, h)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.to(acc), k.to(acc)) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
+    return torch.logsumexp(logits, dim=-1).reshape(b, nq, sq)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          scale: float | None = None):
+                          scale: float | None = None, with_lse: bool = False):
     """q (B,S,Nq,H); k (B,Sk,Nkv,H); v (B,Sk,Nkv,Hv) -> (B,S,Nq,Hv); Sk = S
-    when ``causal``."""
-    s = q.shape[1]
+    when ``causal``.  With ``with_lse`` returns (out, lse), lse (B,Nq,S)
+    the rows' natural-log log-sum-exp of the scaled scores in fp32."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    mask = None
+    mask = _causal_mask(q.shape[1], q.device) if causal else None
+    out = sdpa(q, k, v, mask=mask, scale=scale)
+    return (out, _lse(q, k, mask, scale)) if with_lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              scale: float | None = None):
+    """(dq, dk, dv) of :func:`flash_attention_plain` from its output ``o``,
+    row log-sum-exp ``lse`` (B,Nq,S) and the output gradient ``do``, by
+    the backward kernel's formula in fp32: P = exp(scale * QK^T - lse)
+    (masked to 0), D = rowsum(do * o), dS = P * (do V^T - D); dv = P^T do,
+    dq = scale * dS K, dk = scale * dS^T Q, grouped heads summed.  Every
+    shape the forward takes (Hv != H, Sk != S when not causal)."""
+    b, sq, nq, h = q.shape
+    nkv = k.shape[2]
+    g = nq // nkv
+    scale = scale if scale is not None else h ** -0.5
+    acc = _acc_dtype(q.dtype)
+    qg = q.reshape(b, sq, nkv, g, h).to(acc)
+    dog = do.reshape(b, sq, nkv, g, -1).to(acc)
+    kf, vf = k.to(acc), v.to(acc)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, kf) * scale
+    p = torch.exp(logits - lse.reshape(b, nkv, g, sq, 1).to(acc))
     if causal:
-        idx = torch.arange(s, device=q.device)
-        mask = (idx[None, :] <= idx[:, None])[None, None, None]
-    return sdpa(q, k, v, mask=mask, scale=scale)
+        p = torch.where(_causal_mask(sq, q.device), p, 0.0)
+    delta = (do.to(acc) * o.to(acc)).sum(-1)  # (B, S, Nq)
+    delta = delta.reshape(b, sq, nkv, g).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bskgh,btkh->bkgst", dog, vf)
+    ds = p * (dp - delta)
+    dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgh->btkh", ds, qg) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -67,9 +137,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
     dtype, Sk = S when ``causal``.  CPU tensors take the plain version;
     CUDA tensors launch the kernel, which in bf16 raises ``ValueError`` for
     an (H, Hv) outside :data:`TENSOR_CORE_WIDTHS` or an operand whose base
-    or strides are not 16-byte aligned."""
+    or strides are not 16-byte aligned.  With grad enabled and an input
+    that requires grad, the call goes through
+    :class:`FlashAttentionFunction`."""
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal, scale)
+    return _flash_forward(q, k, v, causal, scale, with_lse=False)
+
+
+def _flash_forward(q, k, v, causal: bool, scale: float, *, with_lse: bool):
+    """The forward: out, or (out, lse) with ``with_lse``."""
     if _build.on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     with_lse=with_lse)
     dtype = _build.kernel_dtype(q, k, v)
     b, s, nq, h = q.shape
     sk, nkv, hv = k.shape[1], k.shape[2], v.shape[-1]
@@ -89,12 +170,91 @@ def flash_attention(q, k, v, *, causal: bool = True,
             f"flash_attention: no bf16 kernel for head widths (H, Hv) = "
             f"({h}, {hv}); instantiated: {sorted(TENSOR_CORE_WIDTHS)}")
     out = torch.empty((b, s, nq, hv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, nq, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b and s:
         _build.launch(
             "flash_attention", "flash_attention_launch", q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, sk, nq, nkv, h,
+            k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, s, sk, nq, nkv, h,
             hv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], int(causal),
-            float(scale if scale is not None else h ** -0.5), dtype,
+            *out.stride()[:3], int(causal), scale, dtype,
             _build.stream_of(q))
-    return out
+    return (out, lse) if with_lse else out
+
+
+def check_backward(q, k, v, causal: bool) -> None:
+    """Raises ``ValueError`` unless the backward kernel takes these shapes
+    (CUDA tensors only: the plain backward takes every shape)."""
+    if _build.on_cpu(q, k, v):
+        return
+    h, hv, s, sk = q.shape[-1], v.shape[-1], q.shape[1], k.shape[1]
+    widths = BWD_WIDTHS.get(q.dtype, frozenset())
+    if not causal or sk != s or h != hv or h not in widths:
+        raise ValueError(
+            f"flash_attention's backward kernel takes causal attention with "
+            f"Sk = S and H = Hv in {sorted(widths)} for {q.dtype}; got "
+            f"causal={causal}, S={s}, Sk={sk}, H={h}, Hv={hv} (ROADMAP A12 "
+            f"and A13 widen it)")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale: float | None = None):
+    """(dq, dk, dv) in q's dtype from the forward's ``o`` and ``lse`` and
+    the output gradient ``do`` (all (B,S,N,H) but lse (B,Nq,S) fp32).  CPU
+    tensors take the plain version; CUDA tensors launch the backward
+    kernel (three kernels: D = rowsum(do * o), then dk/dv, then dq; bf16 on
+    the tensor cores, fp32 on the CUDA cores), which raises ``ValueError``
+    for shapes outside :func:`check_backward` and, in bf16, for an operand
+    whose base is not 16-byte aligned."""
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if _build.on_cpu(q, k, v, o, lse, do):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         scale=scale)
+    check_backward(q, k, v, causal)
+    dtype = _build.kernel_dtype(q, k, v, o, do)
+    b, s, nq, h = q.shape
+    nkv = k.shape[2]
+    if (tuple(k.shape) != (b, s, nkv, h) or tuple(v.shape) != (b, s, nkv, h)
+            or tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape)
+            or tuple(lse.shape) != (b, nq, s) or lse.dtype != torch.float32
+            or nq % nkv):
+        raise ValueError(
+            f"flash_attention_bwd: q/o/do (B,S,Nq,H), k/v (B,S,Nkv,H), lse "
+            f"(B,Nq,S) fp32; got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, o {tuple(o.shape)}, do {tuple(do.shape)}, "
+            f"lse {tuple(lse.shape)} {lse.dtype}")
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            _build.check_aligned(f"flash_attention_bwd {name}", t)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, nq, s), dtype=torch.float32, device=q.device)
+    if b and s:
+        _build.launch(
+            "flash_attention_bwd", "flash_attention_bwd_launch", q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, s, nq, nkv, h, scale, dtype,
+            _build.stream_of(q))
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """flash_attention with its backward kernel: the forward also writes
+    the rows' lse; saves q, k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        check_backward(q, k, v, causal)
+        out, lse = _flash_forward(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None

@@ -9,6 +9,15 @@ The kernel runs one warp per row by one of three routes, picked by
 the row held in registers for the widths in :data:`ROW_WIDTHS`, a loop of
 16-byte vectors for any other width that is a whole number of them, and an
 element loop for any other width.
+
+The backward (``csrc/rmsnorm.cu``'s ``bwd_kernel``; the reference has no
+kernel for it: XLA differentiates the jnp path) gives dx by the same three
+routes, one warp per row, and dw through fp32 partial sums per block that
+a second kernel reduces in block order (no float atomics: every run gives
+the same bits).  :class:`RMSNormFunction` binds the two for autograd;
+:func:`rmsnorm` goes through it only when grad is enabled and an input
+requires grad, so a call under ``no_grad`` or ``inference_mode`` (the
+serving path, its CUDA graphs) is the forward launch alone.
 """
 
 from __future__ import annotations
@@ -26,13 +35,40 @@ ROW_WIDTHS = frozenset({512, 1024, 1536, 2048, 3072, 3584})
 # route codes of csrc/rmsnorm.cu
 ROUTES = {"scalar": 0, "vectors": 1, "registers": 2}
 
+# the backward's blocks: 4 warps, one row at a time each; a block sums the
+# dw terms of its run of rows into one fp32 row of partial sums, in (4, D)
+# floats of shared memory
+BWD_WARPS = 4
+BWD_MAX_BLOCKS = 256
+BWD_MAX_WIDTH = 14336  # 4 * D floats within the 227 KB a block may take
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32, or float64 for float64 inputs (the CPU gradient checks)."""
+    return torch.promote_types(dtype, torch.float32)
+
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """x (..., D); w (D,) -> same shape and dtype as x."""
     dt = x.dtype
-    xf = x.float()
+    xf = x.to(_acc_dtype(dt))
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * w
+
+
+def rmsnorm_bwd_plain(x, w, dy, eps: float):
+    """The gradient of :func:`rmsnorm_plain` as an explicit formula, with
+    r = rsqrt(mean(x^2) + eps) and n = cast(x * r) in fp32: dw = sum over
+    rows of dy * n; dx = r * (g - x * r^2 * mean(g * x)), g = dy * w.
+    Returns (dx in x's dtype, dw in w's dtype)."""
+    acc = _acc_dtype(x.dtype)
+    xf, dyf = x.to(acc), dy.to(acc)
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    n = (xf * r).to(x.dtype).to(acc)
+    dw = (dyf * n).reshape(-1, x.shape[-1]).sum(dim=0).to(w.dtype)
+    g = dyf * w.to(acc)
+    dx = r * (g - xf * r.square() * (g * xf).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), dw
 
 
 def rmsnorm_route(x: torch.Tensor, w: torch.Tensor) -> str:
@@ -48,14 +84,27 @@ def rmsnorm_route(x: torch.Tensor, w: torch.Tensor) -> str:
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """x (..., D); w (D,) -> same shape and dtype as x.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version; CUDA tensors launch the kernel.  With grad enabled
+    and an input that requires grad, the call goes through
+    :class:`RMSNormFunction`."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RMSNormFunction.apply(x, w, eps)
+    return _rmsnorm(x, w, eps)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
+    d = x.shape[-1]
+    if tuple(w.shape) != (d,) or not x.is_contiguous() or not w.is_contiguous():
+        raise ValueError(f"{name} takes contiguous x (..., {d}) and w ({d},); "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+
+
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     if _build.on_cpu(x, w):
         return rmsnorm_plain(x, w, eps)
     dtype = _build.kernel_dtype(x, w)
     d = x.shape[-1]
-    if tuple(w.shape) != (d,) or not x.is_contiguous() or not w.is_contiguous():
-        raise ValueError(f"rmsnorm takes contiguous x (..., {d}) and w ({d},); "
-                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    _check(x, w, "rmsnorm")
     route = ROUTES[rmsnorm_route(x, w)]
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     rows = x.numel() // d if d else 0
@@ -64,3 +113,52 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
                       out.data_ptr(), rows, d, float(eps), dtype, route,
                       _build.stream_of(x))
     return out
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                eps: float):
+    """(dx, dw) of :func:`rmsnorm` at x (..., D), w (D,) for the output
+    gradient dy (x's shape).  CPU tensors take the plain version; CUDA
+    tensors launch the backward kernel, which raises ``ValueError`` for a
+    row wider than :data:`BWD_MAX_WIDTH`."""
+    if _build.on_cpu(x, w, dy):
+        return rmsnorm_bwd_plain(x, w, dy, eps)
+    dtype = _build.kernel_dtype(x, w, dy)
+    d = x.shape[-1]
+    _check(x, w, "rmsnorm_bwd")
+    if tuple(dy.shape) != tuple(x.shape) or not dy.is_contiguous():
+        raise ValueError(f"rmsnorm_bwd takes a contiguous dy of x's shape "
+                         f"{tuple(x.shape)}; got {tuple(dy.shape)}")
+    if d > BWD_MAX_WIDTH:
+        raise ValueError(f"rmsnorm_bwd: rows of {d} exceed the kernel's "
+                         f"{BWD_MAX_WIDTH} (its dw sums in shared memory)")
+    route = rmsnorm_route(x, w) if dy.data_ptr() % 16 == 0 else "scalar"
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    rows = x.numel() // d if d else 0
+    if not rows:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    blocks = min(-(-rows // BWD_WARPS), BWD_MAX_BLOCKS)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    _build.launch("rmsnorm_bwd", "rmsnorm_bwd_launch", x.data_ptr(),
+                  w.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                  partial.data_ptr(), rows, d, blocks, float(eps), dtype,
+                  ROUTES[route], _build.stream_of(x))
+    return dx, dw
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """rmsnorm with its backward kernel: saves x and w, and gives dx and
+    dw from :func:`rmsnorm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy.contiguous(), ctx.eps)
+        return dx, dw, None

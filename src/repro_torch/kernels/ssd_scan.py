@@ -85,9 +85,15 @@ def ssd_intra(x, dt, dA, B, C):
     s (M,H,N,P) fp32.  CPU tensors take the plain version; CUDA tensors
     launch the kernel of :func:`ssd_intra_route`, which takes any Q <= 256
     and strided views (y comes back as a (M,H,Q,P) view of a (M,Q,H,P)
-    buffer: the model's layout)."""
+    buffer: the model's layout).  The kernel has no backward yet: on the
+    card, a call whose inputs require grad raises ``ValueError`` rather
+    than return an output autograd cannot see through."""
     if _build.on_cpu(x, dt, dA, B, C):
         return ssd_intra_plain(x, dt, dA, B, C)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, dA, B, C)):
+        raise ValueError("ssd_intra has no backward kernel yet: SSM and "
+                         "hybrid training on the card wait for ROADMAP A12")
     dtype = _build.kernel_dtype(x, B, C)
     _fp32("ssd_intra", dt, dA)
     m, h, q, p = x.shape

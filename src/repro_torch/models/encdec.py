@@ -147,9 +147,7 @@ def encode(cfg, params, frames):
     pos = torch.arange(t, device=frames.device).expand(b, t)
     x = frames + L.sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    stack = params["encoder"]
-    for li in range(cfg.encoder_layers):
-        lp = T._layer(stack, li)
+    for lp in T._layers(params["encoder"], cfg.encoder_layers):
         h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
         p = lp["attn"]
         q, k, v = (L._project(h, p[w]) for w in ("wq", "wk", "wv"))
@@ -178,14 +176,17 @@ def _cross_attention(cfg, p, x, k, v, *, lengths=None, row_ids=None):
     return torch.matmul(o.reshape(b, s, -1), p["wo"].reshape(-1, cfg.d_model))
 
 
-def forward(cfg, params, batch, *, mode: str, cache=None):
+def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
+            remat_policy: str | None = None):
     """batch: 'tokens' (B,S); 'frames' (B,T_enc,D) for train and prefill;
     optional 'lengths' (B,) true prompt lengths of a padded prefill and
     'max_seq' (the prefill cache's padded length).  Decode takes the dense
     cache of :func:`init_cache` or, when the cache holds ``block_tables``,
     the pools of :func:`init_paged_cache` with ``block_tables`` (B, W),
     ``segment_ids`` (B,) and ``pos`` (B,).  Returns (logits, new_cache,
-    aux_loss)."""
+    aux_loss).  ``remat`` checkpoints each decoder layer, as the
+    reference's ``jax.checkpoint`` of its decoder body does
+    (``transformer.remat_layer``); the encoder is not."""
     x = T.embed_tokens(cfg, params, batch["tokens"])
     b, s, _ = x.shape
     decode = mode == "decode"
@@ -204,16 +205,10 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
         enc = encode(cfg, params, batch["frames"])
     stack = params["decoder"]
     ks, vs, cks, cvs = [], [], [], []  # the prefill cache, per layer
-    for li in range(cfg.num_layers):
-        lp = T._layer(stack, li)
-        if paged:
-            lc = (*cache["self"], li, cache["block_tables"], cache["pos"])
-        elif decode:
-            lc = (*(t[li] for t in cache["self"]), cache["pos"])
-        else:
-            lc = None
-        if li == 0:  # each row's slot and length, shared by every layer
-            step = L.attention_step(cfg, positions, lc)
+
+    def layer(li, lp, x, enc, lc, step):
+        """Decoder layer ``li``: self-attention against ``lc``, then
+        cross-attention to ``enc`` (or, in decode, the cross cache)."""
         h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
         out, c = L.attention(cfg, lp["attn"], h, positions=positions,
                              cache="build" if mode == "prefill" else None,
@@ -229,7 +224,19 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
             cv = L._project(enc, lp["cross"]["wv"])
             x = x + _cross_attention(cfg, lp["cross"], h, ck, cv)
         h = L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
-        x = x + L.mlp(cfg, lp["mlp"], h)
+        return x + L.mlp(cfg, lp["mlp"], h), c, ck, cv
+
+    run_layer = T.remat_layer(layer, remat, remat_policy)
+    for li, lp in enumerate(T._layers(stack, cfg.num_layers)):
+        if paged:
+            lc = (*cache["self"], li, cache["block_tables"], cache["pos"])
+        elif decode:
+            lc = (*(t[li] for t in cache["self"]), cache["pos"])
+        else:
+            lc = None
+        if li == 0:  # each row's slot and length, shared by every layer
+            step = L.attention_step(cfg, positions, lc)
+        x, c, ck, cv = run_layer(li, lp, x, enc, lc, step)
         if mode == "prefill":
             ks.append(c[0])
             vs.append(c[1])

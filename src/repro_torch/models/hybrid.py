@@ -153,14 +153,18 @@ def _mamba_sub(cfg, p, x, *, mode, layer_cache, lengths=None):
     return x + out, c
 
 
-def forward(cfg, params, batch, *, mode: str, cache=None):
+def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
+            remat_policy: str | None = None):
     """batch: 'tokens' (B,S), optional 'lengths' (B,) true prompt lengths of
     a padded prefill (they reach the Mamba-2 layers only: the shared
     block's padded KV is masked by decode) and 'max_seq' (the prefill
     cache's padded length).  Decode takes the dense cache of
     :func:`init_cache` or, when the cache holds ``block_tables``, the pools
     of :func:`init_paged_cache` with ``block_tables`` (B, W), ``slab_ids``
-    (B,) and ``pos`` (B,).  Returns (logits, new_cache, aux_loss)."""
+    (B,) and ``pos`` (B,).  Returns (logits, new_cache, aux_loss).
+    ``remat`` runs each group (its Mamba-2 layers and the shared block) as
+    one checkpointed unit, as the reference's ``jax.checkpoint`` of its
+    group body does (``transformer.remat_layer``); the tail is not."""
     x = T.embed_tokens(cfg, params, batch["tokens"])
     b, s, _ = x.shape
     g, per_group, tail = _split(cfg)
@@ -191,12 +195,20 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
             states.append(c[1])
         return x
 
-    for gi in range(g):
+    def group(gi, x, lc, step):
+        """Group ``gi``: its Mamba-2 layers, then the shared block's
+        application gi against ``lc``."""
         for j in range(per_group):
             x = mamba(T._tree_map(lambda t: t[gi, j], params["groups"]), x,
                       gi * per_group + j,
                       tuple(t[gi, j] for t in cache["groups_mamba"])
                       if dense else None)
+        x, c, _ = T.block(cfg, shared, x, positions=positions, mode=mode,
+                          layer_cache=lc, step=step)
+        return x, c
+
+    run_group = T.remat_layer(group, remat, remat_policy)
+    for gi in range(g):
         # the shared block's application gi: KV plane gi of the cache or
         # pools, every plane through the same block table
         if paged:
@@ -207,8 +219,7 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
             lc = None
         if step is None:  # shared by every application of this step
             step = L.attention_step(cfg, positions, lc)
-        x, c, _ = T.block(cfg, shared, x, positions=positions, mode=mode,
-                          layer_cache=lc, step=step)
+        x, c = run_group(gi, x, lc, step)
         if mode == "prefill":
             ks.append(c[0])
             vs.append(c[1])

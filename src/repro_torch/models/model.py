@@ -5,7 +5,9 @@
     init_paged_cache(cfg, blocks, block_size) -> block, slab or segment pools
     supports_paged(cfg)                       -> paged decode available?
     apply(cfg, params, batch, mode=...)       -> (logits, cache, aux)
+    loss_fn(cfg, params, batch, ...)          -> (loss, metrics)
     param_count(cfg)                          -> analytical N (for rooflines)
+    input_specs(cfg, shape)                   -> meta-device batch stand-ins
 
 Counterpart of ``repro/models/model.py``.  The port has the dense GQA
 decoder, the MoE decoder (GQA or MLA attention, with dense prefix layers),
@@ -85,12 +87,37 @@ def paged_insert_views(cfg, prefill_cache) -> dict:
     return views
 
 
-def apply(cfg, params, batch, *, mode: str, cache=None):
+def apply(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
+          remat_policy: str | None = None):
     """batch: 'tokens' (B,S) -- or 'embeds' (B,S,D) with 'mrope_positions'
     (3,B,S) for the VLM stack -- plus 'frames' (B,T_enc,D) for the enc-dec
     stack's train and prefill, and the optional keys of its family's
-    ``forward``."""
-    return _family_mod(cfg).forward(cfg, params, batch, mode=mode, cache=cache)
+    ``forward``.  ``remat_policy`` names a policy of
+    ``transformer.REMAT_POLICIES`` (the reference passes the
+    ``jax.checkpoint`` policy itself)."""
+    return _family_mod(cfg).forward(cfg, params, batch, mode=mode, cache=cache,
+                                    remat=remat, remat_policy=remat_policy)
+
+
+def cross_entropy(logits, labels, *, z_loss: float = 0.0):
+    """Stable CE in fp32; labels < 0 are masked out."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    mask = (labels >= 0).float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def loss_fn(cfg, params, batch, *, remat: bool = True,
+            remat_policy: str | None = None, aux_weight: float = 0.01):
+    logits, _, aux = apply(cfg, params, batch, mode="train", remat=remat,
+                           remat_policy=remat_policy)
+    ce = cross_entropy(logits, batch["labels"])
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -154,3 +181,46 @@ def param_count(cfg, *, active_only: bool = False) -> int:
         else:
             total += _mlp_params(d, cfg.d_ff, cfg.mlp_type)
     return total
+
+
+# --------------------------------------------------------------------------
+# input stand-ins for a dry run (meta-device tensors: no allocation)
+# --------------------------------------------------------------------------
+
+
+def input_specs(cfg, shape, *, for_train: bool | None = None) -> dict:
+    """Batch stand-ins for one step of the given ShapeSpec, as tensors on
+    the meta device (the reference returns ``jax.ShapeDtypeStruct``s).
+
+    train:   tokens+labels (B,S)   [+frames/embeds/mrope per family]
+    prefill: tokens (B,S)          [+...]
+    decode:  tokens (B,1), cache supplied separately by the launcher
+    """
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    kind = shape.kind if for_train is None else ("train" if for_train else shape.kind)
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind == "train":
+        batch = {"tokens": sds((b, s), torch.int32),
+                 "labels": sds((b, s), torch.int32)}
+        seq = (b, s)
+    elif kind == "prefill":
+        batch = {"tokens": sds((b, s), torch.int32)}
+        seq = (b, s)
+    else:  # decode: one new token against a cache of length s
+        batch = {"tokens": sds((b, 1), torch.int32)}
+        seq = (b, 1)
+
+    if cfg.family == "vlm":
+        # frontend stub: merged text+vision embeddings and M-RoPE positions
+        # replace raw tokens entirely
+        batch.pop("tokens", None)
+        batch["embeds"] = sds((*seq, cfg.d_model), dt)
+        batch["mrope_positions"] = sds((3, *seq), torch.int32)
+    if cfg.family == "encdec" and kind != "decode":
+        # frontend stub: precomputed encoder frame embeddings
+        batch["frames"] = sds((b, cfg.encoder_seq, cfg.d_model), dt)
+    return batch

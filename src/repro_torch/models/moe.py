@@ -8,7 +8,7 @@ expert products are batched ``torch.matmul`` over the expert axis on the
 weights' own (E, D, F) / (E, F, D) layout: the tokens are broadcast, the
 expert stacks are never permuted or copied.  The expert-parallel branches
 (``_dispatch``, ``_combine``, ``_moe_local``, ``_moe_replicated_body``,
-``_moe_decode_tpdata``) come with the distributed slice (ROADMAP A11).
+``_moe_decode_tpdata``) come with the distributed slice (ROADMAP A11.5).
 
 Routing: top-k over softmax(router logits) in fp32, renormalised over the
 selected experts, plus the Switch-style load-balance auxiliary loss.

@@ -16,11 +16,38 @@ Modes:
   decode  -- single-token step against a dense cache or, when the cache
              holds ``block_tables`` (GQA, MLA) or ``slab_ids`` (SSM),
              against block or slab pools
+
+Rematerialization.  ``forward(..., remat=True, remat_policy=name)`` runs
+each layer of the stack, and each prefix layer, under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` when grad
+is enabled -- the reference wraps its scanned layer in ``jax.checkpoint``.
+The reference's policy names (``repro/training/train_step.py:24-30``)
+map as :data:`REMAT_POLICIES` says:
+
+  none          -- plain checkpoint: the reference passes ``policy=None``
+                   to ``jax.checkpoint``, which saves nothing
+  nothing       -- plain checkpoint (``nothing_saveable``)
+  dots          -- selective checkpoint
+                   (``create_selective_checkpoint_contexts``) that saves
+                   the outputs of ``aten.mm``, ``aten.addmm`` and
+                   ``aten.bmm`` (``checkpoint_dots``: every dot) and
+                   recomputes everything else, the kernels included
+  dots_no_batch -- the same without ``aten.bmm``
+                   (``checkpoint_dots_with_no_batch_dims``): batched
+                   products, such as the MoE experts' and the plain
+                   attention's, are recomputed
+  everything    -- no checkpoint: nothing is recomputed
+
+Values are the same under every policy; only memory and the recompute
+differ.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -30,6 +57,42 @@ from repro_torch.models import ssm as S
 
 def _dtype(cfg, dtype=None) -> torch.dtype:
     return dtype if dtype is not None else getattr(torch, cfg.dtype)
+
+
+# --------------------------------------------------------------------------
+# rematerialization
+# --------------------------------------------------------------------------
+
+_NO_BATCH = frozenset({torch.ops.aten.mm.default,
+                       torch.ops.aten.addmm.default})
+_DOTS = _NO_BATCH | {torch.ops.aten.bmm.default}
+
+
+def _saving(ops):
+    """A selective-checkpoint policy that saves the outputs of ``ops``."""
+    def policy(ctx, op, *args, **kwargs):
+        return (_ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+# the reference's policy names -> a selective-checkpoint policy, None for a
+# plain checkpoint, False for no checkpoint (see the module docstring)
+REMAT_POLICIES = {"none": None, "nothing": None, "dots": _saving(_DOTS),
+                  "dots_no_batch": _saving(_NO_BATCH), "everything": False}
+
+
+def remat_layer(fn, remat: bool, policy: str | None):
+    """``fn`` as a layer runs it: under ``torch.utils.checkpoint`` with the
+    reference policy named ``policy`` (None: "none") when ``remat`` and
+    grad is enabled, else ``fn`` itself."""
+    chosen = REMAT_POLICIES[policy or "none"]
+    if not remat or chosen is False or not torch.is_grad_enabled():
+        return fn
+    kwargs = {} if chosen is None else {"context_fn": functools.partial(
+        _ckpt.create_selective_checkpoint_contexts, chosen)}
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                             **kwargs)
 
 
 # --------------------------------------------------------------------------
@@ -75,6 +138,17 @@ def _tree_map(fn, *trees):
 
 def _layer(tree, i: int):
     return _tree_map(lambda t: t[i], tree)
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, as views.  Under grad each leaf
+    is unbound once, so the backward stacks the layers' gradients in one
+    op, where ``n`` :func:`_layer` selects would each add a zero-filled
+    gradient of the whole stack into the leaf's."""
+    if not torch.is_grad_enabled():
+        return [_layer(tree, i) for i in range(n)]
+    cols = _tree_map(lambda t: t.unbind(0), tree)
+    return [_tree_map(lambda c: c[i], cols) for i in range(n)]
 
 
 def _init_stacked(n: int, make_layer):
@@ -277,29 +351,53 @@ def embed_tokens(cfg, params, tokens):
     return params["embed"][tokens.long()]
 
 
+class _LogitsGemm(torch.autograd.Function):
+    """x (T, d) @ table (d, V) in x's dtype with fp32 accumulation and
+    output (``torch.mm(..., out_dtype=float32)``, which autograd cannot
+    differentiate).  The backward rounds the logits' fp32 gradient to x's
+    dtype and runs two GEMMs in it, with fp32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, x, table):
+        ctx.save_for_backward(x, table)
+        return torch.mm(x, table, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return torch.mm(g, table.T), torch.mm(x.T, g)
+
+
 def unembed(cfg, params, x):
     """fp32 logits (the reference accumulates and returns fp32).  A bf16
     ``x`` on the card takes one GEMM of the bf16 table with fp32
     accumulation and output, as the reference's ``preferred_element_type``
     does -- no fp32 copy of the table -- and so does one on the meta
-    device, where static pricing follows the card's path; CPU tensors (no
-    such kernel there) and fp32 cast to fp32 first, the same arithmetic."""
+    device, where static pricing follows the card's path; under grad it
+    goes through :class:`_LogitsGemm`.  CPU tensors (no such kernel there)
+    and fp32 cast to fp32 first, the same arithmetic."""
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if x.device.type != "cpu" and x.dtype != torch.float32:
         b, s, d = x.shape
-        return torch.mm(x.reshape(b * s, d), table,
-                        out_dtype=torch.float32).view(b, s, -1)
+        x2 = x.reshape(b * s, d)
+        if torch.is_grad_enabled() and (x.requires_grad or table.requires_grad):
+            return _LogitsGemm.apply(x2, table).view(b, s, -1)
+        return torch.mm(x2, table, out_dtype=torch.float32).view(b, s, -1)
     return torch.matmul(x.float(), table.float())
 
 
-def forward(cfg, params, batch, *, mode: str, cache=None):
+def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
+            remat_policy: str | None = None):
     """batch: dict with 'tokens' (B,S) (or 'embeds' (B,S,D) for stacks that
     take embeddings), optional 'mrope_positions' (3,B,S) (M-RoPE; (3,B,1)
     in decode), 'lengths' (B,) true prompt lengths of a padded prefill and
     'max_seq' (the prefill cache's padded length).  Returns (logits,
     new_cache, aux_loss).  The values every attention layer shares (rope,
     each row's slot and length in decode) are computed once, at the first
-    attention layer, and passed to the others."""
+    attention layer, and passed to the others.  ``remat`` and
+    ``remat_policy`` (a name of :data:`REMAT_POLICIES`) checkpoint each
+    layer."""
     if cfg.embed_inputs and "embeds" in batch:
         x = batch["embeds"]
     else:
@@ -321,6 +419,7 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
     mamba = kind == "mamba"
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     step = None
+    layer = remat_layer(block, remat, remat_policy)
 
     def run(p, x, key, li):
         """Block ``li`` of ``params[key]`` (the prefix list or the stack),
@@ -339,7 +438,7 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
         if step is None and not mamba:
             step = (L.mla_step(cfg, positions, lc) if kind == "mla" else
                     L.attention_step(cfg, positions, lc, mrope_positions))
-        x, c, aux = block(cfg, p, x, positions=positions, mode=mode,
+        x, c, aux = layer(cfg, p, x, positions=positions, mode=mode,
                           layer_cache=lc, lengths=lengths,
                           mrope_positions=mrope_positions, step=step)
         if aux is not None:
@@ -353,8 +452,8 @@ def forward(cfg, params, batch, *, mode: str, cache=None):
         first.append(c)
     stack = params["layers"]
     ks, vs = [], []
-    for li in range(stack["ln1"]["scale"].shape[0]):
-        x, c = run(_layer(stack, li), x, "layers", li)
+    for li, p in enumerate(_layers(stack, stack["ln1"]["scale"].shape[0])):
+        x, c = run(p, x, "layers", li)
         if mode == "prefill":
             ks.append(c[0])
             vs.append(c[1])

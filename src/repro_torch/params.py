@@ -1,5 +1,5 @@
-"""Weights for the port: the bridge from the reference's parameters, and
-native random init.
+"""Weights for the port: the bridge from the reference's parameters and
+AdamW state, and native random init.
 
 ``params_from_numpy`` takes the reference pytree already converted to
 numpy (``jax.tree.map(np.asarray, params)``) and returns the same tree of
@@ -47,3 +47,24 @@ def params_from_numpy(tree, *, device=None, dtype: torch.dtype | None = None):
         return t.to(torch.float32 if key in FP32_LEAVES else dtype)
 
     return conv(tree)
+
+
+def opt_state_from_numpy(state, *, device=None, dtype: torch.dtype | None = None):
+    """The reference's AdamW state (``repro.training.optimizer.init`` or
+    ``update``: ``mu``, ``nu``, optional ``master``, ``step``) already
+    converted to numpy, as the port's state of tensors on ``device``:
+    every leaf keeps its dtype (bf16 moments stay bf16, the fp32 master
+    fp32, ``step`` a 0-d int32), except that ``dtype``, when given, casts
+    the moments ``mu`` and ``nu``."""
+    device = resolve_device(device)
+
+    def conv(node, cast=None):
+        if isinstance(node, dict):
+            return {k: conv(v, cast) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v, cast) for v in node)
+        t = _tensor(np.asarray(node)).to(device)
+        return t if cast is None else t.to(cast)
+
+    return {k: conv(v, dtype if k in ("mu", "nu") else None)
+            for k, v in state.items()}

@@ -8,7 +8,7 @@ the source's): ``plan_after_failure`` and ``degraded_throughput_fraction``
 ``ElasticPoolController`` (``ServeEngine.add_server`` / ``remove_server``
 toward a target pool size mid-traffic, with live cache migration).
 ``MeshPlan`` keeps its fields; building a device mesh from it waits for
-the training and distributed slice of the port (ROADMAP A11).
+the distributed slice of the port (ROADMAP A11.5).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ class MeshPlan:
 
     def build(self, devices=None):
         raise NotImplementedError(
-            "building a device mesh is not ported yet (ROADMAP A11)")
+            "building a device mesh is not ported yet (ROADMAP A11.5)")
 
 
 def plan_after_failure(total_devices: int, *, model: int, global_batch: int,

@@ -1,14 +1,16 @@
-"""Failure detection: the heartbeat monitor that ``ServerPool`` wires
-across its servers (``core/dispatch/pool.py``,
-``enable_failure_detection``).
+"""Fault-tolerance runtime: checkpoint manager, failure detection, and the
+restart policy glue.
 
-Counterpart of part of ``repro/runtime/fault_tolerance.py``: its
-``WorkerState`` and ``HeartbeatMonitor``, copied word for word (they are
-host-side: threads and ``time.monotonic``; ``tests/test_torch_imports.py``
-pins their text to the source's).  The rest of that module --
-``CheckpointManager`` and ``TrainSupervisor`` -- waits for the training
-slice of the port (ROADMAP A11): it rests on ``training.checkpoint``, which
-the port does not have yet.
+Counterpart of ``repro/runtime/fault_tolerance.py``.  ``WorkerState``,
+``HeartbeatMonitor`` (which ``ServerPool`` wires across its servers,
+``core/dispatch/pool.py``, ``enable_failure_detection``) and
+``TrainSupervisor`` are copied word for word: they are host-side (threads
+and ``time.monotonic``), and ``tests/test_torch_imports.py`` pins their
+text to the source's.  ``CheckpointManager`` wraps the port's
+``training.checkpoint``; its async save snapshots the leaves to host
+memory with a copy (``.to("cpu", copy=True)``) where the reference calls
+``jax.device_get``: a CPU tensor's ``.cpu()`` is the tensor itself, which
+the optimizer's in-place update would change under the writer thread.
 """
 
 from __future__ import annotations
@@ -17,6 +19,62 @@ import threading
 import time
 from dataclasses import dataclass
 from typing import Callable
+
+import torch
+
+from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.tree import tree_map
+
+
+class CheckpointManager:
+    """Wraps training.checkpoint with step-interval policy and async save.
+
+    Async mode snapshots leaves to host memory synchronously -- the cheap
+    part -- and does file IO on a background thread so the train loop only
+    stalls for the transfer, not the disk.
+    """
+
+    def __init__(self, root: str, *, interval: int = 100, keep_last: int = 3,
+                 async_save: bool = True):
+        self.root = root
+        self.interval = interval
+        self.keep_last = keep_last
+        self.async_save = async_save
+        self._pending: threading.Thread | None = None
+        self.saved_steps: list[int] = []
+
+    def maybe_save(self, step: int, tree) -> bool:
+        if step % self.interval:
+            return False
+        self.save(step, tree)
+        return True
+
+    def save(self, step: int, tree) -> None:
+        self.wait()  # one in-flight save at a time
+        if self.async_save:
+            host_tree = tree_map(
+                lambda x: (x.detach().to("cpu", copy=True)
+                           if isinstance(x, torch.Tensor) else x), tree)
+            self._pending = threading.Thread(
+                target=ckpt.save, args=(self.root, step, host_tree),
+                kwargs=dict(keep_last=self.keep_last), daemon=True)
+            self._pending.start()
+        else:
+            ckpt.save(self.root, step, tree, keep_last=self.keep_last)
+        self.saved_steps.append(step)
+
+    def wait(self) -> None:
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+
+    def restore_latest(self, tree_like, *, shardings=None):
+        self.wait()
+        return ckpt.restore(self.root, tree_like, shardings=shardings)
+
+    def latest_step(self):
+        self.wait()
+        return ckpt.latest_step(self.root)
 
 
 
@@ -109,3 +167,37 @@ class HeartbeatMonitor:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class TrainSupervisor:
+    """Restart-from-checkpoint policy: wires the monitor to the manager.
+
+    run_step is the application's step callable; on a detected failure the
+    supervisor (1) notes the event, (2) calls ``rescale(alive)`` to get a
+    new world size (elastic), (3) restores the latest checkpoint, and
+    (4) resumes.  Used in-process by tests and examples; on real clusters
+    the same object runs inside the controller process.
+    """
+
+    def __init__(self, manager: CheckpointManager,
+                 rescale: Callable[[list[str]], None] | None = None):
+        self.manager = manager
+        self.rescale = rescale
+        self.failures: list[str] = []
+        self._failed = threading.Event()
+
+    def on_failure(self, name: str) -> None:
+        self.failures.append(name)
+        self._failed.set()
+
+    @property
+    def failure_pending(self) -> bool:
+        return self._failed.is_set()
+
+    def recover(self, tree_like, alive: list[str], *, shardings=None):
+        """Restore latest checkpoint (optionally on a reshaped mesh)."""
+        if self.rescale is not None:
+            self.rescale(alive)
+        tree, step = self.manager.restore_latest(tree_like, shardings=shardings)
+        self._failed.clear()
+        return tree, step

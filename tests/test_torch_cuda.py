@@ -36,6 +36,8 @@ from repro_torch.kernels.ssd_scan import (SSD_TENSOR_CORE_WIDTHS, ssd_intra,
                                           ssd_intra_plain, ssd_intra_route,
                                           ssd_slab_decode,
                                           ssd_slab_decode_plain)
+from repro_torch.training.tree import leaves as tree_leaves
+from repro_torch.training.tree import unflatten
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -1315,3 +1317,223 @@ class TestCudaEngineA10:
             assert eng.kv_usage() == {"blocks": 0, "slabs": 0, "segments": 0}
         finally:
             eng.close()
+
+
+def _close_to_max(got, want, tol):
+    """max |got - want| within ``tol`` of max |want| (the backward's
+    tolerances are stated against the reference gradient's scale)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= tol * max(want.abs().max().item(), 1e-30), (err, tol)
+
+
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.cuda
+class TestCudaBackwardKernels:
+    """The backward kernels of flash_attention and rmsnorm, and the
+    forward's lse, against their plain versions on the card; the
+    autograd Functions end to end; what the serving path launches."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,s", [(2, 100), (1, 128), (1, 64), (2, 8)])
+    def test_forward_lse(self, cuda, dtype, b, s):
+        """The lse (fp32 in both dtypes) within 1e-3 absolute, natural-log
+        units; (2, 100) and (1, 128) take the bf16 kernel's 8-warp
+        configuration, whose warp pairs merge their states."""
+        from repro_torch.kernels.flash_attention import _flash_forward
+
+        q, k, v = _inputs(40, dtype, (b, s, 16, 128), (b, s, 8, 128),
+                          (b, s, 8, 128), device=cuda)
+        out, lse = _flash_forward(q, k, v, True, 128 ** -0.5, with_lse=True)
+        want, want_lse = flash_attention_plain(q, k, v, with_lse=True)
+        _close(out, want, dtype)
+        assert lse.dtype == torch.float32
+        assert (lse - want_lse).abs().max().item() <= 1e-3
+
+    @pytest.mark.parametrize("dtype,h", [
+        ("float32", 16), ("float32", 32), ("float32", 128),
+        ("bfloat16", 128)])  # the instantiated widths
+    @pytest.mark.parametrize("b,s", [(2, 100), (1, 128), (1, 64), (2, 8)])
+    def test_flash_backward(self, cuda, dtype, b, s, h):
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_bwd, flash_attention_bwd_plain)
+
+        nq, nkv = (16, 8) if h == 128 else (4, 2)
+        q, k, v, do = _inputs(41, dtype, (b, s, nq, h), (b, s, nkv, h),
+                              (b, s, nkv, h), (b, s, nq, h), device=cuda)
+        o, lse = flash_attention_plain(q, k, v, with_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            _close_to_max(g, w, BWD_TOL[dtype])
+        again = flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("rows,d", [(64, 2048), (5, 3584), (5, 1032),
+                                        (5, 100), (5, 37)])
+    def test_rmsnorm_backward(self, cuda, dtype, rows, d):
+        from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+
+        x, w, dy = _inputs(42, dtype, (rows, d), (d,), (rows, d), device=cuda)
+        x = x * 3.0
+        got = rmsnorm_bwd(x, w, dy, 1e-5)
+        want = rmsnorm_bwd_plain(x, w, dy, 1e-5)
+        for g, ref in zip(got, want):
+            assert g.dtype == ref.dtype and g.shape == ref.shape
+            _close_to_max(g, ref, BWD_TOL[dtype])
+        again = rmsnorm_bwd(x, w, dy, 1e-5)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,s", [(2, 40), (1, 128)])
+    def test_functions_end_to_end(self, cuda, dtype, b, s):
+        """(1, 128) takes the bf16 forward's 8-warp configuration, so the
+        backward recomputes P from its merged lse."""
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_bwd_plain)
+        from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain
+
+        q, k, v, do = _inputs(43, dtype, (b, s, 16, 128), (b, s, 8, 128),
+                              (b, s, 8, 128), (b, s, 16, 128), device=cuda)
+        x, w, dy = _inputs(44, dtype, (2, 40, 2048), (2048,), (2, 40, 2048),
+                           device=cuda)
+        for t in (q, k, v, x, w):
+            t.requires_grad_(True)
+        before = dict(_build.launches)
+        out = flash_attention(q, k, v)
+        out.backward(do)
+        y = rmsnorm(x, w, 1e-5)
+        y.backward(dy)
+        for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                     "rmsnorm_bwd"):
+            assert _build.launches[name] == before.get(name, 0) + 1, name
+        o, lse = flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                       with_lse=True)
+        want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                         o, lse, do)
+        for t, ref in zip((q, k, v), want):
+            _close_to_max(t.grad, ref, BWD_TOL[dtype])
+        for t, ref in zip((x, w), rmsnorm_bwd_plain(x.detach(), w.detach(),
+                                                    dy, 1e-5)):
+            _close_to_max(t.grad, ref, BWD_TOL[dtype])
+
+    def test_serving_calls_launch_the_forward_alone(self, cuda, monkeypatch):
+        """Under inference_mode (the engine) and no_grad, flash_attention and
+        rmsnorm launch what they launched before: no lse, no Function."""
+        calls = []
+        launch = _build.launch
+
+        def record(name, entry, *args):
+            calls.append((name, args))
+            launch(name, entry, *args)
+
+        monkeypatch.setattr(_build, "launch", record)
+        q, k, v = _inputs(45, "bfloat16", (1, 64, 16, 128), (1, 64, 8, 128),
+                          (1, 64, 8, 128), device=cuda)
+        x, w = _inputs(46, "bfloat16", (4, 2048), (2048,), device=cuda)
+        for t in (q, k, v, x, w):
+            t.requires_grad_(True)
+        for ctx in (torch.inference_mode, torch.no_grad):
+            calls.clear()
+            with ctx():
+                out = flash_attention(q, k, v)
+                y = rmsnorm(x, w, 1e-5)
+            assert out.grad_fn is None and y.grad_fn is None
+            assert [c[0] for c in calls] == ["flash_attention", "rmsnorm"]
+            assert calls[0][1][4] is None  # no lse pointer
+
+    def test_refusals_come_before_any_launch(self, cuda):
+        from repro_torch.kernels.flash_attention import FlashAttentionFunction
+
+        before = dict(_build.launches)
+        q = torch.zeros((1, 8, 4, 192), device=cuda, requires_grad=True)
+        k = torch.zeros((1, 8, 4, 192), device=cuda, requires_grad=True)
+        v = torch.zeros((1, 8, 4, 128), device=cuda, requires_grad=True)
+        with pytest.raises(ValueError, match="A13"):
+            flash_attention(q, k, v)  # MLA's Hv != H
+        kv = torch.zeros((1, 20, 4, 64), device=cuda, requires_grad=True)
+        with pytest.raises(ValueError, match="A13"):
+            FlashAttentionFunction.apply(q[..., :64], kv, kv, False, 0.1)
+        assert dict(_build.launches) == before
+
+
+@pytest.mark.cuda
+class TestCudaTraining:
+    """Reduced internlm2 in fp32: every parameter gets a gradient on the
+    card, and the card's loss and gradients equal the CPU's plain path."""
+
+    def test_every_parameter_gets_a_gradient(self, cuda):
+        import dataclasses
+
+        import numpy as np
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models import model as M
+
+        cfg = dataclasses.replace(get_config("internlm2_1_8b").reduced(),
+                                  dtype="float32")
+        params = M.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40),
+                                                  dtype=np.int32))
+                 for k in ("tokens", "labels")}
+        grads = {}
+        for dev in ("cpu", cuda):
+            leaves = [t.detach().to(dev).requires_grad_(True)
+                      for t in tree_leaves(params)]
+            tree = unflatten(params, leaves)
+            b = {k: t.to(dev) for k, t in batch.items()}
+            loss, _ = M.loss_fn(cfg, tree, b, remat=True,
+                                remat_policy="dots_no_batch")
+            grads[str(dev)] = (loss.item(),
+                               torch.autograd.grad(loss, leaves))
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = grads["cpu"], grads[str(cuda)]
+        assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+        for gc, gg in zip(g_cpu, g_gpu):
+            assert gg.abs().max() > 0
+            _close_to_max(gg, gc, 1e-4)
+
+    def test_bf16_step_on_the_tensor_core_paths(self, cuda):
+        """bf16 at head width 128 (the tensor-core forward, the bf16
+        backward, the bf16 logits GEMM's Function): every leaf gets a
+        finite, non-zero gradient, within 5e-2 of its max |.| of the fp32
+        CPU gradient at the same (bf16-rounded) weights (bf16 activations
+        through two layers and the logits)."""
+        import dataclasses
+
+        import numpy as np
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models import model as M
+
+        cfg = dataclasses.replace(get_config("internlm2_1_8b").reduced(),
+                                  head_dim=128)
+        params = M.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                               device="cpu")  # bf16
+        rng = np.random.default_rng(1)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64),
+                                                  dtype=np.int32))
+                 for k in ("tokens", "labels")}
+        out = {}
+        for dev, dt in (("cpu", torch.float32), (cuda, torch.bfloat16)):
+            leaves = [t.detach().to(dev, dt).requires_grad_(True)
+                      for t in tree_leaves(params)]
+            tree = unflatten(params, leaves)
+            c = dataclasses.replace(cfg, dtype=str(dt).removeprefix("torch."))
+            loss, _ = M.loss_fn(c, tree, {k: t.to(dev) for k, t in
+                                          batch.items()})
+            out[dt] = (loss.item(), torch.autograd.grad(loss, leaves))
+        (l32, g32), (l16, g16) = out[torch.float32], out[torch.bfloat16]
+        assert abs(l16 - l32) <= 2e-2 * abs(l32)
+        for a, b in zip(g16, g32):
+            assert a.dtype == torch.bfloat16 and a.abs().max() > 0
+            _close_to_max(a, b, 5e-2)
+

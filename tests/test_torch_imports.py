@@ -30,7 +30,7 @@ COPIES = (
     + ["runtime/straggler.py", "runtime/faultinject.py", "serving/kvcache.py",
        "analysis/cost_model.py", "analysis/roofline.py",
        "analysis/hlo_cost.py", "core/mpcp_analysis.py",
-       "core/fmlp_analysis.py", "core/simulator.py"]
+       "core/fmlp_analysis.py", "core/simulator.py", "data/pipeline.py"]
     + [f"scenarios/{m}.py" for m in ("registry", "arrivals", "etm",
                                      "overheads", "schedulers", "protocols",
                                      "lp_alloc", "scenario", "matrix",
@@ -43,7 +43,8 @@ DATA_COPIES = [f"scenarios/traces/{name}" for name in
 # classes and functions the port copies word for word out of a module it
 # does not copy whole: (module, names)
 CLASS_COPIES = [("runtime/fault_tolerance.py", ("WorkerState",
-                                                "HeartbeatMonitor")),
+                                                "HeartbeatMonitor",
+                                                "TrainSupervisor")),
                 ("runtime/elastic.py", ("plan_after_failure",
                                         "degraded_throughput_fraction",
                                         "LoadTrajectory",

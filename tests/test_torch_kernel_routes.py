@@ -158,8 +158,9 @@ class TestEncDecAttentionArgs:
         assert tuple(out.shape) == (2, 8, 16, 64)
         ((name, a),) = launches
         assert name == "flash_attention"
-        assert a[4:11] == (2, 8, 1500, 16, 16, 64, 64)  # b, S, Sk, ...
-        assert a[11:14] == q.stride()[:3] and a[14:17] == kv.stride()[:3]
+        assert a[4] is None  # no lse: the forward alone
+        assert a[5:12] == (2, 8, 1500, 16, 16, 64, 64)  # b, S, Sk, ...
+        assert a[12:15] == q.stride()[:3] and a[15:18] == kv.stride()[:3]
         assert a[-4] == 0  # not causal
 
     def test_flash_refuses_sk_when_causal(self, launches):
@@ -247,3 +248,73 @@ def test_bf16_pair_is_what_holds_the_tolerance(pair):
             assert (g - w).abs().max().item() < 5e-3
         else:
             assert over > 0  # elements out of tolerance in y and in s
+
+
+class TestBackwardArgs:
+    """What the backward wrappers pass to their C entry points, and what
+    they refuse before any launch: the flash backward's widths by dtype
+    (bf16 at H 128 with aligned operands, fp32 at 16, 32 and 128), the
+    rmsnorm backward's route and block count."""
+
+    @pytest.mark.parametrize("dtype,h,offset,refused", [
+        (torch.bfloat16, 128, 0, None), (torch.bfloat16, 64, 0, "A13"),
+        (torch.bfloat16, 112, 0, "A13"), (torch.bfloat16, 16, 0, "A13"),
+        (torch.float32, 128, 0, None), (torch.float32, 16, 0, None),
+        (torch.float32, 32, 0, None), (torch.float32, 64, 0, "A13"),
+        (torch.bfloat16, 128, 1, "aligned")])
+    def test_flash_bwd_route(self, launches, dtype, h, offset, refused):
+        b, s, nq, nkv = 2, 40, 4, 2
+        q = torch.zeros(b * s * nq * h + offset, dtype=dtype)[offset:].view(
+            b, s, nq, h)
+        kv = torch.zeros((b, s, nkv, h), dtype=dtype)
+        lse = torch.zeros((b, nq, s))
+        if refused:
+            with pytest.raises(ValueError, match=refused):
+                FA.flash_attention_bwd(q, kv, kv, q, lse, q)
+            assert launches == []
+            return
+        dq, dk, dv = FA.flash_attention_bwd(q, kv, kv, q, lse, q)
+        assert dq.shape == q.shape and dk.shape == kv.shape
+        ((name, a),) = launches
+        assert name == "flash_attention_bwd"
+        assert a[10:15] == (b, s, nq, nkv, h)
+        assert a[-2] == _build.DTYPE_CODES[dtype]  # the dtype picks the route
+
+    def test_flash_bwd_refusals_come_before_any_launch(self, launches):
+        q = torch.zeros((1, 8, 4, 128))
+        lse = torch.zeros((1, 4, 8))
+        for bad in (dict(causal=False), ):
+            with pytest.raises(ValueError, match="A13"):
+                FA.flash_attention_bwd(q, q, q, q, lse, q, **bad)
+        with pytest.raises(ValueError, match="A13"):  # Hv != H
+            FA.flash_attention_bwd(q, q, q[..., :32], q[..., :32], lse,
+                                   q[..., :32])
+        with pytest.raises(ValueError, match="A13"):  # no instantiation
+            FA.flash_attention_bwd(q[..., :48], q[..., :48], q[..., :48],
+                                   q[..., :48], lse, q[..., :48])
+        with pytest.raises(ValueError):  # lse of the wrong shape
+            FA.flash_attention_bwd(q, q, q, q, lse[:, :2], q)
+        assert launches == []
+
+    @pytest.mark.parametrize("rows,d,route,blocks", [
+        (4096, 2048, 2, 256), (5, 2048, 2, 2), (256, 1032, 1, 64),
+        (3, 37, 0, 1)])
+    def test_rmsnorm_bwd_args(self, launches, rows, d, route, blocks):
+        x = torch.zeros((rows, d), dtype=torch.bfloat16)
+        w = torch.ones(d, dtype=torch.bfloat16)
+        dx, dw = R.rmsnorm_bwd(x, w, x, 1e-5)
+        assert dx.shape == x.shape and dw.shape == w.shape
+        ((name, a),) = launches
+        assert name == "rmsnorm_bwd"
+        assert a[6:9] == (rows, d, blocks) and a[-2] == route
+
+    def test_rmsnorm_bwd_refusals_come_before_any_launch(self, launches):
+        x = torch.zeros((4, 256), dtype=torch.bfloat16)
+        w = torch.ones(256, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            R.rmsnorm_bwd(x, w, x[:2], 1e-5)
+        wide = torch.zeros((2, R.BWD_MAX_WIDTH + 8), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="exceed"):
+            R.rmsnorm_bwd(wide, torch.ones(wide.shape[1], dtype=torch.bfloat16),
+                          wide, 1e-5)
+        assert launches == []
