@@ -53,10 +53,10 @@ SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                _I, _F, _I, _P],
-    "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _F, _I, _P],
+    "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "ssd_intra_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_L), _I, _I, _P],
+    "ssd_intra_bwd_launch": [_P] * 13 + [_I] * 5 + [ctypes.POINTER(_L), _I, _P],
     "ssd_slab_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],

@@ -19,14 +19,14 @@ on the tensor cores and rounds the unnormalised probabilities to bf16
 The backward (``csrc/flash_attention_bwd.cu``; the reference has none of
 its own: XLA differentiates the jnp path) is FlashAttention-2's recompute
 backward from the forward's row log-sum-exp, which the forward kernel
-writes when asked (natural log, fp32, (B, Nq, S)).  It takes what the GQA
-decoder's training needs -- causal, Sk = S, H = Hv in :data:`BWD_WIDTHS`
-(bf16 on the tensor cores at 128 only, with 16-byte aligned operands, as
-the forward) -- and :class:`FlashAttentionFunction` refuses anything else
-on the card before any launch (ROADMAP A12 and A13 widen it); its plain
-version takes every shape, so the CPU differentiates every family.
-:func:`flash_attention` goes through the Function only when grad is
-enabled and an input requires grad: under ``no_grad`` or
+writes when asked (natural log, fp32, (B, Nq, S)).  It takes every training
+shape of the registry -- causal or full, a key length Sk of its own when
+full, a value width Hv of its own -- at the (H, Hv) pairs in
+:data:`BWD_WIDTHS` (bf16 on the tensor cores, with 16-byte aligned operands
+as the forward; fp32 on the CUDA cores), and :class:`FlashAttentionFunction`
+refuses any other width on the card before any launch; its plain version
+takes every shape.  :func:`flash_attention` goes through the Function only
+when grad is enabled and an input requires grad: under ``no_grad`` or
 ``inference_mode`` (the serving path, its CUDA graphs) the call is the
 forward launch alone, with no lse.
 """
@@ -43,11 +43,13 @@ from repro_torch.kernels import _build
 # MLA prefill (192 / 128)
 TENSOR_CORE_WIDTHS = frozenset({(64, 64), (112, 112), (128, 128),
                                 (192, 128)})
-# head widths (H = Hv) the backward kernel is instantiated for, by dtype
-# (csrc/flash_attention_bwd.cu): internlm2's 128 in both, on the tensor
-# cores in bf16; the reduced configs' 16 and 32 in fp32 on the CUDA cores
-BWD_WIDTHS = {torch.float32: frozenset({16, 32, 128}),
-              torch.bfloat16: frozenset({128})}
+# (H, Hv) pairs the backward kernel is instantiated for, by dtype
+# (csrc/flash_attention_bwd.cu): in bf16 on the tensor cores, every pair
+# the forward takes; in fp32 on the CUDA cores, those and the reduced
+# configs' 16, 32 and MLA's (24, 16)
+BWD_WIDTHS = {
+    torch.float32: TENSOR_CORE_WIDTHS | {(16, 16), (24, 16), (32, 32)},
+    torch.bfloat16: TENSOR_CORE_WIDTHS}
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -185,28 +187,28 @@ def _flash_forward(q, k, v, causal: bool, scale: float, *, with_lse: bool):
 
 def check_backward(q, k, v, causal: bool) -> None:
     """Raises ``ValueError`` unless the backward kernel takes these shapes
-    (CUDA tensors only: the plain backward takes every shape)."""
+    (CUDA tensors only: the plain backward takes every shape): an (H, Hv)
+    pair of :data:`BWD_WIDTHS` for the dtype, and Sk = S when causal."""
     if _build.on_cpu(q, k, v):
         return
     h, hv, s, sk = q.shape[-1], v.shape[-1], q.shape[1], k.shape[1]
     widths = BWD_WIDTHS.get(q.dtype, frozenset())
-    if not causal or sk != s or h != hv or h not in widths:
+    if (h, hv) not in widths or (causal and sk != s):
         raise ValueError(
-            f"flash_attention's backward kernel takes causal attention with "
-            f"Sk = S and H = Hv in {sorted(widths)} for {q.dtype}; got "
-            f"causal={causal}, S={s}, Sk={sk}, H={h}, Hv={hv} (ROADMAP A12 "
-            f"and A13 widen it)")
+            f"flash_attention's backward kernel takes (H, Hv) in "
+            f"{sorted(widths)} for {q.dtype}, and Sk = S when causal; got "
+            f"H={h}, Hv={hv}, S={s}, Sk={sk}, causal={causal}")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         scale: float | None = None):
     """(dq, dk, dv) in q's dtype from the forward's ``o`` and ``lse`` and
-    the output gradient ``do`` (all (B,S,N,H) but lse (B,Nq,S) fp32).  CPU
-    tensors take the plain version; CUDA tensors launch the backward
-    kernel (three kernels: D = rowsum(do * o), then dk/dv, then dq; bf16 on
-    the tensor cores, fp32 on the CUDA cores), which raises ``ValueError``
-    for shapes outside :func:`check_backward` and, in bf16, for an operand
-    whose base is not 16-byte aligned."""
+    the output gradient ``do`` (q, o, do (B,S,Nq,.), k, v (B,Sk,Nkv,.), lse
+    (B,Nq,S) fp32).  CPU tensors take the plain version; CUDA tensors
+    launch the backward kernel (three kernels: D = rowsum(do * o), then
+    dk/dv, then dq; bf16 on the tensor cores, fp32 on the CUDA cores),
+    which raises ``ValueError`` for shapes outside :func:`check_backward`
+    and, in bf16, for an operand whose base is not 16-byte aligned."""
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if _build.on_cpu(q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
@@ -214,16 +216,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     check_backward(q, k, v, causal)
     dtype = _build.kernel_dtype(q, k, v, o, do)
     b, s, nq, h = q.shape
-    nkv = k.shape[2]
-    if (tuple(k.shape) != (b, s, nkv, h) or tuple(v.shape) != (b, s, nkv, h)
-            or tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape)
+    sk, nkv, hv = k.shape[1], k.shape[2], v.shape[-1]
+    if (tuple(k.shape) != (b, sk, nkv, h) or tuple(v.shape) != (b, sk, nkv, hv)
+            or tuple(o.shape) != (b, s, nq, hv)
+            or tuple(do.shape) != (b, s, nq, hv)
             or tuple(lse.shape) != (b, nq, s) or lse.dtype != torch.float32
             or nq % nkv):
         raise ValueError(
-            f"flash_attention_bwd: q/o/do (B,S,Nq,H), k/v (B,S,Nkv,H), lse "
-            f"(B,Nq,S) fp32; got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)}, o {tuple(o.shape)}, do {tuple(do.shape)}, "
-            f"lse {tuple(lse.shape)} {lse.dtype}")
+            f"flash_attention_bwd: q (B,S,Nq,H), k (B,Sk,Nkv,H), v "
+            f"(B,Sk,Nkv,Hv), o/do (B,S,Nq,Hv), lse (B,Nq,S) fp32; got q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, o "
+            f"{tuple(o.shape)}, do {tuple(do.shape)}, lse "
+            f"{tuple(lse.shape)} {lse.dtype}")
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
@@ -235,8 +239,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             "flash_attention_bwd", "flash_attention_bwd_launch", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, s, nq, nkv, h, scale, dtype,
-            _build.stream_of(q))
+            dv.data_ptr(), b, s, sk, nq, nkv, h, hv, int(causal), scale,
+            dtype, _build.stream_of(q))
     return dq, dk, dv
 
 

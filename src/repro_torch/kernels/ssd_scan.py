@@ -21,6 +21,15 @@ widths and alignment before any launch: bf16 at the (P, N) widths in
 tensor cores (its scores and scaled inputs enter the products as a pair of
 bf16 values, and agree with the plain version to the bf16 tolerance); fp32,
 and bf16 at other widths, run on the CUDA cores (fp32 to 1e-5).
+
+The backward of ``ssd_intra`` (``csrc/ssd_intra_bwd.cu``; the reference has
+none of its own: XLA differentiates its jnp path) recomputes C B^T and the
+decay from the saved inputs and gives dx, ddt, ddA, dB and dC for both
+cotangents, dy and ds, on the CUDA cores in fp32 (bf16 inputs are widened
+as they are read).  :func:`ssd_intra` goes through :class:`SSDIntraFunction`
+only when grad is enabled and an input requires grad: under ``no_grad`` or
+``inference_mode`` (the serving path, its CUDA graphs) the call is the
+forward launch alone.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_CHUNK = 256  # longest chunk ssd_intra takes (the model's chunk size)
 MAX_HEAD_DIM = 128
+MAX_STATE_BWD = 128  # widest N the backward kernel takes (mamba2-780m's)
 # (P, N) pairs the bf16 tensor-core kernel is instantiated for
 # (csrc/ssd_intra.cu): mamba2-780m (64, 128) and zamba2-7b (64, 64)
 SSD_TENSOR_CORE_WIDTHS = frozenset({(64, 128), (64, 64)})
@@ -46,20 +56,23 @@ SSD_TENSOR_CORE_WIDTHS = frozenset({(64, 128), (64, 64)})
 
 def ssd_intra_plain(x, dt, dA, B, C):
     """x (M,H,Q,P); dt/dA (M,H,Q); B/C (M,Q,N) -> y (M,H,Q,P) fp32 (the
-    intra-chunk output), s (M,H,N,P) fp32 (the chunk's end state)."""
-    seg = torch.cumsum(dA.float(), dim=-1)  # (M,H,Q)
+    intra-chunk output), s (M,H,N,P) fp32 (the chunk's end state); float64
+    throughout for float64 inputs (the CPU gradient checks)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Bf, Cf = (t.to(acc) for t in (x, dt, B, C))
+    seg = torch.cumsum(dA.to(acc), dim=-1)  # (M,H,Q)
     q = x.shape[2]
     idx = torch.arange(q, device=x.device)
     causal = idx[:, None] >= idx[None, :]
     L = torch.exp(torch.where(causal, seg[..., :, None] - seg[..., None, :],
                               NEG_INF))
-    cb = torch.einsum("min,mjn->mij", C.float(), B.float())  # (M,Q,Q)
+    cb = torch.einsum("min,mjn->mij", Cf, Bf)  # (M,Q,Q)
     w = cb[:, None] * L  # (M,H,Q,Q)
-    xdt = x.float() * dt.float()[..., None]
+    xdt = xf * dtf[..., None]
     y = torch.einsum("mhij,mhjp->mhip", w, xdt)
-    dte = torch.exp(seg[..., -1:] - seg) * dt.float()  # (M,H,Q)
-    bd = B.float()[:, None] * dte[..., None]  # (M,H,Q,N)
-    s = torch.einsum("mhqn,mhqp->mhnp", bd, x.float())
+    dte = torch.exp(seg[..., -1:] - seg) * dtf  # (M,H,Q)
+    bd = Bf[:, None] * dte[..., None]  # (M,H,Q,N)
+    s = torch.einsum("mhqn,mhqp->mhnp", bd, xf)
     return y, s
 
 
@@ -80,34 +93,44 @@ def ssd_intra_route(x, B, C) -> str:
     return "cuda_cores"
 
 
+def _check_shapes(name, x, dt, dA, B, C, max_n=None):
+    m, h, q, p = x.shape
+    n = B.shape[-1]
+    if (tuple(dt.shape) != (m, h, q) or tuple(dA.shape) != (m, h, q)
+            or tuple(B.shape) != (m, q, n) or tuple(C.shape) != (m, q, n)
+            or not 1 <= q <= MAX_CHUNK or not 1 <= p <= MAX_HEAD_DIM
+            or (max_n is not None and not 1 <= n <= max_n)):
+        raise ValueError(
+            f"{name}: x (M,H,Q,P) with Q <= {MAX_CHUNK}, P <= "
+            f"{MAX_HEAD_DIM}, dt/dA (M,H,Q), B/C (M,Q,N)"
+            + ("" if max_n is None else f" with N <= {max_n}")
+            + f"; got x {tuple(x.shape)}, dt {tuple(dt.shape)}, dA "
+            f"{tuple(dA.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}")
+    for nm, t in (("x", x), ("B", B), ("C", C)):
+        _build.check_unit_stride(f"{name} {nm}", t)
+
+
 def ssd_intra(x, dt, dA, B, C):
     """x (M,H,Q,P); dt/dA (M,H,Q) fp32; B/C (M,Q,N) -> y (M,H,Q,P) fp32,
     s (M,H,N,P) fp32.  CPU tensors take the plain version; CUDA tensors
     launch the kernel of :func:`ssd_intra_route`, which takes any Q <= 256
     and strided views (y comes back as a (M,H,Q,P) view of a (M,Q,H,P)
-    buffer: the model's layout).  The kernel has no backward yet: on the
-    card, a call whose inputs require grad raises ``ValueError`` rather
-    than return an output autograd cannot see through."""
-    if _build.on_cpu(x, dt, dA, B, C):
-        return ssd_intra_plain(x, dt, dA, B, C)
+    buffer: the model's layout).  With grad enabled and an input that
+    requires grad, the call goes through :class:`SSDIntraFunction`."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, dA, B, C)):
-        raise ValueError("ssd_intra has no backward kernel yet: SSM and "
-                         "hybrid training on the card wait for ROADMAP A12")
+        return SSDIntraFunction.apply(x, dt, dA, B, C)
+    return _ssd_intra_forward(x, dt, dA, B, C)
+
+
+def _ssd_intra_forward(x, dt, dA, B, C):
+    if _build.on_cpu(x, dt, dA, B, C):
+        return ssd_intra_plain(x, dt, dA, B, C)
     dtype = _build.kernel_dtype(x, B, C)
     _fp32("ssd_intra", dt, dA)
+    _check_shapes("ssd_intra", x, dt, dA, B, C)
     m, h, q, p = x.shape
     n = B.shape[-1]
-    if (tuple(dt.shape) != (m, h, q) or tuple(dA.shape) != (m, h, q)
-            or tuple(B.shape) != (m, q, n) or tuple(C.shape) != (m, q, n)
-            or not 1 <= q <= MAX_CHUNK or not 1 <= p <= MAX_HEAD_DIM):
-        raise ValueError(
-            f"ssd_intra: x (M,H,Q,P) with Q <= {MAX_CHUNK}, P <= "
-            f"{MAX_HEAD_DIM}, dt/dA (M,H,Q), B/C (M,Q,N); got x "
-            f"{tuple(x.shape)}, dt {tuple(dt.shape)}, dA {tuple(dA.shape)}, "
-            f"B {tuple(B.shape)}, C {tuple(C.shape)}")
-    for name, t in (("x", x), ("B", B), ("C", C)):
-        _build.check_unit_stride(f"ssd_intra {name}", t)
     y = torch.empty((m, q, h, p), dtype=torch.float32,
                     device=x.device).permute(0, 2, 1, 3)
     s = torch.empty((m, h, n, p), dtype=torch.float32, device=x.device)
@@ -126,6 +149,119 @@ def ssd_intra(x, dt, dA, B, C):
                   y.data_ptr(), s.data_ptr(), cb_ptr, m, h, q, p, n, strides,
                   dtype, int(tensor_cores), _build.stream_of(x))
     return y, s
+
+
+def ssd_intra_bwd_plain(x, dt, dA, B, C, dy, ds):
+    """(dx, ddt, ddA, dB, dC) of :func:`ssd_intra_plain` for the cotangents
+    dy (M,H,Q,P) of y and ds (M,H,N,P) of s, by the backward kernel's
+    explicit formula, in fp32 (float64 for float64 inputs).  Per (chunk,
+    head), with seg = cumsum(dA), L_ij = exp(seg_i - seg_j) for i >= j,
+    G = C B^T, u = x dt, W = G o L and e_j = exp(seg_last - seg_j) dt_j:
+
+        dW = dy u^T (lower triangle), du = W^T dy, dG = dW o L,
+        dC = (sum_h dG) B, dB = (sum_h dG)^T C + sum_h e_j ds x_j,
+        dx = du dt + e_j ds^T B_j,
+        ddt = rowsum(du o x) + v_j exp(seg_last - seg_j),
+        dseg = rowsum(R) - colsum(R) - v o e, plus sum(v o e) at the last
+        position, where R = dW o W and v_j = B_j . ds x_j;
+        ddA = the reverse cumsum of dseg.
+
+    dx in x's dtype, dB and dC in B's, ddt and ddA in dt's."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, dAf, Bf, Cf, dyf, dsf = (t.to(acc)
+                                      for t in (x, dt, dA, B, C, dy, ds))
+    seg = torch.cumsum(dAf, dim=-1)  # (M,H,Q)
+    q = x.shape[2]
+    idx = torch.arange(q, device=x.device)
+    causal = idx[:, None] >= idx[None, :]
+    L = torch.exp(torch.where(causal, seg[..., :, None] - seg[..., None, :],
+                              NEG_INF))  # (M,H,Q,Q), 0 above the diagonal
+    W = torch.einsum("min,mjn->mij", Cf, Bf)[:, None] * L
+    dW = torch.einsum("mhip,mhjp->mhij", dyf, xf * dtf[..., None]) * causal
+    du = torch.einsum("mhij,mhip->mhjp", W, dyf)
+    dgs = (dW * L).sum(1)  # (M,Q,Q): dG summed over the heads
+    decay = torch.exp(seg[..., -1:] - seg)  # (M,H,Q)
+    e = decay * dtf
+    dsx = torch.einsum("mhnp,mhjp->mhjn", dsf, xf)  # ds x_j, (M,H,Q,N)
+    dsb = torch.einsum("mhnp,mjn->mhjp", dsf, Bf)  # ds^T B_j, (M,H,Q,P)
+    dC = torch.einsum("mij,mjn->min", dgs, Bf)
+    dB = (torch.einsum("mij,min->mjn", dgs, Cf)
+          + torch.einsum("mhj,mhjn->mjn", e, dsx))
+    dx = du * dtf[..., None] + e[..., None] * dsb
+    v = (dsb * xf).sum(-1)  # (M,H,Q)
+    ddt = (du * xf).sum(-1) + v * decay
+    R = dW * W
+    ve = v * e
+    dseg = R.sum(-1) - R.sum(-2) - ve
+    dseg[..., -1] += ve.sum(-1)
+    ddA = torch.flip(torch.cumsum(torch.flip(dseg, (-1,)), -1), (-1,))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), ddA.to(dA.dtype),
+            dB.to(B.dtype), dC.to(C.dtype))
+
+
+def ssd_intra_bwd(x, dt, dA, B, C, dy, ds):
+    """(dx, ddt, ddA, dB, dC) of :func:`ssd_intra` from its inputs and the
+    cotangents dy (M,H,Q,P) fp32 of y and ds (M,H,N,P) fp32 of s.  CPU
+    tensors take the plain version; CUDA tensors launch the backward
+    kernel, which takes Q <= 256, P <= 128, N <= 128 and strided x, B, C
+    and dy with a unit-stride last axis, and raises ``ValueError`` (or
+    ``TypeError`` for a dtype) before any launch for anything else.  dx
+    comes back as a (M,H,Q,P) view of a (M,Q,H,P) buffer (x's layout in
+    the model), ddt and ddA fp32, dB and dC in B's dtype."""
+    if _build.on_cpu(x, dt, dA, B, C, dy, ds):
+        return ssd_intra_bwd_plain(x, dt, dA, B, C, dy, ds)
+    dtype = _build.kernel_dtype(x, B, C)
+    _fp32("ssd_intra_bwd", dt, dA, dy, ds)
+    _check_shapes("ssd_intra_bwd", x, dt, dA, B, C, max_n=MAX_STATE_BWD)
+    m, h, q, p = x.shape
+    n = B.shape[-1]
+    if tuple(dy.shape) != (m, h, q, p) or tuple(ds.shape) != (m, h, n, p):
+        raise ValueError(
+            f"ssd_intra_bwd: dy (M,H,Q,P), ds (M,H,N,P); got dy "
+            f"{tuple(dy.shape)}, ds {tuple(ds.shape)} for x {tuple(x.shape)}, "
+            f"B {tuple(B.shape)}")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    ds = ds.contiguous()
+    dev = x.device
+    dx = torch.empty((m, q, h, p), dtype=x.dtype, device=dev).permute(0, 2, 1, 3)
+    ddt = torch.empty((m, h, q), dtype=torch.float32, device=dev)
+    ddA = torch.empty((m, h, q), dtype=torch.float32, device=dev)
+    dB = torch.empty((m, q, n), dtype=B.dtype, device=dev)
+    dC = torch.empty((m, q, n), dtype=C.dtype, device=dev)
+    if m == 0:
+        return dx, ddt, ddA, dB, dC
+    # fp32 scratch: seg, R's column sums, v e (M,H,Q each); R's row sums
+    # per 64-wide tile pair (M,H,ceil(Q/64),Q); C B^T and dG summed over the
+    # heads (M,Q,Q each)
+    scratch = torch.empty(m * h * q * (3 + -(-q // 64)) + 2 * m * q * q,
+                          dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 19)(
+        *x.stride()[:3], *dt.stride(), *dA.stride(), *B.stride()[:2],
+        *C.stride()[:2], *dy.stride()[:3], *dx.stride()[:3])
+    _build.launch("ssd_intra_bwd", "ssd_intra_bwd_launch", x.data_ptr(),
+                  dt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
+                  dy.data_ptr(), ds.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                  ddA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                  scratch.data_ptr(), m, h, q, p, n, strides, dtype,
+                  _build.stream_of(x))
+    return dx, ddt, ddA, dB, dC
+
+
+class SSDIntraFunction(torch.autograd.Function):
+    """ssd_intra with its backward kernel.  Saves x, dt, dA, B and C: the
+    backward recomputes C B^T and the decay, never the (M,H,Q,Q)
+    weights."""
+
+    @staticmethod
+    def forward(ctx, x, dt, dA, B, C):
+        y, s = _ssd_intra_forward(x, dt, dA, B, C)
+        ctx.save_for_backward(x, dt, dA, B, C)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        return ssd_intra_bwd(*ctx.saved_tensors, dy, ds)
 
 
 # --------------------------------------------------------------------------

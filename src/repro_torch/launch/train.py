@@ -9,7 +9,13 @@ plus ``--device`` (the card unless given; ``cpu`` runs the plain kernel
 versions).  Wires together: config registry -> model (random init from a
 ``torch.Generator`` seeded 0) -> AdamW -> synthetic data with host
 prefetch -> checkpoint manager (interval + async) -> straggler watchdog.
-Full configs train on one card; meshes wait for ROADMAP A11.5.
+Every family trains on the card; at full depth and bf16 (12 bytes a
+parameter with AdamW) internlm2-1.8b, mamba2-780m, qwen2-vl-2b and
+whisper-medium fit on one 80 GB card, zamba2-7b (68.8 GB of params, grads
+and state) and deepseek-v2-lite-16b (188.5 GB) need their depth cut, the
+larger configs a mesh.  Meshes wait for ROADMAP A11.5.  The launcher feeds
+``SyntheticLM`` tokens only, as the reference's does: the enc-dec stack's
+``frames`` enter through ``build_train_step``'s batch.
 """
 
 from __future__ import annotations

@@ -9,13 +9,22 @@ from __future__ import annotations
 
 def leaves(tree) -> list:
     """The leaves of ``tree``, in JAX's order."""
+    return [x for _, x in leaves_with_paths(tree)]
+
+
+def leaves_with_paths(tree, prefix: str = "") -> list:
+    """(path, leaf) pairs of ``tree`` in :func:`leaves` order; a path is
+    ``/key`` for each dict entry and ``[i]`` for each sequence item on the
+    way down (``/layers/attn/wq``)."""
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [pair for k in sorted(tree)
+                for pair in leaves_with_paths(tree[k], f"{prefix}/{k}")]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in leaves(v)]
+        return [pair for i, v in enumerate(tree)
+                for pair in leaves_with_paths(v, f"{prefix}[{i}]")]
     if tree is None:
         return []
-    return [tree]
+    return [(prefix, tree)]
 
 
 def unflatten(tree, values):

@@ -32,7 +32,7 @@ from repro_torch.runtime.fault_tolerance import (CheckpointManager,
                                                  TrainSupervisor)
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import optimizer as opt
-from repro_torch.training.tree import leaves, tree_map
+from repro_torch.training.tree import leaves, leaves_with_paths, tree_map
 
 
 @pytest.fixture(scope="module")
@@ -84,6 +84,22 @@ def test_port_checkpoint_restores_into_jax(jax_tree, tmp_path):
                                       t.float().numpy())
     assert any(j.dtype == jnp.bfloat16 and np.abs(np.asarray(j, np.float32)).max() > 0
                for j in jax.tree_util.tree_leaves(got[1]["mu"]))
+
+
+def test_leaf_paths_follow_jax_flatten_order(jax_tree):
+    """``leaves_with_paths`` yields the leaves of ``leaves``, in its order,
+    each named by the keys JAX's ``tree_flatten_with_path`` gives it."""
+    params, state = jax_tree
+    tree = _bridged(params, state)
+    pairs = leaves_with_paths(tree)
+    assert len(pairs) == len(leaves(tree))
+    assert all(x is y for (_, x), y in zip(pairs, leaves(tree)))
+    want = ["".join(f"/{k.key}" if isinstance(k, jax.tree_util.DictKey)
+                    else f"[{k.idx}]" for k in path)
+            for path, _ in jax.tree_util.tree_flatten_with_path(
+                (params, state))[0]]
+    assert [p for p, _ in pairs] == want
+    assert "/layers/attn/wq" in {p.removeprefix("[0]") for p in want}
 
 
 class TestCheckpoint:

@@ -1333,9 +1333,10 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 @pytest.mark.cuda
 class TestCudaBackwardKernels:
-    """The backward kernels of flash_attention and rmsnorm, and the
-    forward's lse, against their plain versions on the card; the
-    autograd Functions end to end; what the serving path launches."""
+    """The backward kernels of flash_attention (every training shape),
+    rmsnorm and ssd_intra, and the forward's lse, against their plain
+    versions on the card; the autograd Functions end to end; what the
+    serving path launches."""
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("b,s", [(2, 100), (1, 128), (1, 64), (2, 8)])
@@ -1450,24 +1451,120 @@ class TestCudaBackwardKernels:
             assert calls[0][1][4] is None  # no lse pointer
 
     def test_refusals_come_before_any_launch(self, cuda):
+        """What the backward kernel does not take -- a width with no
+        instantiation (48), bf16 at a pair only fp32 has (16) -- raises
+        under grad before the forward launches."""
         from repro_torch.kernels.flash_attention import FlashAttentionFunction
 
         before = dict(_build.launches)
-        q = torch.zeros((1, 8, 4, 192), device=cuda, requires_grad=True)
-        k = torch.zeros((1, 8, 4, 192), device=cuda, requires_grad=True)
-        v = torch.zeros((1, 8, 4, 128), device=cuda, requires_grad=True)
-        with pytest.raises(ValueError, match="A13"):
-            flash_attention(q, k, v)  # MLA's Hv != H
-        kv = torch.zeros((1, 20, 4, 64), device=cuda, requires_grad=True)
-        with pytest.raises(ValueError, match="A13"):
-            FlashAttentionFunction.apply(q[..., :64], kv, kv, False, 0.1)
+        q = torch.zeros((1, 8, 4, 48), device=cuda, requires_grad=True)
+        with pytest.raises(ValueError, match="backward kernel takes"):
+            flash_attention(q, q, q)
+        kv = torch.zeros((1, 20, 4, 16), device=cuda, dtype=torch.bfloat16,
+                         requires_grad=True)
+        with pytest.raises(ValueError, match="backward kernel takes"):
+            FlashAttentionFunction.apply(kv[:, :8], kv, kv, False, 0.25)
         assert dict(_build.launches) == before
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,s,sk,nq,nkv,h,hv,causal", [
+        (2, 100, 100, 16, 16, 192, 128, True),   # MLA prefill
+        (1, 130, 130, 8, 8, 112, 112, True),     # zamba2's shared block
+        (2, 100, 100, 16, 16, 64, 64, False),    # whisper's encoder
+        (2, 1, 150, 16, 16, 64, 64, False),      # its cross-attention
+        (2, 40, 150, 16, 16, 64, 64, False),
+        (1, 70, 150, 16, 16, 64, 64, False)])
+    def test_flash_backward_wide(self, cuda, dtype, b, s, sk, nq, nkv, h, hv,
+                                 causal):
+        """The widened backward: Hv != H, full attention with a key length
+        of its own (ragged last tiles), whisper's and zamba2's widths; the
+        forward's lse on those routes too."""
+        from repro_torch.kernels.flash_attention import (
+            _flash_forward, flash_attention_bwd, flash_attention_bwd_plain)
+
+        q, k, v, do = _inputs(47, dtype, (b, s, nq, h), (b, sk, nkv, h),
+                              (b, sk, nkv, hv), (b, s, nq, hv), device=cuda)
+        out, lse = _flash_forward(q, k, v, causal, h ** -0.5, with_lse=True)
+        want_o, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                                 with_lse=True)
+        _close(out, want_o, dtype)
+        assert (lse - want_lse).abs().max().item() <= 1e-3
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            _close_to_max(g, w, BWD_TOL[dtype])
+        again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("m,h,q,p,n", [
+        (2, 48, 256, 64, 128), (3, 48, 5, 64, 128), (2, 112, 200, 64, 64),
+        (2, 4, 1, 16, 16), (1, 3, 37, 128, 128)])
+    @pytest.mark.parametrize("cot", ["y", "s", "both"])
+    def test_ssd_intra_backward(self, cuda, dtype, m, h, q, p, n, cot):
+        """ssd_intra's backward on the model's strided views (x, B, C cut
+        from one activation; dy a view of a (M,Q,H,P) buffer) against the
+        plain formula, and a second run bit-identical."""
+        from repro_torch.kernels.ssd_scan import (ssd_intra_bwd,
+                                                  ssd_intra_bwd_plain)
+
+        gen = torch.Generator().manual_seed(48)
+        xbc = torch.randn((m, q, h * p + 2 * n), generator=gen).to(
+            getattr(torch, dtype)).to(cuda)
+        x = xbc[..., :h * p].view(m, q, h, p).permute(0, 2, 1, 3)
+        b, c = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+        dt = torch.nn.functional.softplus(
+            torch.randn((m, h, q), generator=gen)).to(cuda)
+        # dA on a 2**-10 grid: cumsum(dA) exact in any order
+        da = torch.round(dt * -0.5 * 1024) / 1024
+        dy = torch.randn((m, q, h, p), generator=gen).to(cuda).permute(
+            0, 2, 1, 3)
+        ds = torch.randn((m, h, n, p), generator=gen).to(cuda)
+        if cot == "y":
+            ds = torch.zeros_like(ds)
+        elif cot == "s":
+            dy = torch.zeros_like(dy)
+        got = ssd_intra_bwd(x, dt, da, b, c, dy, ds)
+        want = ssd_intra_bwd_plain(x, dt, da, b, c, dy, ds)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            _close_to_max(g, w, BWD_TOL[dtype])
+        again = ssd_intra_bwd(x, dt, da, b, c, dy, ds)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+    def test_ssd_intra_function_end_to_end(self, cuda):
+        """Under grad ssd_intra launches its forward once and, on backward,
+        its backward kernel once; the gradients equal the plain formula's."""
+        from repro_torch.kernels.ssd_scan import ssd_intra_bwd_plain
+
+        m, h, q, p, n = 2, 48, 64, 64, 128
+        x, b, c = _inputs(49, "float32", (m, h, q, p), (m, q, n), (m, q, n),
+                          device=cuda)
+        dt = torch.nn.functional.softplus(_inputs(50, "float32", (m, h, q),
+                                                  device=cuda)[0])
+        da = torch.round(dt * -0.5 * 1024) / 1024
+        for t in (x, dt, da, b, c):
+            t.requires_grad_(True)
+        before = dict(_build.launches)
+        y, st = ssd_intra(x, dt, da, b, c)
+        dy, ds = torch.randn_like(y), torch.randn_like(st)
+        torch.autograd.backward((y, st), (dy, ds))
+        for name in ("ssd_intra", "ssd_intra_bwd"):
+            assert _build.launches[name] == before.get(name, 0) + 1, name
+        want = ssd_intra_bwd_plain(x.detach(), dt.detach(), da.detach(),
+                                   b.detach(), c.detach(), dy, ds)
+        for t, w in zip((x, dt, da, b, c), want):
+            _close_to_max(t.grad, w, BWD_TOL["float32"])
 
 
 @pytest.mark.cuda
 class TestCudaTraining:
-    """Reduced internlm2 in fp32: every parameter gets a gradient on the
-    card, and the card's loss and gradients equal the CPU's plain path."""
+    """Reduced configs of every family in fp32: every parameter gets a
+    gradient on the card, and the card's loss and gradients equal the
+    CPU's plain path; bf16 internlm2 on the tensor-core paths."""
 
     def test_every_parameter_gets_a_gradient(self, cuda):
         import dataclasses
@@ -1485,6 +1582,46 @@ class TestCudaTraining:
         batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40),
                                                   dtype=np.int32))
                  for k in ("tokens", "labels")}
+        grads = {}
+        for dev in ("cpu", cuda):
+            leaves = [t.detach().to(dev).requires_grad_(True)
+                      for t in tree_leaves(params)]
+            tree = unflatten(params, leaves)
+            b = {k: t.to(dev) for k, t in batch.items()}
+            loss, _ = M.loss_fn(cfg, tree, b, remat=True,
+                                remat_policy="dots_no_batch")
+            grads[str(dev)] = (loss.item(),
+                               torch.autograd.grad(loss, leaves))
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = grads["cpu"], grads[str(cuda)]
+        assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+        for gc, gg in zip(g_cpu, g_gpu):
+            assert gg.abs().max() > 0
+            _close_to_max(gg, gc, 1e-4)
+
+    @pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_7b",
+                                      "deepseek_v2_lite_16b",
+                                      "whisper_medium"])
+    def test_other_families_get_every_gradient(self, cuda, arch):
+        """The SSM, hybrid, MLA + MoE and enc-dec stacks, reduced, in fp32:
+        the card's loss and every gradient leaf (non-zero) equal the CPU's
+        plain path (1e-5 relative, 1e-4 of the leaf's max |.|)."""
+        import dataclasses
+
+        import numpy as np
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models import model as M
+
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        params = M.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+        rng = np.random.default_rng(0)
+        tok = rng.integers(0, cfg.vocab_size, (2, 65), dtype=np.int32)
+        batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+                 "labels": torch.from_numpy(tok[:, 1:])}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.encoder_seq, cfg.d_model), dtype=np.float32))
         grads = {}
         for dev in ("cpu", cuda):
             leaves = [t.detach().to(dev).requires_grad_(True)

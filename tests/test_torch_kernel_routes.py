@@ -252,48 +252,109 @@ def test_bf16_pair_is_what_holds_the_tolerance(pair):
 
 class TestBackwardArgs:
     """What the backward wrappers pass to their C entry points, and what
-    they refuse before any launch: the flash backward's widths by dtype
-    (bf16 at H 128 with aligned operands, fp32 at 16, 32 and 128), the
-    rmsnorm backward's route and block count."""
+    they refuse before any launch: the flash backward's (H, Hv) pairs by
+    dtype (bf16 at 64, 112, 128 and 192 / 128 with aligned operands, fp32
+    at those and 16, 24 / 16 and 32), causal or full with a key length of
+    its own; the rmsnorm backward's route and block count; the ssd_intra
+    backward's arguments and limits (Q <= 256, P <= 128, N <= 128, fp32
+    dt, dA and cotangents)."""
 
-    @pytest.mark.parametrize("dtype,h,offset,refused", [
-        (torch.bfloat16, 128, 0, None), (torch.bfloat16, 64, 0, "A13"),
-        (torch.bfloat16, 112, 0, "A13"), (torch.bfloat16, 16, 0, "A13"),
-        (torch.float32, 128, 0, None), (torch.float32, 16, 0, None),
-        (torch.float32, 32, 0, None), (torch.float32, 64, 0, "A13"),
-        (torch.bfloat16, 128, 1, "aligned")])
-    def test_flash_bwd_route(self, launches, dtype, h, offset, refused):
+    # (dtype, H, Hv, base offset in elements, refusal message or None).
+    # The first nine cases keep the names they had when the kernel took
+    # H = Hv = 128 alone in bf16 (and 16, 32, 128 in fp32), so a run's
+    # record of them carries on; a name's last part is what the case
+    # expected then ("A13": refused as unported).  What each case expects
+    # now is its refusal column: bf16 64 and 112 and fp32 64 launch, bf16
+    # 16 is refused as a width with no instantiation.
+    @pytest.mark.parametrize("dtype,h,hv,offset,refused", [
+        pytest.param(torch.bfloat16, 128, 128, 0, None, id="dtype0-128-0-None"),
+        pytest.param(torch.bfloat16, 64, 64, 0, None, id="dtype1-64-0-A13"),
+        pytest.param(torch.bfloat16, 112, 112, 0, None, id="dtype2-112-0-A13"),
+        pytest.param(torch.bfloat16, 16, 16, 0, "backward kernel takes",
+                     id="dtype3-16-0-A13"),
+        pytest.param(torch.float32, 128, 128, 0, None, id="dtype4-128-0-None"),
+        pytest.param(torch.float32, 16, 16, 0, None, id="dtype5-16-0-None"),
+        pytest.param(torch.float32, 32, 32, 0, None, id="dtype6-32-0-None"),
+        pytest.param(torch.float32, 64, 64, 0, None, id="dtype7-64-0-A13"),
+        pytest.param(torch.bfloat16, 128, 128, 1, "aligned",
+                     id="dtype8-128-1-aligned"),
+        pytest.param(torch.bfloat16, 192, 128, 0, None, id="bf16-mla-192-128"),
+        pytest.param(torch.float32, 192, 128, 0, None, id="fp32-mla-192-128"),
+        pytest.param(torch.float32, 24, 16, 0, None, id="fp32-reduced-mla"),
+        pytest.param(torch.float32, 112, 112, 0, None, id="fp32-112"),
+        pytest.param(torch.bfloat16, 48, 48, 0, "backward kernel takes",
+                     id="bf16-48-not-instantiated"),
+        pytest.param(torch.float32, 48, 48, 0, "backward kernel takes",
+                     id="fp32-48-not-instantiated"),
+        pytest.param(torch.bfloat16, 128, 64, 0, "backward kernel takes",
+                     id="bf16-128-64-not-instantiated"),
+        pytest.param(torch.bfloat16, 64, 64, 4, "aligned",
+                     id="bf16-64-misaligned")])
+    def test_flash_bwd_route(self, launches, dtype, h, hv, offset, refused):
         b, s, nq, nkv = 2, 40, 4, 2
         q = torch.zeros(b * s * nq * h + offset, dtype=dtype)[offset:].view(
             b, s, nq, h)
-        kv = torch.zeros((b, s, nkv, h), dtype=dtype)
+        k = torch.zeros((b, s, nkv, h), dtype=dtype)
+        v = torch.zeros((b, s, nkv, hv), dtype=dtype)
+        o = torch.zeros((b, s, nq, hv), dtype=dtype)
         lse = torch.zeros((b, nq, s))
         if refused:
             with pytest.raises(ValueError, match=refused):
-                FA.flash_attention_bwd(q, kv, kv, q, lse, q)
+                FA.flash_attention_bwd(q, k, v, o, lse, o)
             assert launches == []
             return
-        dq, dk, dv = FA.flash_attention_bwd(q, kv, kv, q, lse, q)
-        assert dq.shape == q.shape and dk.shape == kv.shape
+        dq, dk, dv = FA.flash_attention_bwd(q, k, v, o, lse, o)
+        assert dq.shape == q.shape and dk.shape == k.shape
+        assert dv.shape == v.shape
         ((name, a),) = launches
         assert name == "flash_attention_bwd"
-        assert a[10:15] == (b, s, nq, nkv, h)
+        # b, S, Sk, Nq, Nkv, H, Hv, causal
+        assert a[10:18] == (b, s, s, nq, nkv, h, hv, 1)
         assert a[-2] == _build.DTYPE_CODES[dtype]  # the dtype picks the route
+
+    @pytest.mark.parametrize("s,sk", [(1500, 1500), (1, 1500), (40, 1500),
+                                      (448, 1500), (7, 3)])
+    def test_flash_bwd_full_attention_takes_its_own_key_length(
+            self, launches, s, sk):
+        """Whisper's encoder (S = Sk = 1500) and cross-attention (S against
+        Sk 1500): non-causal, Sk passed beside S, dk/dv of length Sk."""
+        q = torch.zeros((1, s, 16, 64), dtype=torch.bfloat16)
+        kv = torch.zeros((1, sk, 16, 64), dtype=torch.bfloat16)
+        lse = torch.zeros((1, 16, s))
+        dq, dk, dv = FA.flash_attention_bwd(q, kv, kv, q, lse, q,
+                                            causal=False)
+        assert dq.shape == q.shape and dk.shape == dv.shape == kv.shape
+        ((_, a),) = launches
+        assert a[10:18] == (1, s, sk, 16, 16, 64, 64, 0)
 
     def test_flash_bwd_refusals_come_before_any_launch(self, launches):
         q = torch.zeros((1, 8, 4, 128))
         lse = torch.zeros((1, 4, 8))
-        for bad in (dict(causal=False), ):
-            with pytest.raises(ValueError, match="A13"):
-                FA.flash_attention_bwd(q, q, q, q, lse, q, **bad)
-        with pytest.raises(ValueError, match="A13"):  # Hv != H
+        kv = torch.zeros((1, 5, 4, 128))
+        with pytest.raises(ValueError, match="Sk = S when causal"):
+            FA.flash_attention_bwd(q, kv, kv, q, lse, q)  # causal, Sk != S
+        with pytest.raises(ValueError, match="backward kernel takes"):
+            # Hv = 32 beside H = 128: no instantiation
             FA.flash_attention_bwd(q, q, q[..., :32], q[..., :32], lse,
                                    q[..., :32])
-        with pytest.raises(ValueError, match="A13"):  # no instantiation
+        with pytest.raises(ValueError, match="backward kernel takes"):
             FA.flash_attention_bwd(q[..., :48], q[..., :48], q[..., :48],
                                    q[..., :48], lse, q[..., :48])
-        with pytest.raises(ValueError):  # lse of the wrong shape
+        with pytest.raises(ValueError, match="lse"):  # lse of the wrong shape
             FA.flash_attention_bwd(q, q, q, q, lse[:, :2], q)
+        with pytest.raises(ValueError, match="lse"):  # lse not fp32
+            FA.flash_attention_bwd(q, q, q, q, lse.double(), q)
+        with pytest.raises(ValueError, match="o/do"):  # o, do not of width Hv
+            FA.flash_attention_bwd(q, q, q, q[..., :64], lse, q[..., :64])
+        assert launches == []
+
+    def test_flash_function_refuses_before_the_forward(self, launches):
+        """FlashAttentionFunction checks the backward's widths before it
+        launches the forward: an un-instantiated width under grad raises
+        with nothing launched."""
+        q = torch.zeros((1, 8, 4, 48), requires_grad=True)
+        with pytest.raises(ValueError, match="backward kernel takes"):
+            FA.flash_attention(q, q, q)
         assert launches == []
 
     @pytest.mark.parametrize("rows,d,route,blocks", [
@@ -318,3 +379,66 @@ class TestBackwardArgs:
             R.rmsnorm_bwd(wide, torch.ones(wide.shape[1], dtype=torch.bfloat16),
                           wide, 1e-5)
         assert launches == []
+
+    @pytest.mark.parametrize("m,h,q,p,n,dtype", [
+        (16, 48, 256, 64, 128, torch.bfloat16),   # mamba2-780m's training
+        (4, 112, 256, 64, 64, torch.bfloat16),    # zamba2-7b
+        (3, 4, 5, 16, 16, torch.float32),         # reduced, a ragged chunk
+        (2, 2, 1, 128, 128, torch.float32)])      # the widest it takes
+    def test_ssd_intra_bwd_args(self, launches, m, h, q, p, n, dtype):
+        """The model's strided views reach the entry point as they are:
+        x, B and C cut from one activation, dy a (M,H,Q,P) view of the
+        forward's (M,Q,H,P) buffer; dx comes back in that layout too."""
+        x, dt, da, b, c = _ssd(m, h, q, p, n, dtype)
+        dy = torch.zeros((m, q, h, p)).permute(0, 2, 1, 3)
+        ds = torch.zeros((m, h, n, p))
+        dx, ddt, dda, db, dc = S.ssd_intra_bwd(x, dt, da, b, c, dy, ds)
+        assert dx.shape == x.shape and dx.dtype == dtype
+        assert dx.stride() == (q * h * p, p, h * p, 1)
+        assert ddt.shape == dda.shape == dt.shape
+        assert ddt.dtype == dda.dtype == torch.float32
+        assert db.shape == dc.shape == b.shape and db.dtype == dtype
+        ((name, a),) = launches
+        assert name == "ssd_intra_bwd"
+        assert a[13:18] == (m, h, q, p, n)
+        assert list(a[18]) == [*x.stride()[:3], *dt.stride(), *da.stride(),
+                               *b.stride()[:2], *c.stride()[:2],
+                               *dy.stride()[:3], *dx.stride()[:3]]
+        assert a[-2] == _build.DTYPE_CODES[dtype]
+
+    @pytest.mark.parametrize("q,p,n,bad,error", [
+        (257, 16, 16, None, ValueError),           # Q > 256
+        (8, 129, 16, None, ValueError),            # P > 128
+        (8, 16, 129, None, ValueError),            # N > 128
+        (8, 16, 16, "dt", TypeError),              # dt not fp32
+        (8, 16, 16, "dy", TypeError),              # dy not fp32
+        (8, 16, 16, "ds_shape", ValueError)])      # ds not (M,H,N,P)
+    def test_ssd_intra_bwd_refusals_come_before_any_launch(
+            self, launches, q, p, n, bad, error):
+        x, dt, da, b, c = _ssd(2, 3, q, p, n, torch.float32)
+        dy = torch.zeros(x.shape)
+        ds = torch.zeros((2, 3, n, p))
+        if bad == "dt":
+            dt = dt.bfloat16()
+        elif bad == "dy":
+            dy = dy.bfloat16()
+        elif bad == "ds_shape":
+            ds = ds[:, :, :-1]
+        with pytest.raises(error):
+            S.ssd_intra_bwd(x, dt, da, b, c, dy, ds)
+        assert launches == []
+
+    def test_ssd_intra_takes_the_function_only_under_grad(self, launches):
+        """On the card, a call under grad goes through SSDIntraFunction
+        (its output has a grad_fn) and launches the forward alone; under
+        no_grad or inference_mode it is the plain forward launch with no
+        grad_fn."""
+        x, dt, da, b, c = _ssd(2, 3, 8, 16, 16, torch.float32)
+        x.requires_grad_(True)
+        y, s = S.ssd_intra(x, dt, da, b, c)
+        assert type(y.grad_fn).__name__ == "SSDIntraFunctionBackward"
+        for ctx in (torch.no_grad, torch.inference_mode):
+            with ctx():
+                y, s = S.ssd_intra(x, dt, da, b, c)
+            assert y.grad_fn is None
+        assert [n for n, _ in launches] == ["ssd_intra"] * 3
