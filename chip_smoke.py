@@ -159,7 +159,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
        every masked step; internlm2-1.8b bf16 beside phase 5's paged run
        on the same traffic (client step p50/p99, tokens/s, decode
        launches per call);
-8. launch counts of every kernel over phases 4-7 and 10 (each must be
+8. launch counts of every kernel over phases 4-7, 10 and 11 (each must be
    non-zero), then one JSON line describing every kernel;
 9. static cell pricing (``ServeEngine.static_cell_costs``, on meta twins
    of the weights and pools: it launches nothing, so phase 8's counts do
@@ -221,7 +221,33 @@ and prints its peak device memory.
        (``chiprun_out/train_step_profile_<arch>.txt``).  Every 10b run and
        10a's kernel step run with every kernel module's plain version
        refusing CUDA tensors;
-11. last line: ``{"ok": true, "device": {...}}``.
+11. the distributed layer and the serving launcher, after training, on a
+   (1, 1) (data, model) DeviceMesh over an NCCL group of world 1 (from a
+   FileStore in a temporary directory):
+   11a. full-width internlm2-1.8b cut to 2 layers, fp32, 3 steps of the
+       sharded train step (params and AdamW state DTensors, fsdp on)
+       against the plain step from the same weights and batches: losses
+       bit for bit, each param leaf within 1e-6 of its max |.|; the
+       sharded state saved and restored onto the mesh
+       (``restore(shardings=...)``) bit-identical; then full-width,
+       full-depth bf16, 3 steps of 4 x 1024 tokens plain and sharded:
+       step ms p50 and tokens/s of each (the gap is DTensor's host
+       overhead), the sharded run's flash and rmsnorm launches per step
+       as the code implies; every plain version refuses CUDA tensors;
+   11b. ``moe._moe_local`` (the expert-parallel body, axis None) at
+       deepseek-v2-lite-16b widths (64 experts, d 2048, ff 1408, top 6,
+       512 tokens, capacity factor 8) against ``moe_dense``: fp32 within
+       1e-5, bf16 within 2e-2; at capacity factor 1.25 the routing and
+       kept-token mask equal the CPU's;
+   11c. ``compressed_psum_mean`` over 11a's fp32 gradients: the first
+       step equal to the scheme in numpy bit for bit; the error feedback
+       after 10 steps;
+   11d. ``python -m repro_torch.launch.serve`` as a subprocess on the card
+       and with ``--device cpu``: rc 0, the reports, the same admission
+       decisions; ``serve.main([])`` in-process launches flash_attention,
+       decode_attention and rmsnorm with every plain version refusing CUDA
+       tensors;
+12. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-from TREE
 
@@ -3735,6 +3761,410 @@ def train_path(dev, card) -> Counter:
     return launches
 
 
+# -- phase 11: the distributed layer on a (1, 1) mesh, and the launcher -----
+
+DIST_ARCH = "internlm2_1_8b"
+DIST_PARITY_LAYERS = 2     # 11a fp32: depth of the sharded-vs-plain steps
+DIST_STEPS = 3             # 11a: steps of each run
+MOE_ARCH = "deepseek_v2_lite_16b"  # 11b: 64 experts, d 2048, ff 1408, top 6
+MOE_TOKENS = 512           # 11b: tokens through one expert-parallel body
+COMPRESS_STEPS = 10        # 11c: steps of error feedback
+SERVE_TIMEOUT_S = 300      # 11d: the launcher's subprocess
+
+
+@contextlib.contextmanager
+def one_rank_mesh(dev):
+    """A process group of world 1 (NCCL on the card, gloo on the CPU)
+    initialised from a FileStore in a temporary directory, and a (1, 1)
+    (data, model) DeviceMesh over it; the group is destroyed after."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                            world_size=1)
+    try:
+        yield make_debug_mesh(1, shape=(1, 1))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_steps(step_fn, params, state, batches, dev):
+    """``step_fn`` over ``batches``; returns (params, state, losses, step
+    seconds, launches)."""
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    losses, seconds = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        losses.append(m["loss"].item())
+        seconds.append(time.perf_counter() - t0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return params, state, losses, seconds, Counter(_build.launches)
+
+
+def sharded_parity(mesh, dev, card) -> Counter:
+    """11a in fp32: DIST_STEPS steps of full-width internlm2-1.8b cut to
+    DIST_PARITY_LAYERS layers, sharded over the (1, 1) mesh (params and
+    AdamW state DTensors, fsdp on) against the plain step from the same
+    weights and batches: the losses bit for bit, each param leaf within
+    1e-6 of its max |.|.  Then the sharded state is saved and restored
+    onto the mesh (``restore(shardings=...)``), bit-identical.  Returns
+    the sharded run's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import (TrainSettings, _opt_specs,
+                                                 build_train_step)
+    from repro_torch.training.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(DIST_ARCH),
+                              num_layers=DIST_PARITY_LAYERS, dtype="float32")
+    settings = TrainSettings(adamw=opt.AdamWConfig(warmup_steps=1))
+    rules = make_rules(mesh)
+    init = M.init_params(cfg, generator=torch.Generator(device=dev)
+                         .manual_seed(SEED), device=dev)
+    batches = [device_batch(cfg, PARITY_BATCH, PARITY_SEQ, i, dev)
+               for i in range(DIST_STEPS)]
+    runs = {}
+    for name, r in (("plain", None), ("sharded", rules)):
+        params = tree_map(lambda t: t.clone(), init)
+        runs[name] = run_steps(build_train_step(cfg, settings, r), params,
+                               opt.init(params, settings.adamw), batches, dev)
+    (p_plain, _, l_plain, _, _), (p_shd, s_shd, l_shd, _, launches) = \
+        runs["plain"], runs["sharded"]
+    worst = max((shd.to_full(a) - b).abs().max().item()
+                / max(b.abs().max().item(), 1e-30)
+                for a, b in zip(leaves(p_shd), leaves(p_plain)))
+    tag = f"distributed 11a {cfg.name} [{card}]"
+    print(f"{tag}: fp32, {cfg.num_layers} layers, batch {PARITY_BATCH} x "
+          f"{PARITY_SEQ}, {DIST_STEPS} steps on the (1, 1) mesh: losses "
+          f"sharded {l_shd} plain {l_plain} (bit for bit: "
+          f"{l_shd == l_plain}); worst param leaf gap {worst:.2e} of its "
+          f"max |.| (tol 1e-6); embed {list(p_shd['embed'].placements)}")
+    if l_shd != l_plain or worst > 1e-6:
+        raise SmokeFailure(f"{tag}: the sharded step differs from the plain")
+    del runs, p_plain
+    tree = {"params": p_shd, "opt": s_shd}
+    pspecs = shd.param_specs(p_shd, rules)
+    shardings = shd.named({"params": pspecs,
+                           "opt": _opt_specs(s_shd, pspecs)}, rules)
+    tmp = tempfile.mkdtemp()
+    try:
+        t0 = time.monotonic()
+        ckpt.save(tmp, DIST_STEPS, tree)
+        t1 = time.monotonic()
+        got, step = ckpt.restore(tmp, tree, shardings=shardings)
+        t2 = time.monotonic()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = step == DIST_STEPS and all(
+        a.placements == b.placements and a.dtype == b.dtype
+        and torch.equal(a.to_local(), b.to_local())
+        for a, b in zip(leaves(got), leaves(tree)))
+    n_bytes = sum(t.to_local().numel() * t.element_size() for t in leaves(tree))
+    print(f"{tag}: checkpoint of the sharded params and AdamW state "
+          f"({len(leaves(tree))} leaves, {n_bytes / 1e9:.2f} GB): save "
+          f"{t1 - t0:.1f} s, restore onto the mesh {t2 - t1:.1f} s, "
+          f"bit-identical: {same}")
+    if not same:
+        raise SmokeFailure(f"{tag}: the restored state differs")
+    return launches
+
+
+def sharded_trainer(mesh, dev, card) -> Counter:
+    """11a in bf16: full-width, full-depth internlm2-1.8b, DIST_STEPS steps
+    of TRAIN_BATCH x TRAIN_SEQ plain and then sharded over the (1, 1) mesh
+    from the same seed (the trainer's settings): finite losses, step ms p50
+    and tokens/s of each (their gap is DTensor's host overhead), the
+    sharded run's launches per step as the code implies.  Returns the
+    sharded run's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import (TrainSettings,
+                                                 build_train_step)
+
+    cfg = get_config(DIST_ARCH)
+    settings = TrainSettings(adamw=opt.AdamWConfig(
+        warmup_steps=1, total_steps=DIST_STEPS))
+    batches = [device_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, i, dev)
+               for i in range(DIST_STEPS)]
+    tag = f"distributed 11a {cfg.name} [{card}]"
+    out = {}
+    for name, r in (("plain", None), ("sharded", make_rules(mesh))):
+        params = M.init_params(cfg, generator=torch.Generator(device=dev)
+                               .manual_seed(SEED), device=dev)
+        state = opt.init(params, settings.adamw)
+        _, _, losses, seconds, launches = run_steps(
+            build_train_step(cfg, settings, r), params, state, batches, dev)
+        del params, state
+        free_card()
+        p50 = statistics.median(1e3 * x for x in seconds)
+        out[name] = (losses, p50, launches)
+        print(f"{tag}: bf16 {name}, {cfg.num_layers} layers, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; step ms p50 "
+              f"{p50:.1f} over {DIST_STEPS} steps (the first included); "
+              f"{TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.0f} tokens/s")
+    losses, p50, launches = out["sharded"]
+    print(f"{tag}: DTensor's overhead on the step: "
+          f"{p50 - out['plain'][1]:+.1f} ms p50 ({p50 / out['plain'][1]:.3f}x)")
+    want = Counter({k: v * DIST_STEPS
+                    for k, v in train_launches_per_step(cfg).items()})
+    got = Counter({k: launches[k] for k in want})
+    print(f"{tag}: sharded launches over {DIST_STEPS} steps "
+          f"{dict(launches)}; the code implies {dict(want)}")
+    if not all(math.isfinite(x) for x in losses) or got != want:
+        raise SmokeFailure(f"{tag}: losses {losses} or launches {dict(got)}")
+    return launches
+
+
+def expert_parallel_body(dev, card) -> None:
+    """11b: ``moe._moe_local`` (axis None: the expert-parallel body alone)
+    at deepseek-v2-lite-16b widths on MOE_TOKENS tokens, capacity factor 8
+    (no drops), against ``moe_dense`` on the same weights: fp32 within
+    1e-5, bf16 within 2e-2.  At capacity factor 1.25 the routing and the
+    kept-token mask equal the CPU's on the same inputs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as MOE
+
+    base = get_config(MOE_ARCH)
+    e, k, d = base.num_experts, base.num_experts_per_tok, base.d_model
+    tag = f"distributed 11b {base.name} [{card}]"
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(base, capacity_factor=8.0)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        p = MOE.init_moe(cfg, gen, dtype, dev)
+        p.pop("shared", None)  # the routed experts only: what the body runs
+        x = torch.randn((MOE_TOKENS, d), generator=gen, device=dev).to(dtype)
+        cap = max(int(math.ceil(MOE_TOKENS * k / e * cfg.capacity_factor)), 4)
+        t0 = time.perf_counter()
+        got, aux = MOE._moe_local(cfg, p["router"], p["experts"], x,
+                                  capacity=cap, e_local=e, axis=None)
+        want, aux_d = MOE.moe_dense(cfg, p, x[None])
+        torch.cuda.synchronize()
+        err = (got.float() - want[0].float()).abs().max().item()
+        tol = TOL[dtype]
+        ok = bool(((got.float() - want[0].float()).abs()
+                   <= tol + tol * want[0].float().abs()).all())
+        print(f"{tag}: {str(dtype)[6:]} _moe_local (E {e}, d {d}, ff "
+              f"{cfg.moe_d_ff}, top {k}, {MOE_TOKENS} tokens, capacity "
+              f"{cap}) against moe_dense: max_abs_err {err:.3e} (tol "
+              f"{tol:g}); aux {float(aux):.6f} / {float(aux_d):.6f}; "
+              f"{1e3 * (time.perf_counter() - t0):.1f} ms both")
+        if not ok or float(aux) != float(aux_d):
+            raise SmokeFailure(f"{tag}: _moe_local differs from moe_dense")
+    cfg = base  # capacity factor 1.25: tokens drop
+    cap = max(int(math.ceil(MOE_TOKENS * k / e * cfg.capacity_factor)), 4)
+    masks = []
+    for where in (dev, torch.device("cpu")):
+        gen = torch.Generator().manual_seed(SEED)
+        router = torch.randn((d, e), generator=gen) * 0.02
+        x = torch.randn((MOE_TOKENS, d), generator=gen)
+        idx, w, _ = MOE.router_topk(cfg, {"router": router.to(where)},
+                                    x.to(where))
+        _, _, keep = MOE._dispatch(x.to(where), idx, w, e, cap)
+        masks.append((idx.cpu(), keep.cpu()))
+    same = all(torch.equal(a, b) for a, b in zip(*masks))
+    print(f"{tag}: capacity factor {cfg.capacity_factor} (capacity {cap}): "
+          f"{int(masks[0][1].sum())} of {masks[0][1].numel()} routed slots "
+          f"kept; routing and kept-token mask equal the CPU's: {same}")
+    if not same:
+        raise SmokeFailure(f"{tag}: the card's kept-token mask differs")
+
+
+def compressed_reduce(mesh, dev, card) -> None:
+    """11c: ``compressed_psum_mean`` on the world-1 mesh's data axis over
+    the gradients of full-width internlm2-1.8b cut to DIST_PARITY_LAYERS
+    layers (fp32, one PARITY_BATCH x PARITY_SEQ batch): the first step's
+    mean and error feedback equal the scheme in numpy bit for bit; the
+    error feedback's norm after COMPRESS_STEPS steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import grad_compress as gc
+    from repro_torch.training.train_step import (TrainSettings, make_loss,
+                                                 value_and_grad)
+    from repro_torch.training.tree import leaves
+
+    cfg = dataclasses.replace(get_config(DIST_ARCH),
+                              num_layers=DIST_PARITY_LAYERS, dtype="float32")
+    params = M.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(SEED), device=dev)
+    _, grads = value_and_grad(make_loss(cfg, TrainSettings()), params,
+                              device_batch(cfg, PARITY_BATCH, PARITY_SEQ, 0,
+                                           dev))
+    del params
+    err = gc.init_error_state(grads)
+    t0 = time.perf_counter()
+    mean, new_err = gc.compressed_psum_mean(grads, err, mesh, ("data",))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    bad = 0
+    for g, m, e in zip(leaves(grads), leaves(mean), leaves(new_err)):
+        gn = g.cpu().numpy()
+        corrected = gn + np.float32(0.0)
+        scale = np.float32(max(np.abs(corrected).max(), np.float32(1e-12))) \
+            / np.float32(127.0)
+        q = np.clip(np.round(corrected / scale), -127, 127)
+        want_mean = q.astype(np.int32).astype(np.float32) * scale / np.float32(1)
+        want_err = corrected - q * scale
+        bad += int(not (np.array_equal(m.cpu().numpy(), want_mean)
+                        and np.array_equal(e.cpu().numpy(), want_err)))
+    n = sum(g.numel() for g in leaves(grads))
+    for _ in range(COMPRESS_STEPS - 1):
+        mean, new_err = gc.compressed_psum_mean(grads, new_err, mesh,
+                                                ("data",))
+    norm = math.sqrt(sum(float((e.double() ** 2).sum())
+                         for e in leaves(new_err)))
+    gnorm = math.sqrt(sum(float((g.double() ** 2).sum())
+                          for g in leaves(grads)))
+    tag = f"distributed 11c {cfg.name} [{card}]"
+    print(f"{tag}: int8 + error feedback over {n / 1e6:.1f} M gradient "
+          f"entries ({len(leaves(grads))} leaves), int32 on the wire "
+          f"(the reference: int16): first step {ms:.1f} ms, {bad} leaves "
+          f"differ from numpy; error feedback after {COMPRESS_STEPS} steps "
+          f"|e| {norm:.4e} (|g| {gnorm:.4e})")
+    if bad:
+        raise SmokeFailure(f"{tag}: {bad} leaves differ from the scheme")
+
+
+def launcher_kernels(dev, card) -> None:
+    """11d's kernels at the launcher's shapes (the reduced config: head
+    width 16, 4 query and 2 kv heads, bf16, prompts of 8, caches of 64)
+    against their plain versions: flash_attention and decode_attention
+    (the bf16 tensor-core kernels at H 16, which only this path runs)
+    within 2e-2."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q, k, v = randn(1, 8, 4, 16), randn(1, 8, 2, 16), randn(1, 8, 2, 16)
+    errs = {"flash_attention": (FA.flash_attention(q, k, v),
+                                FA.flash_attention_plain(q, k, v))}
+    qd, kc, vc = randn(3, 4, 16), randn(3, 64, 2, 16), randn(3, 64, 2, 16)
+    lens = torch.tensor([9, 33, 64], dtype=torch.int32, device=dev)
+    errs["decode_attention"] = (DA.decode_attention(qd, kc, vc, lens),
+                                DA.decode_attention_plain(qd, kc, vc, lens))
+    torch.cuda.synchronize()
+    for name, (got, want) in errs.items():
+        got, want = got.float(), want.float()
+        err = (got - want).abs().max().item()
+        ok = bool(((got - want).abs() <= TOL[bf16] * (1 + want.abs())).all())
+        print(f"distributed 11d {name} [{card}]: bf16 at head width 16 "
+              f"against its plain version: max_abs_err {err:.3e} (tol "
+              f"{TOL[bf16]:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"{name} at head width 16 disagrees")
+
+
+def serve_launcher(dev, card) -> Counter:
+    """11d: the launcher's kernels first (:func:`launcher_kernels`); then
+    ``python -m repro_torch.launch.serve`` in a subprocess with no
+    ``--device`` (the card) and with ``--device cpu``: rc 0, every
+    admitted stream's report line, the same admission decisions; then
+    ``serve.main([])`` in this process with every kernel module's plain
+    version refusing CUDA tensors, which must launch flash_attention,
+    decode_attention and rmsnorm.  Returns that run's launches."""
+    import os
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+
+    launcher_kernels(dev, card)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for name, extra in (("card", []),
+                                      ("cpu", ["--device", "cpu"]))}
+    runs = {}
+    try:
+        for name, proc in procs.items():  # both at once: the CPU's is host work
+            out, err = proc.communicate(timeout=SERVE_TIMEOUT_S)
+            runs[name] = subprocess.CompletedProcess(proc.args,
+                                                     proc.returncode, out, err)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, res in runs.items():
+        print(f"distributed 11d launcher [{name}] rc {res.returncode}, both "
+              f"in {time.monotonic() - t0:.1f} s:\n{res.stdout.rstrip()}")
+        if res.returncode:
+            raise SmokeFailure(f"launcher [{name}] failed:\n{res.stderr}")
+
+    def decisions(out):
+        return (sorted(re.findall(r"^(stream\d+): REJECTED", out, re.M)),
+                sorted(re.findall(r"^(stream\d+): prefill p50", out, re.M)))
+
+    same = (decisions(runs["card"].stdout) == decisions(runs["cpu"].stdout)
+            and decisions(runs["card"].stdout)[1] != [])
+    with no_plain_on_card():
+        _build.reset_launches()
+        report = serve.main([])
+        torch.cuda.synchronize()
+        launches = Counter(_build.launches)
+    print(f"distributed 11d launcher [{card}]: admission as on the CPU: "
+          f"{same}; in-process report {report}; launches {dict(launches)}")
+    need = ("flash_attention", "decode_attention", "rmsnorm")
+    if not same or not report or not all(launches[k] for k in need):
+        raise SmokeFailure("the launcher's admission differs from the CPU's "
+                           "or a kernel of its path never launched")
+    return launches
+
+
+def distributed_path(dev, card) -> Counter:
+    """Phase 11: 11a's sharded train step (fp32 parity and the checkpoint,
+    then the bf16 trainer) and 11c's compressed reduce on a (1, 1) mesh of
+    one NCCL rank, 11b's expert-parallel body, 11d's launcher; every kernel
+    module's plain version refuses CUDA tensors in 11a and 11d.  Returns
+    the launches of 11a's sharded runs and 11d's in-process run."""
+    t0 = time.monotonic()
+    launches = Counter()
+    with one_rank_mesh(dev) as mesh:
+        with no_plain_on_card():
+            launches += sharded_parity(mesh, dev, card)
+            free_card()
+            launches += sharded_trainer(mesh, dev, card)
+        free_card()
+        t1 = time.monotonic()
+        compressed_reduce(mesh, dev, card)
+        free_card()
+    t2 = time.monotonic()
+    expert_parallel_body(dev, card)
+    free_card()
+    t3 = time.monotonic()
+    launches += serve_launcher(dev, card)
+    print(f"distributed: 11a {t1 - t0:.1f} s, 11c {t2 - t1:.1f} s, 11b "
+          f"{t3 - t2:.1f} s, 11d {time.monotonic() - t3:.1f} s")
+    return launches
+
+
 def time_kernels_of(tree: pathlib.Path) -> int:
     """``--kernels-from TREE``: build the kernels of another checkout's
     ``src/repro_torch`` (for instance the parent commit, unpacked with git
@@ -3805,12 +4235,13 @@ def main() -> int:
                  hybrid_path,                                   # phases 4d-5d
                  encdec_path,                                   # phases 4e-5e
                  vlm_path,                                      # phases 4f-5f
-                 train_path):                                   # phase 10
+                 train_path,                                    # phase 10
+                 distributed_path):                             # phase 11
         print(f"{path.__name__} starts at {time.monotonic() - t_start:.1f} s")
         counts += path(dev, card)
-    print(f"phase 10 ends at {time.monotonic() - t_start:.1f} s")
+    print(f"phase 11 ends at {time.monotonic() - t_start:.1f} s")
 
-    print(f"launches over phases 4-7 and 10: {dict(counts)}")   # phase 8
+    print(f"launches over phases 4-7, 10 and 11: {dict(counts)}")  # phase 8
     missing = [k for k in KERNELS if not counts.get(k)]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")

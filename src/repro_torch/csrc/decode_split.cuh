@@ -26,7 +26,7 @@
 // cache with block_k = bs, and paged equals dense decode exactly.  A row
 // of length 0 merges no split and gives exactly 0.
 //
-// bf16 (decode_tc_kernel<H>, H in {64, 112, 128}, bs a multiple of 16): one
+// bf16 (decode_tc_kernel<H>, H in {16, 64, 112, 128}, bs a multiple of 16): one
 // warp per block on mma.sync.m16n8k16.  The group's query heads are the M
 // dimension, padded with zero rows to 16, and held in registers as A
 // fragments.  The split is walked in chunks of 16 positions: scores = Q
@@ -374,7 +374,7 @@ int launch_tc(const void* q, const void* k, const void* v, Addr addr, const int*
 // `width` tiles per row (the table width, or ceil(Smax / bs)); scratch
 // holds B * NS * Nq * (H + 2) floats, NS = ceil(width / tps): the
 // accumulators (B, NS, Nq, H), then the (m, l) pairs (B, NS, Nq, 2).
-// bf16 takes the tensor cores and needs H in {64, 112, 128}, bs a multiple
+// bf16 takes the tensor cores and needs H in {16, 64, 112, 128}, bs a multiple
 // of 16, tps <= 32 and 16-byte aligned bases and strides; fp32 takes any
 // widths (float4 staging where `vec`).
 template <typename Addr>
@@ -410,6 +410,7 @@ int launch_decode_split(const void* q, const void* k, const void* v, Addr addr,
     if (ns > 0) {
       int err;
       switch (sh.h) {
+        case 16: err = launch_tc<16>(q, k, v, addr, lengths, part, sh, grid, scale, s); break;
         case 64: err = launch_tc<64>(q, k, v, addr, lengths, part, sh, grid, scale, s); break;
         case 112: err = launch_tc<112>(q, k, v, addr, lengths, part, sh, grid, scale, s); break;
         case 128: err = launch_tc<128>(q, k, v, addr, lengths, part, sh, grid, scale, s); break;

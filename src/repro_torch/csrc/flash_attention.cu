@@ -45,8 +45,9 @@
 // to each tile's latency, which a 64-row warpgroup tile does not shorten,
 // and mma.sync needs no descriptor layouts or warpgroup barriers.  Head
 // widths are template parameters; the widths of the repo's attention
-// configs are instantiated (H = Hv in 64, 112, 128; H 192 / Hv 128), and
-// the launch refuses any other.  Every global base and row stride must be
+// configs are instantiated (H = Hv in 64, 112, 128; H 192 / Hv 128; and
+// 16, the reduced configs' that the serving launcher runs), and the
+// launch refuses any other.  Every global base and row stride must be
 // 16-byte aligned (the wrapper checks).
 //
 // Both kernels can also write each query row's log-sum-exp of its scaled
@@ -498,6 +499,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, float* l
   if (h == H && hv == HV)                                                                 \
     return launch_widths<H, HV>(q, k, v, out, lse, b, seq, seq_k, nq, nkv, qs, ks, vs, os, \
                                 causal, scale, s);
+  REPRO_FLASH_TC(16, 16)
   REPRO_FLASH_TC(64, 64)
   REPRO_FLASH_TC(112, 112)
   REPRO_FLASH_TC(128, 128)

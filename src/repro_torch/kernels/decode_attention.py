@@ -31,9 +31,10 @@ DEFAULT_BLOCK_K = 16
 # any table that holds its blocks and through the dense cache.
 DECODE_TILES_PER_SPLIT = 2
 # head widths of the bf16 tensor-core kernel: every GQA config's head_dim
-# (internlm2, llama3, granite, qwen 128; zamba2 112; whisper 64); fp32 runs
-# on the CUDA cores at any width
-DECODE_TENSOR_CORE_WIDTHS = (64, 112, 128)
+# (internlm2, llama3, granite, qwen 128; zamba2 112; whisper 64) and the
+# reduced configs' 16 (the serving launcher's); fp32 runs on the CUDA cores
+# at any width
+DECODE_TENSOR_CORE_WIDTHS = (16, 64, 112, 128)
 
 
 def masked_softmax_pv(scores: torch.Tensor, valid: torch.Tensor,

@@ -29,27 +29,35 @@ takes every shape.  :func:`flash_attention` goes through the Function only
 when grad is enabled and an input requires grad: under ``no_grad`` or
 ``inference_mode`` (the serving path, its CUDA graphs) the call is the
 forward launch alone, with no lse.
+
+DTensor inputs (a sharded train step) run under ``local_map``: batch
+shards stay, head shards stay when both head counts split evenly, every
+other shard is gathered, and the wrapper -- its Function and launches
+included -- sees the local tensors only.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import _build
 
 # (H, Hv) pairs the bf16 tensor-core kernel is instantiated for
 # (csrc/flash_attention.cu): the repo's attention configs' head widths --
 # internlm2, llama3, granite, qwen (128), whisper (64), zamba2 (112) and
-# MLA prefill (192 / 128)
-TENSOR_CORE_WIDTHS = frozenset({(64, 64), (112, 112), (128, 128),
-                                (192, 128)})
+# MLA prefill (192 / 128) -- and the reduced configs' 16, which the serving
+# launcher (launch/serve.py) runs
+_CONFIG_WIDTHS = frozenset({(64, 64), (112, 112), (128, 128), (192, 128)})
+TENSOR_CORE_WIDTHS = _CONFIG_WIDTHS | {(16, 16)}
 # (H, Hv) pairs the backward kernel is instantiated for, by dtype
-# (csrc/flash_attention_bwd.cu): in bf16 on the tensor cores, every pair
-# the forward takes; in fp32 on the CUDA cores, those and the reduced
-# configs' 16, 32 and MLA's (24, 16)
+# (csrc/flash_attention_bwd.cu): in bf16 on the tensor cores, the configs'
+# pairs; in fp32 on the CUDA cores, those and the reduced configs' 16, 32
+# and MLA's (24, 16)
 BWD_WIDTHS = {
-    torch.float32: TENSOR_CORE_WIDTHS | {(16, 16), (24, 16), (32, 32)},
-    torch.bfloat16: TENSOR_CORE_WIDTHS}
+    torch.float32: _CONFIG_WIDTHS | {(16, 16), (24, 16), (32, 32)},
+    torch.bfloat16: _CONFIG_WIDTHS}
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -143,9 +151,33 @@ def flash_attention(q, k, v, *, causal: bool = True,
     that requires grad, the call goes through
     :class:`FlashAttentionFunction`."""
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    mesh = shd.mesh_of(q, k, v)
+    if mesh is not None:
+        return _flash_sharded(mesh, q, k, v, causal, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, causal, scale)
     return _flash_forward(q, k, v, causal, scale, with_lse=False)
+
+
+def _flash_sharded(mesh, q, k, v, causal: bool, scale: float):
+    """:func:`flash_attention` on DTensors: per mesh dim, q's batch shard
+    or its head shard (when Nq and Nkv both divide) is kept for q, k and
+    v alike, anything else gathered; the call runs on the local shards."""
+    q, k, v = (shd.as_dtensor(t, mesh) for t in (q, k, v))
+    nq, nkv = q.shape[2], k.shape[2]
+    pl = []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if isinstance(p, Shard) and (p.dim == 0 or (
+                p.dim == 2 and nq % n == 0 and nkv % n == 0)):
+            pl.append(p)
+        else:
+            pl.append(Replicate())
+
+    def local(q, k, v):
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+
+    return shd.local_call(local, (q, k, v), (pl, pl, pl), pl)
 
 
 def _flash_forward(q, k, v, causal: bool, scale: float, *, with_lse: bool):

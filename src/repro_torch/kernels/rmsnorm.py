@@ -17,13 +17,17 @@ a second kernel reduces in block order (no float atomics: every run gives
 the same bits).  :class:`RMSNormFunction` binds the two for autograd;
 :func:`rmsnorm` goes through it only when grad is enabled and an input
 requires grad, so a call under ``no_grad`` or ``inference_mode`` (the
-serving path, its CUDA graphs) is the forward launch alone.
+serving path, its CUDA graphs) is the forward launch alone.  DTensor
+inputs (a sharded train step) run under ``local_map`` on the local rows,
+w replicated, its gradient a partial sum over the rows' shards.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import _build
 
 # row widths the register-resident route is instantiated for
@@ -87,6 +91,14 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     the plain version; CUDA tensors launch the kernel.  With grad enabled
     and an input that requires grad, the call goes through
     :class:`RMSNormFunction`."""
+    mesh = shd.mesh_of(x, w)
+    if mesh is not None:
+        x = shd.as_dtensor(x, mesh)
+        pl = shd.row_placements(x)
+        return shd.local_call(
+            lambda x, w: rmsnorm(x.contiguous(), w, eps),
+            (x, shd.as_dtensor(w, mesh)), (pl, [Replicate()] * mesh.ndim),
+            pl, (pl, shd.partial_where_sharded(pl)))
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return RMSNormFunction.apply(x, w, eps)
     return _rmsnorm(x, w, eps)

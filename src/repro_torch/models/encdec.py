@@ -30,6 +30,7 @@ import math
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
@@ -139,6 +140,13 @@ def paged_insert_views(cfg, prefill_cache) -> dict:
     return {"self": prefill_cache["self"], "cross": prefill_cache["cross"]}
 
 
+def _shard_self(self_cache):
+    """The reference's shard point on the decoder's self K/V (identity
+    without rules, and on plain tensors)."""
+    return tuple(shd.shard_cache_seq(a, batch_axis=1, seq_axis=2)
+                 for a in self_cache)
+
+
 def encode(cfg, params, frames):
     """frames (B, T_enc, D), precomputed embeddings (the frontend stub) ->
     the encoder output (B, T_enc, D): bidirectional attention on the flash
@@ -146,6 +154,7 @@ def encode(cfg, params, frames):
     b, t, _ = frames.shape
     pos = torch.arange(t, device=frames.device).expand(b, t)
     x = frames + L.sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
+    x = shd.shard_hidden(x)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     for lp in T._layers(params["encoder"], cfg.encoder_layers):
         h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
@@ -155,7 +164,7 @@ def encode(cfg, params, frames):
         x = x + torch.matmul(o.reshape(b, t, -1),
                              p["wo"].reshape(-1, cfg.d_model))
         h = L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
-        x = x + L.mlp(cfg, lp["mlp"], h)
+        x = shd.shard_hidden(x + L.mlp(cfg, lp["mlp"], h))
     return L.rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
@@ -187,7 +196,7 @@ def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
     aux_loss).  ``remat`` checkpoints each decoder layer, as the
     reference's ``jax.checkpoint`` of its decoder body does
     (``transformer.remat_layer``); the encoder is not."""
-    x = T.embed_tokens(cfg, params, batch["tokens"])
+    x = shd.shard_hidden(T.embed_tokens(cfg, params, batch["tokens"]))
     b, s, _ = x.shape
     decode = mode == "decode"
     if decode:
@@ -253,13 +262,14 @@ def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
         out = {k: cache[k] for k in ("self", "cross", "block_tables",
                                      "segment_ids") if k in cache}
         out["pos"] = cache["pos"] + 1
+        out["self"] = _shard_self(out["self"])
         return logits, out, aux
     # prefill: the self K/V padded to max_seq; the cross K/V as they are
     max_seq = batch.get("max_seq", s)
     lengths = batch.get("lengths")
     return logits, {
-        "self": (T.pad_seq(torch.stack(ks), 2, max_seq),
-                 T.pad_seq(torch.stack(vs), 2, max_seq)),
+        "self": _shard_self((T.pad_seq(torch.stack(ks), 2, max_seq),
+                             T.pad_seq(torch.stack(vs), 2, max_seq))),
         "cross": (torch.stack(cks), torch.stack(cvs)),
         "pos": (lengths.to(torch.int32) if lengths is not None
                 else torch.full((b,), s, dtype=torch.int32, device=x.device)),

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
@@ -165,7 +166,7 @@ def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
     ``remat`` runs each group (its Mamba-2 layers and the shared block) as
     one checkpointed unit, as the reference's ``jax.checkpoint`` of its
     group body does (``transformer.remat_layer``); the tail is not."""
-    x = T.embed_tokens(cfg, params, batch["tokens"])
+    x = shd.shard_hidden(T.embed_tokens(cfg, params, batch["tokens"]))
     b, s, _ = x.shape
     g, per_group, tail = _split(cfg)
     if mode == "decode":
@@ -238,6 +239,10 @@ def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
                 else ("groups_mamba", "groups_attn", "tail"))
         out = {k: cache[k] for k in keys if k in cache}
         out["pos"] = cache["pos"] + 1
+        if not paged:
+            out["groups_attn"] = tuple(
+                shd.shard_cache_seq(t, batch_axis=1, seq_axis=2)
+                for t in out["groups_attn"])
         return logits, out, aux
     # prefill: only the shared block's KV has a sequence axis to pad
     max_seq = batch.get("max_seq", s)
@@ -246,8 +251,9 @@ def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
     out = {
         "groups_mamba": (conv[:n].view(g, per_group, *conv.shape[1:]),
                          state[:n].view(g, per_group, *state.shape[1:])),
-        "groups_attn": (T.pad_seq(torch.stack(ks), 2, max_seq),
-                        T.pad_seq(torch.stack(vs), 2, max_seq)),
+        "groups_attn": tuple(
+            shd.shard_cache_seq(T.pad_seq(torch.stack(t), 2, max_seq),
+                                batch_axis=1, seq_axis=2) for t in (ks, vs)),
         "pos": (lengths.to(torch.int32) if lengths is not None
                 else torch.full((b,), s, dtype=torch.int32, device=x.device)),
     }

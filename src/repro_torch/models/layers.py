@@ -27,6 +27,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.decode_attention import (DEFAULT_BLOCK_K,
                                                   decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -261,6 +262,7 @@ def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None,
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
+    q = shd.shard_heads(q)
     if step is None:
         step = attention_step(cfg, positions, layer_cache, mrope_positions)
     if step.cos is not None:  # else absolute positions came at the embedding
@@ -295,7 +297,7 @@ def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None,
     nq = out.shape[2]
     out = torch.matmul(out.reshape(b, s, nq * hd),
                        p["wo"].reshape(nq * hd, -1))
-    return out, new_cache
+    return shd.shard_hidden(out), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -402,7 +404,7 @@ def mla_attention(cfg, p: Params, x, *, positions, cache=None,
         out = _per_head(o_lat, p["w_uv"]).reshape(b, s, -1)
 
     out = torch.matmul(out, p["wo"].reshape(-1, p["wo"].shape[-1]))
-    return out, new_cache
+    return shd.shard_hidden(out), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -430,4 +432,5 @@ def mlp(cfg, p: Params, x):
         h = F.silu(torch.matmul(x, p["w_gate"])) * torch.matmul(x, p["w_up"])
     else:  # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(torch.matmul(x, p["w_up"]), approximate="tanh")
+    h = shd.shard_ffn(h)
     return torch.matmul(h, p["w_down"])

@@ -22,6 +22,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import encdec, hybrid, transformer
 
 Params = Any
@@ -100,7 +101,27 @@ def apply(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
 
 
 def cross_entropy(logits, labels, *, z_loss: float = 0.0):
-    """Stable CE in fp32; labels < 0 are masked out."""
+    """Stable CE in fp32; labels < 0 are masked out.  On DTensor logits
+    the sums run on each rank's rows under ``local_map``, each row's
+    vocab gathered whole first (DTensor has no rule for the gold gather
+    on a split vocab, nor, in every release, for its backward), and the
+    ranks' partial sums are added."""
+    mesh = shd.mesh_of(logits, labels)
+    if mesh is not None:
+        logits = shd.whole_rows(shd.as_dtensor(logits, mesh))
+        rows = list(logits.placements)  # shards of (B, S) only
+        part = shd.partial_where_sharded(rows)
+        total, count = shd.local_call(
+            lambda lg, lb: _nll_sums(lg, lb, z_loss),
+            (logits, shd.as_dtensor(labels, mesh)), (rows, rows),
+            (part, part), (rows, rows))
+    else:
+        total, count = _nll_sums(logits, labels, z_loss)
+    return total / count.clamp(min=1.0)
+
+
+def _nll_sums(logits, labels, z_loss: float):
+    """(sum of the unmasked rows' nll, their count), fp32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
@@ -108,7 +129,7 @@ def cross_entropy(logits, labels, *, z_loss: float = 0.0):
     if z_loss:
         nll = nll + z_loss * lse.square()
     mask = (labels >= 0).float()
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll * mask).sum(), mask.sum()
 
 
 def loss_fn(cfg, params, batch, *, remat: bool = True,

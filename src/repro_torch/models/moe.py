@@ -1,14 +1,31 @@
-"""Mixture-of-Experts layer of the port, single-device path.
+"""Mixture-of-Experts layer.
 
-Counterpart of ``repro/models/moe.py``: ``init_moe``, ``router_topk``,
-``moe_dense`` and the single-device branch of ``moe_layer`` with its shared
-experts.  On one device the reference runs ``moe_dense``: every expert on
-every token, combined by the routing weights -- exact and dropless.  The
-expert products are batched ``torch.matmul`` over the expert axis on the
-weights' own (E, D, F) / (E, F, D) layout: the tokens are broadcast, the
-expert stacks are never permuted or copied.  The expert-parallel branches
-(``_dispatch``, ``_combine``, ``_moe_local``, ``_moe_replicated_body``,
-``_moe_decode_tpdata``) come with the distributed slice (ROADMAP A11.5).
+Counterpart of ``repro/models/moe.py``, with its three execution paths,
+all numerically equivalent (up to capacity drops):
+
+  * dense      — every expert runs on every token, combined by routing
+                 weights.  Exact (dropless); the single-device path and
+                 the reference oracle for the distributed paths.
+  * ep_a2a     — expert parallelism over the 'model' mesh axis: tokens
+                 are dispatched into per-expert capacity buffers locally,
+                 exchanged with one ``all_to_all_single``, computed on the
+                 expert-owning rank, and returned with a second.  Used for
+                 train/prefill (seq divisible by the model axis).
+  * ep_replicated — tokens replicated over the model axis; each rank
+                 computes only its local experts and the partial outputs
+                 are summed.  Used for decode (seq length 1).
+
+The reference's ``shard_map`` bodies run under ``local_map`` on the local
+shards of DTensors (plain tensors are taken as replicated).  Its ``psum``
+and ``pmean`` over the body's output become ``Partial`` placements of the
+output, which DTensor reduces when it is redistributed: that reduction's
+backward hands each rank the replicated gradient, as the transposes of
+JAX's collectives do, where a bare ``all_reduce`` inside an autograd graph
+would sum the ranks' copies of it.  The ``all_to_all`` exchanges are
+``torch.distributed.nn.functional.all_to_all_single`` (its backward is
+the reverse exchange).  The expert products are batched ``torch.matmul``
+over the expert axis on the weights' own (E, D, F) / (E, F, D) layout: the
+tokens are broadcast, the expert stacks are never permuted or copied.
 
 Routing: top-k over softmax(router logits) in fp32, renormalised over the
 selected experts, plus the Switch-style load-balance auxiliary loss.
@@ -19,8 +36,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.nn.functional import all_to_all_single
+from torch.distributed.tensor import Partial, Replicate, Shard
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import Params, dense_init, mlp
 
 
@@ -83,10 +104,271 @@ def moe_dense(cfg, p: Params, x):
     return out.reshape(b, s, d), aux
 
 
+def _expert_ffn(experts: Params, h):
+    """h (E, C, D) -> (E, C, D), batched swiglu over experts."""
+    g = F.silu(torch.matmul(h, experts["w_gate"]))
+    u = torch.matmul(h, experts["w_up"])
+    return torch.matmul(g * u, experts["w_down"])
+
+
+def _dispatch(tokens, idx, weights, e: int, capacity: int):
+    """Scatter tokens into per-expert capacity buffers.
+
+    tokens (T, D); idx/weights (T, K).  Returns (buf (E*C, D), slot (T*K,),
+    keep (T*K,)).  Slot assignment is in token order (first-come
+    first-served within each expert), overflow tokens are dropped.
+    """
+    t, k = idx.shape
+    flat_e = idx.reshape(-1)  # (T*K,)
+    # one column more than E: the sentinel `e` gets an all-zero row, as
+    # under jax.nn.one_hot
+    oh = F.one_hot(flat_e, e + 1)[:, :e]  # (T*K, E)
+    pos = torch.cumsum(oh, dim=0) - 1  # running count per expert
+    safe_e = torch.clamp(flat_e, max=e - 1)
+    pos_in_e = torch.gather(pos, 1, safe_e[:, None])[:, 0]
+    # flat_e may carry the sentinel value `e` (non-local expert): always drop
+    keep = (pos_in_e < capacity) & (flat_e < e)
+    slot = torch.where(keep, flat_e * capacity + pos_in_e,
+                       torch.full_like(flat_e, e * capacity))
+    src = torch.repeat_interleave(tokens, k, dim=0)  # (T*K, D)
+    buf = tokens.new_zeros((e * capacity + 1, tokens.shape[-1]))
+    buf = buf.index_add(0, slot, src * keep[:, None].to(tokens.dtype))
+    return buf[:-1], slot, keep
+
+
+def _combine(buf_out, slot, keep, weights, t: int, k: int):
+    """Gather expert outputs back to tokens and mix with routing weights."""
+    d = buf_out.shape[-1]
+    padded = torch.cat([buf_out, buf_out.new_zeros((1, d))], dim=0)
+    safe_slot = torch.where(keep, slot, torch.full_like(slot, buf_out.shape[0]))
+    y = padded[safe_slot]  # (T*K, D)
+    y = y.reshape(t, k, d) * weights[..., None]
+    return torch.sum(y, dim=1)
+
+
+def _moe_local(cfg, router, experts, tokens, *, capacity: int, e_local: int,
+               axis=None):
+    """Per-rank MoE body (runs under local_map with ``axis`` the model
+    axis' process group, or standalone if axis None with e_local ==
+    num_experts)."""
+    t, d = tokens.shape
+    k = cfg.num_experts_per_tok
+    e = cfg.num_experts
+    idx, weights, aux = router_topk(cfg, {"router": router}, tokens)
+    buf, slot, keep = _dispatch(tokens, idx, weights, e, capacity)
+
+    if axis is not None:
+        n = dist.get_world_size(axis)
+        # (E, C, D) -> exchange so each rank holds its local experts'
+        # tokens: row block j of E goes to rank j, and what arrives from
+        # rank i lands as column block i of the capacity axis
+        sent = buf.reshape(e, capacity, d)
+        got = all_to_all_single(torch.empty_like(sent), sent, group=axis)
+        h = got.reshape(n, e_local, capacity, d).transpose(0, 1)
+        y = _expert_ffn(experts, h.reshape(e_local, n * capacity, d))
+        # (E_local, n*C, D): column block j goes back to rank j
+        back = y.reshape(e_local, n, capacity, d).transpose(0, 1).contiguous()
+        y = all_to_all_single(torch.empty_like(back), back, group=axis)
+        y = y.reshape(e * capacity, d)
+    else:
+        y = _expert_ffn(experts, buf.reshape(e, capacity, d)).reshape(e * capacity, d)
+
+    out = _combine(y, slot, keep, weights, t, k)
+    return out, aux
+
+
+def _moe_replicated_body(cfg, router, experts, tokens, *, capacity: int, axis):
+    """Decode path: tokens replicated over the model axis (``axis``, its
+    process group); each rank runs its local experts only.  Returns its
+    partial output, which the caller marks ``Partial`` over the model axis
+    (the reference's psum), and aux."""
+    t, d = tokens.shape
+    k = cfg.num_experts_per_tok
+    e = cfg.num_experts
+    n = dist.get_world_size(axis)
+    e_local = e // n
+    shard = dist.get_rank(axis)
+    idx, weights, aux = router_topk(cfg, {"router": router}, tokens)
+    # mask to experts owned by this rank, re-indexed locally
+    local = (idx // e_local) == shard
+    local_idx = torch.where(local, idx % e_local, torch.full_like(idx, e_local))
+    w_local = torch.where(local, weights, torch.zeros_like(weights))
+    buf, slot, keep = _dispatch(tokens, local_idx, w_local, e_local, capacity)
+    y = _expert_ffn(experts, buf.reshape(e_local, capacity, d)).reshape(-1, d)
+    out = _combine(y, slot, keep, w_local, t, k)
+    return out, aux
+
+
+def _by_axis(rules, *, model, batch):
+    """One placement per mesh dim: ``model`` on the model axis, ``batch``
+    on the batch axes, ``Replicate()`` on any other (where the reference's
+    body sees the same values on every rank)."""
+    return [model if a == rules.model_axis else
+            batch if a in rules.batch_axes else Replicate()
+            for a in rules.mesh.mesh_dim_names]
+
+
+def _run_body(rules, body, p, x, *, in_pls, grad_pls, out_pl, aux_pl):
+    """``body(router, w_gate, w_up, w_down, x)`` under local_map, with the
+    placements ``in_pls`` and gradient placements ``grad_pls`` of those
+    five (plain tensors taken as replicated).  Returns (out in ``out_pl``,
+    aux replicated)."""
+    mesh = rules.mesh
+    ex = p["experts"]
+    args = [shd.as_dtensor(t, mesh) for t in (p["router"], ex["w_gate"],
+                                           ex["w_up"], ex["w_down"], x)]
+    out, aux = shd.local_call(body, args, in_pls, (out_pl, aux_pl), grad_pls)
+    return out, aux.redistribute(placements=[Replicate()] * mesh.ndim)
+
+
+def _moe_decode_tpdata(cfg, rules, p: Params, x):
+    """§Perf decode path: expert FFN width sharded over the DP axes.
+
+    Instead of FSDP-gathering ~GBs of expert weights per layer to process a
+    few hundred tokens, gather the TOKENS (the redistribution of ``x`` to
+    replicated over DP: ~MBs), compute each (expert-shard x FFN-slice)
+    locally, and combine with a sum over the model axis (expert partials)
+    + a reduce-scatter over the DP axes (FFN partials + return each rank
+    its own batch slice): both are the ``Partial`` placements of the
+    body's output."""
+    import math as _math
+
+    mesh, axis = rules.mesh, rules.model_axis
+    batch = rules.batch()
+    n_model = shd.axis_size(mesh, axis)
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    e_local = e // n_model
+    b, s, d = x.shape
+    t_all = b * s
+    capacity = max(int(_math.ceil(t_all * k / e * cfg.capacity_factor)), 4)
+    group = mesh.get_group(axis)
+
+    def body(router, wg, wu, wd, xx):
+        xa = xx.reshape(-1, d)  # every token: replicated over DP
+        idx, weights, aux = router_topk(cfg, {"router": router}, xa)
+        shard = dist.get_rank(group)
+        local = (idx // e_local) == shard
+        local_idx = torch.where(local, idx % e_local,
+                                torch.full_like(idx, e_local))
+        w_local = torch.where(local, weights, torch.zeros_like(weights))
+        buf, slot, keep = _dispatch(xa, local_idx, w_local, e_local, capacity)
+        hbuf = buf.reshape(e_local, capacity, d)
+        g = F.silu(torch.matmul(hbuf, wg))
+        u = torch.matmul(hbuf, wu)
+        y = torch.matmul(g * u, wd).reshape(-1, d)
+        out = _combine(y, slot, keep, w_local, t_all, k)  # (T, D)
+        return out.reshape(xx.shape), aux
+
+    dp = (tuple(rules.batch_axes) if len(rules.batch_axes) > 1
+          else rules.batch_axes[0])
+    # each rank holds partials over its experts and its FFN slice
+    partial = _by_axis(rules, model=Partial(), batch=Partial())
+    replicated = [Replicate()] * mesh.ndim
+    w_in = [shd.placements(spec, mesh) for spec in
+            (shd.P(axis, None, dp), shd.P(axis, None, dp),
+             shd.P(axis, dp, None))]
+    # aux is identical on every DP rank post-gather; the reference pmeans
+    # it over DP when the tokens were sharded there
+    aux_pl = (_by_axis(rules, model=Replicate(), batch=Partial("avg"))
+              if rules.shard_batch else replicated)
+    out, aux = _run_body(rules, body, p, x,
+                         in_pls=[replicated, *w_in, replicated],
+                         grad_pls=[partial, *w_in, partial],
+                         out_pl=partial, aux_pl=aux_pl)
+    return out.redistribute(placements=shd.placements(
+        shd.P(batch, None, None), mesh)), aux
+
+
 def moe_layer(cfg, p: Params, x):
-    """The single-device MoE layer: routed experts plus the shared ones.
-    Returns (out (B,S,D), aux)."""
-    out, aux = moe_dense(cfg, p, x)
+    """Dispatching MoE layer: picks the execution path from the active
+    sharding rules, as the reference does.  Returns (out (B,S,D),
+    aux_loss)."""
+    b, s, d = x.shape
+    rules = shd.current_rules()
+    k = cfg.num_experts_per_tok
+    e = cfg.num_experts
+
+    if (rules is None or rules.mesh is None
+            or shd.axis_size(rules.mesh, rules.model_axis) == 1):
+        out, aux = moe_dense(cfg, p, x)
+    else:
+        mesh = rules.mesh
+        axis = rules.model_axis
+        n = shd.axis_size(mesh, axis)
+        batch = rules.batch()
+        group = mesh.get_group(axis)
+        replicated = [Replicate()] * mesh.ndim
+        experts_in = [shd.placements(shd.P(axis, None, None), mesh)] * 3
+        # gradients of weights the ranks of one DP shard share: partial sums
+        # over the DP axes when each holds its own tokens
+        dp_sum = Partial() if rules.shard_batch else Replicate()
+        if e % n == 0 and s % n == 0 and s > 1:
+            # EP with all_to_all: tokens seq-sharded over the model axis
+            t_loc = (b * s) // (n * math.prod(shd.axis_size(mesh, a)
+                                              for a in rules.batch_axes))
+            capacity = max(_ceil_mult(t_loc * k / e * cfg.capacity_factor, 1), 4)
+
+            def body(router, wg, wu, wd, xx):
+                bb, ss, dd = xx.shape
+                out, aux = _moe_local(
+                    cfg, router, {"w_gate": wg, "w_up": wu, "w_down": wd},
+                    xx.reshape(-1, dd), capacity=capacity, e_local=e // n,
+                    axis=group)
+                return out.reshape(bb, ss, dd), aux
+
+            x_pl = shd.placements(shd.P(batch, axis, None), mesh)
+            experts_grad = _by_axis(rules, model=Shard(0), batch=dp_sum)
+            # aux is per rank; the reference pmeans it over every axis
+            out, aux = _run_body(
+                rules, body, p, x,
+                in_pls=[replicated, *experts_in, x_pl],
+                grad_pls=[_by_axis(rules, model=Partial(), batch=dp_sum),
+                          *[experts_grad] * 3, x_pl],
+                out_pl=x_pl,
+                aux_pl=_by_axis(rules, model=Partial("avg"),
+                                batch=Partial("avg")))
+        elif e % n == 0 and rules.expert_ff_fsdp:
+            from repro_torch.models import perf
+
+            assert perf.current().moe_decode == "tp_data"
+            out, aux = _moe_decode_tpdata(cfg, rules, p, x)
+        elif e % n == 0:
+            # decode: tokens replicated over model, partial sum combine
+            t_loc = (b * s) // math.prod(shd.axis_size(mesh, a)
+                                         for a in rules.batch_axes)
+            capacity = max(_ceil_mult(t_loc * k / e * cfg.capacity_factor, 1), 4)
+
+            def body(router, wg, wu, wd, xx):
+                bb, ss, dd = xx.shape
+                out, aux = _moe_replicated_body(
+                    cfg, router, {"w_gate": wg, "w_up": wu, "w_down": wd},
+                    xx.reshape(-1, dd), capacity=capacity, axis=group)
+                return out.reshape(bb, ss, dd), aux
+
+            x_pl = shd.placements(shd.P(batch, None, None), mesh)
+            # the partial sums over the model axis: the reference's psum
+            out_pl = [Partial() if a == axis else pl
+                      for a, pl in zip(mesh.mesh_dim_names, x_pl)]
+            experts_grad = _by_axis(rules, model=Shard(0), batch=dp_sum)
+            # aux is computed on model-replicated tokens: it only varies
+            # over the DP axes, so average over those alone
+            out, aux = _run_body(
+                rules, body, p, x,
+                in_pls=[replicated, *experts_in, x_pl],
+                grad_pls=[_by_axis(rules, model=Partial(), batch=dp_sum),
+                          *[experts_grad] * 3, out_pl],
+                out_pl=out_pl,
+                aux_pl=_by_axis(rules, model=Replicate(),
+                                batch=Partial("avg") if rules.shard_batch
+                                else Replicate()))
+            out = out.redistribute(placements=x_pl)
+        else:
+            out, aux = moe_dense(cfg, p, x)
+
     if "shared" in p:
         out = out + mlp(cfg, p["shared"], x)
-    return out, aux
+    return shd.shard_hidden(out), aux
+
+
+def _ceil_mult(x: float, m: int) -> int:
+    return int(math.ceil(x / m) * m)

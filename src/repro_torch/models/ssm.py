@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.ssd_scan import ssd_intra, ssd_slab_decode
 from repro_torch.models.layers import Params, dense_init, rms_norm
 
@@ -167,7 +168,7 @@ def mamba2_block(cfg, p: Params, x, *, layer_cache=None):
         xs, B, C = _split_xbc(cfg, xBC)
         y, _ = ssd_chunked(xs, dt, A, B, C, chunk=_chunk(s))
         y = y + xs * p["ssm_D"].to(xs.dtype)[:, None]
-        return _gate_out(cfg, p, y.reshape(b, s, d_in), z), None
+        return shd.shard_hidden(_gate_out(cfg, p, y.reshape(b, s, d_in), z)), None
 
     paged = len(layer_cache) == 4
     if paged:
@@ -192,7 +193,7 @@ def mamba2_block(cfg, p: Params, x, *, layer_cache=None):
         conv_cache.copy_(win[:, 1:])
         new_cache = (conv_cache, state)
     y = y + xs * p["ssm_D"].to(xs.dtype)[:, None]
-    return _gate_out(cfg, p, y.reshape(b, 1, d_in), z), new_cache
+    return shd.shard_hidden(_gate_out(cfg, p, y.reshape(b, 1, d_in), z)), new_cache
 
 
 def prefill_mamba_cache(cfg, p: Params, x, *, lengths=None):
@@ -228,4 +229,4 @@ def prefill_mamba_cache(cfg, p: Params, x, *, lengths=None):
         padded = F.pad(xBC_raw, (0, 0, w - 1, 0))
         idx = lengths.long()[:, None] + torch.arange(w - 1, device=x.device)
         conv_cache = padded[torch.arange(b, device=x.device)[:, None], idx]
-    return out, (conv_cache, final)
+    return shd.shard_hidden(out), (conv_cache, final)

@@ -47,9 +47,11 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import Replicate
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MoE
 from repro_torch.models import ssm as S
@@ -347,8 +349,38 @@ def paged_pool_kinds(cfg) -> dict[str, str]:
 # --------------------------------------------------------------------------
 
 
+def _shard_cache(cfg, cache):
+    """The reference's cache shard point: stacked (L, B, S, ...) leaves
+    shard batch + sequence (identity without rules, and on plain
+    tensors)."""
+    if _mixer_kind(cfg) == "mamba":
+        return cache  # state caches: small, head-sharded via params
+
+    def f(x):
+        return (shd.shard_cache_seq(x, batch_axis=1, seq_axis=2)
+                if x.ndim >= 3 else x)
+
+    cache = dict(cache)
+    cache["layers"] = tuple(f(x) for x in cache["layers"])
+    return cache
+
+
 def embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens.long()]
+    """The rows of ``embed`` at ``tokens``.  On DTensors the gather runs
+    under ``local_map`` on each rank's tokens against the whole table
+    (DTensor's rule for its backward, an accumulating ``index_put``, is
+    missing or broken in some releases); the table's gradient is the
+    ranks' partial sums."""
+    table = params["embed"]
+    mesh = shd.mesh_of(table, tokens)
+    if mesh is None:
+        return table[tokens.long()]
+    tokens = shd.as_dtensor(tokens, mesh)
+    rows = list(tokens.placements)
+    return shd.local_call(
+        lambda t, ids: t[ids.long()], (shd.as_dtensor(table, mesh), tokens),
+        ([Replicate()] * mesh.ndim, rows), rows,
+        (shd.partial_where_sharded(rows), rows))
 
 
 class _LogitsGemm(torch.autograd.Function):
@@ -376,8 +408,23 @@ def unembed(cfg, params, x):
     does -- no fp32 copy of the table -- and so does one on the meta
     device, where static pricing follows the card's path; under grad it
     goes through :class:`_LogitsGemm`.  CPU tensors (no such kernel there)
-    and fp32 cast to fp32 first, the same arithmetic."""
+    and fp32 cast to fp32 first, the same arithmetic.  On DTensors that
+    GEMM (which DTensor has no rule for) runs under ``local_map`` on the
+    local rows against the whole table."""
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return shd.shard_logits(_logits(x, table))
+
+
+def _logits(x, table):
+    mesh = shd.mesh_of(x, table)
+    if (mesh is not None and x.device.type != "cpu"
+            and x.dtype != torch.float32):
+        x = shd.as_dtensor(x, mesh)
+        pl = shd.row_placements(x)
+        return shd.local_call(
+            _logits, (x, shd.as_dtensor(table, mesh)),
+            (pl, [Replicate()] * mesh.ndim), pl,
+            (pl, shd.partial_where_sharded(pl)))
     if x.device.type != "cpu" and x.dtype != torch.float32:
         b, s, d = x.shape
         x2 = x.reshape(b * s, d)
@@ -402,6 +449,7 @@ def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
         x = batch["embeds"]
     else:
         x = embed_tokens(cfg, params, batch["tokens"])
+    x = shd.shard_hidden(x)
     b, s, _ = x.shape
 
     if mode == "decode":
@@ -474,13 +522,15 @@ def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,
             out_cache["first_layers"] = first
         if mamba:  # constant-size state: no sequence axis to pad
             return logits, out_cache, aux_total
-        return logits, _pad_prefill_cache(cfg, out_cache,
-                                          batch.get("max_seq", s)), aux_total
+        return logits, _shard_cache(cfg, _pad_prefill_cache(
+            cfg, out_cache, batch.get("max_seq", s))), aux_total
     out_cache = {"layers": cache["layers"], "pos": cache["pos"] + 1}
     for key in ("first_layers", "block_tables", "slab_ids"):
         if key in cache:
             out_cache[key] = cache[key]
-    return logits, out_cache, aux_total
+    if paged:  # pools are not (L,B,S,...)-shaped; sharding rules don't apply
+        return logits, out_cache, aux_total
+    return logits, _shard_cache(cfg, out_cache), aux_total
 
 
 def pad_seq(x, axis: int, max_seq: int):

@@ -7,13 +7,19 @@ the source's): ``plan_after_failure`` and ``degraded_throughput_fraction``
 (the data axis that survives a failure), ``LoadTrajectory`` and
 ``ElasticPoolController`` (``ServeEngine.add_server`` / ``remove_server``
 toward a target pool size mid-traffic, with live cache migration).
-``MeshPlan`` keeps its fields; building a device mesh from it waits for
-the distributed slice of the port (ROADMAP A11.5).
+``MeshPlan`` keeps its fields; ``build`` lays its shape over ranks of the
+current process group as a ``DeviceMesh`` (``checkpoint.restore`` takes
+shardings on it, so a restore onto the shrunk mesh is the same path).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 
 @dataclass(frozen=True)
@@ -23,8 +29,17 @@ class MeshPlan:
     devices_used: int
 
     def build(self, devices=None):
-        raise NotImplementedError(
-            "building a device mesh is not ported yet (ROADMAP A11.5)")
+        """A ``DeviceMesh`` of ``shape`` and ``axes`` over ``devices`` (the
+        global ranks to use, in order; default the first ones of the
+        process group), on ``cuda`` under NCCL and ``cpu`` under gloo."""
+        n = math.prod(self.shape)
+        ranks = list(devices) if devices is not None else list(range(n))
+        if len(ranks) < n:
+            raise ValueError(f"mesh {self.shape} needs {n} ranks, got "
+                             f"{len(ranks)}")
+        kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        return DeviceMesh(kind, torch.tensor(ranks[:n]).reshape(self.shape),
+                          mesh_dim_names=self.axes)
 
 
 def plan_after_failure(total_devices: int, *, model: int, global_batch: int,

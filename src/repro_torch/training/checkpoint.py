@@ -14,7 +14,12 @@ a checkpoint written by either package restores into the other's tree.
 The manifest's ``treedef`` (JAX's serialized tree structure) is null, as
 the reference writes it when JAX cannot serialize one; neither package's
 ``restore`` reads it.  ``restore`` places each leaf on its target tensor's
-device and dtype; resharding onto a mesh waits for ROADMAP A11.5.
+device and dtype, or, given ``shardings`` (a tree of
+``sharding.NamedSharding``: a mesh and placements), distributes it onto
+that mesh (``distribute_tensor``) -- restoring onto a *different* mesh
+(elastic rescale) is the same code path.  A tree of DTensors is saved
+whole: every rank gathers each leaf, rank 0 writes, and the ranks meet at
+a barrier before ``save`` returns.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.training.tree import leaves as _leaves
 from repro_torch.training.tree import unflatten
@@ -49,6 +56,20 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
 
 
 def save(root: str | pathlib.Path, step: int, tree, *, keep_last: int = 3) -> str:
+    leaves = _leaves(tree)
+    if any(isinstance(t, DTensor) for t in leaves):
+        # every rank gathers (a collective); rank 0 writes
+        whole = [t.full_tensor() if isinstance(t, DTensor) else t
+                 for t in leaves]
+        path = (_write(root, step, whole, keep_last)
+                if dist.get_rank() == 0 else
+                str(pathlib.Path(root) / f"step_{step:08d}"))
+        dist.barrier()
+        return path
+    return _write(root, step, leaves, keep_last)
+
+
+def _write(root, step: int, leaves: list, keep_last: int) -> str:
     root = pathlib.Path(root)
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:08d}"
@@ -57,7 +78,6 @@ def save(root: str | pathlib.Path, step: int, tree, *, keep_last: int = 3) -> st
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
 
-    leaves = _leaves(tree)
     meta = {"step": step, "treedef": None, "num_leaves": len(leaves),
             "leaves": []}
     for i, leaf in enumerate(leaves):
@@ -113,10 +133,10 @@ def _to_tensor(arr: np.ndarray, true_dtype: str) -> torch.Tensor:
 def restore(root: str | pathlib.Path, tree_like, *, step: int | None = None,
             shardings=None):
     """Restore into the structure of ``tree_like``: each leaf takes its
-    target tensor's dtype and device.  Returns (tree, step)."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto a device mesh is not "
-                                  "ported yet (ROADMAP A11.5)")
+    target tensor's dtype and device, or with ``shardings`` (a tree of the
+    same structure whose leaves have ``mesh`` and ``placements``, as
+    ``sharding.named`` gives them) becomes a DTensor on that mesh.
+    Returns (tree, step)."""
     root = pathlib.Path(root)
     if step is None:
         step = latest_step(root)
@@ -129,13 +149,28 @@ def restore(root: str | pathlib.Path, tree_like, *, step: int | None = None,
     if meta["num_leaves"] != len(leaves_like):
         raise ValueError(
             f"checkpoint has {meta['num_leaves']} leaves, target {len(leaves_like)}")
+    shard_leaves = (_sharding_leaves(shardings) if shardings is not None
+                    else [None] * len(leaves_like))
 
     out = []
-    for i, like in enumerate(leaves_like):
+    for i, (like, shard) in enumerate(zip(leaves_like, shard_leaves)):
         arr = np.load(d / f"arr_{i}.npy", allow_pickle=False)
         want_shape = tuple(like.shape)
         if tuple(arr.shape) != want_shape:
             raise ValueError(f"leaf {i}: checkpoint {arr.shape} vs target {want_shape}")
         t = _to_tensor(arr, meta["leaves"][i]["dtype"])
-        out.append(t.to(device=like.device, dtype=like.dtype))
+        if shard is not None:
+            t = t.to(device=shard.mesh.device_type, dtype=like.dtype)
+            out.append(distribute_tensor(t, shard.mesh, shard.placements))
+        else:
+            out.append(t.to(device=like.device, dtype=like.dtype))
     return unflatten(tree_like, out), step
+
+
+def _sharding_leaves(tree) -> list:
+    """The shardings of ``tree`` in leaf order (a sharding is a leaf)."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _sharding_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for v in tree for s in _sharding_leaves(v)]
+    return [tree]

@@ -1,4 +1,5 @@
-"""Train-step assembly: loss + remat + AdamW, on one device.
+"""Train-step assembly: loss + remat + AdamW, on one device or sharded
+over a device mesh.
 
 Counterpart of ``repro/training/train_step.py``.  ``build_train_step``
 returns a function
@@ -7,20 +8,36 @@ returns a function
 
 that runs forward and backward (``torch.autograd.grad`` over the params'
 leaves) and the AdamW update, which writes params and state in place.
-PyTorch runs eagerly: there is no jit to build and nothing to donate.
-Sharded steps over a device mesh wait for the distributed slice of the
-port (ROADMAP A11.5): ``build_train_step`` refuses a mesh, and the
-reference's ``batch_specs`` and ``_opt_specs`` come with it, and so
-does its ``compress_dp_grads`` setting (``grad_compress``, ROADMAP
-A11.2b), which its step does not read either.
+PyTorch runs eagerly: there is no jit to build, and nothing to donate
+(the update is in place already).
+
+With rules that hold a mesh (a ``DeviceMesh``), the step is the
+reference's sharded one: params and AdamW state are DTensors laid out by
+``named(param_specs(...))`` and ``_opt_specs`` (plain trees passed in are
+distributed on entry, as the reference's ``in_shardings`` place them),
+the batch by :func:`batch_specs`, and the step runs under ``use_rules``,
+so the models' shard points redistribute the activations and the kernel
+wrappers run on local shards.  Plain tensors the step makes (positions,
+masks, scalars) join DTensor ops as replicated
+(``implicit_replication``).  Metrics come back as plain replicated
+scalars.  Where DTensor has no sharding rule for an op, that op takes a
+gathered layout (see ``distributed.sharding``: ``whole_rows`` at the
+cross-entropy's gold gather, the whole table under the bf16 logits GEMM).
+The reference's ``compress_dp_grads`` setting is not read by its step
+either; ``training.grad_compress`` is the DP reduction it names.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-import torch
+import math
 
+import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import model as M
 from repro_torch.models.transformer import REMAT_POLICIES  # noqa: F401
 from repro_torch.training import optimizer as opt
@@ -80,8 +97,7 @@ def accumulated_value_and_grad(loss_fn, params, batch, n: int):
     microbatches' gradients summed in fp32 and their losses summed, each
     divided by ``n`` (the reference's ``grad_accum`` scan)."""
     micro = _split_microbatches(batch, n)
-    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for p in leaves(params)]
+    gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves(params)]
     lsum = 0.0
     for i in range(n):
         mb = {k: v[i] if hasattr(v, "ndim") else v for k, v in micro.items()}
@@ -110,11 +126,70 @@ def train_step_fn(cfg, settings: TrainSettings):
     return step
 
 
-def build_train_step(cfg, settings: TrainSettings, rules=None):
-    """The step on one device.  ``rules`` with a mesh (the reference's
-    sharded, donating jit) raises ``NotImplementedError``."""
-    if rules is not None and getattr(rules, "mesh", None) is not None:
-        raise NotImplementedError(
-            "sharded train steps over a device mesh are not ported yet "
-            "(ROADMAP A11.5)")
-    return train_step_fn(cfg, settings)
+def batch_specs(cfg, batch_shapes, rules: shd.ShardingRules):
+    """PartitionSpec tree for a train/serve batch: batch dim over DP axes
+    (left unsharded when the batch doesn't divide them, e.g. long_500k's
+    global_batch=1)."""
+    n_dp = math.prod(shd.axis_size(rules.mesh, a) for a in rules.batch_axes) \
+        if rules.mesh is not None else 1
+
+    def b_for(size: int):
+        return rules.batch() if size % max(n_dp, 1) == 0 else None
+
+    def spec(name, leaf):
+        if name == "mrope_positions":  # (3, B, S)
+            return shd.P(None, b_for(leaf.shape[1]), None)
+        if name in ("frames", "embeds"):  # (B, T, D)
+            return shd.P(b_for(leaf.shape[0]), None, None)
+        if leaf.ndim >= 1:
+            return shd.P(b_for(leaf.shape[0]), *([None] * (leaf.ndim - 1)))
+        return shd.P()
+
+    return {k: spec(k, v) for k, v in batch_shapes.items()
+            if hasattr(v, "ndim")}
+
+
+def build_train_step(cfg, settings: TrainSettings, rules=None,
+                     batch_shapes=None):
+    """The step on one device, or with ``rules.mesh`` the sharded step
+    (``batch_shapes`` is accepted for the reference's signature: the
+    batch's specs come from each batch itself)."""
+    step = train_step_fn(cfg, settings)
+    if rules is None or getattr(rules, "mesh", None) is None:
+        return step
+
+    mesh = rules.mesh
+
+    def place(tree, specs):
+        """Plain leaves distributed by their specs; DTensors as they are."""
+        flat = leaves(tree)
+        if all(isinstance(t, DTensor) for t in flat):
+            return tree
+        return shd.distribute(tree, specs, rules)
+
+    def wrapped(params, opt_state, batch):
+        pspecs = shd.param_specs(params, rules)
+        params = place(params, pspecs)
+        opt_state = place(opt_state, _opt_specs(opt_state, pspecs))
+        bspecs = batch_specs(cfg, batch, rules)
+        batch = {k: (shd.distribute(v, bspecs[k], rules) if k in bspecs
+                     and not isinstance(v, DTensor) else v)
+                 for k, v in batch.items()}
+        with shd.use_rules(rules), implicit_replication():
+            params, opt_state, metrics = step(params, opt_state, batch)
+        # replicated scalars, as the reference's out sharding None
+        metrics = {k: shd.to_full(v) for k, v in metrics.items()}
+        return params, opt_state, metrics
+
+    return wrapped
+
+
+def _opt_specs(opt_shape, pspecs):
+    """Optimizer-state specs mirror the param specs leaf-for-leaf."""
+    out = {}
+    for k, sub in opt_shape.items():
+        if k == "step":
+            out[k] = shd.P()
+        else:
+            out[k] = pspecs
+    return out

@@ -162,10 +162,17 @@ class TestManager:
         assert ckpt.latest_step(tmp_path) == 4
 
     def test_restore_onto_a_mesh_is_refused(self, tmp_path):
+        """``shardings`` place each leaf with ``distribute_tensor`` on its
+        mesh; a None sharding leaves the leaf on its target's device (the
+        restore onto a mesh of gloo ranks is in
+        tests/test_torch_distributed.py)."""
         mgr = CheckpointManager(str(tmp_path), interval=1)
-        mgr.save(1, {"a": torch.ones(2)})
-        with pytest.raises(NotImplementedError, match="A11.5"):
-            mgr.restore_latest({"a": torch.ones(2)}, shardings={"a": None})
+        mgr.save(1, {"a": torch.ones(2), "b": torch.arange(3)})
+        got, step = mgr.restore_latest(
+            {"a": torch.zeros(2), "b": torch.zeros(3, dtype=torch.int64)},
+            shardings={"a": None, "b": None})
+        assert step == 1 and torch.equal(got["a"], torch.ones(2))
+        assert torch.equal(got["b"], torch.arange(3))
 
 
 def test_supervisor_recovers_the_latest_checkpoint(tmp_path):

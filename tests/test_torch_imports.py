@@ -30,7 +30,8 @@ COPIES = (
     + ["runtime/straggler.py", "runtime/faultinject.py", "serving/kvcache.py",
        "analysis/cost_model.py", "analysis/roofline.py",
        "analysis/hlo_cost.py", "core/mpcp_analysis.py",
-       "core/fmlp_analysis.py", "core/simulator.py", "data/pipeline.py"]
+       "core/fmlp_analysis.py", "core/simulator.py", "data/pipeline.py",
+       "models/perf.py"]
     + [f"scenarios/{m}.py" for m in ("registry", "arrivals", "etm",
                                      "overheads", "schedulers", "protocols",
                                      "lp_alloc", "scenario", "matrix",

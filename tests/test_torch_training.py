@@ -169,15 +169,42 @@ class TestTrainStep:
         _assert_tree_close(tp, jp, lr)
         assert int(tstate["step"]) == 3
 
-    def test_mesh_is_refused(self, tiny):
-        _, tcfg, _ = tiny
+    def test_mesh_is_refused(self, tiny, tmp_path):
+        """Rules with a mesh build the sharded step: on the (1, 1) mesh of
+        a one-rank gloo group in this process, params and AdamW state
+        become DTensors and three steps equal the plain step's bit for bit
+        (a mesh of several ranks is held by
+        tests/test_torch_distributed.py)."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
 
-        class Rules:
-            mesh = object()
+        from repro_torch.launch.mesh import make_debug_mesh, make_rules
 
-        with pytest.raises(NotImplementedError, match="A11.5"):
-            ts.build_train_step(tcfg, ts.TrainSettings(), Rules())
-        assert callable(ts.build_train_step(tcfg, ts.TrainSettings(), None))
+        _, tcfg, jp = tiny
+        tset = ts.TrainSettings(adamw=opt.AdamWConfig(lr=1e-3,
+                                                      warmup_steps=0))
+        plain = ts.build_train_step(tcfg, tset, ts.shd.ShardingRules())
+        dist.init_process_group("gloo", world_size=1, rank=0,
+                                store=dist.FileStore(str(tmp_path / "s"), 1))
+        try:
+            sharded = ts.build_train_step(
+                tcfg, tset, make_rules(make_debug_mesh(1, shape=(1, 1))))
+            runs = []
+            for step in (plain, sharded):
+                tp = _bridge(jp)
+                state = opt.init(tp, tset.adamw)
+                losses = []
+                for i in range(3):
+                    tp, state, m = step(tp, state, _t(_np_batch(tcfg, step=i)))
+                    losses.append(float(m["loss"]))
+                runs.append((losses, tp, state))
+        finally:
+            dist.destroy_process_group()
+        (lp, pp, _), (ls, ps, ss) = runs
+        assert ls == lp
+        assert all(isinstance(t, DTensor) for t in leaves(ps) + leaves(ss))
+        for a, b in zip(leaves(ps), leaves(pp)):
+            assert torch.equal(a.full_tensor(), b)
 
     def test_split_microbatches_against_jax(self):
         rng = np.random.default_rng(3)
