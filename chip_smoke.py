@@ -97,9 +97,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    fit, and the cut is printed);
 5c. MLA + MoE path, bf16: the same traffic at full depth, timed, and a
    profile of one 4-row paged decode step;
-4d. hybrid path, fp32: full-width zamba2-7b (all 81 layers: 13 groups of
-   5 Mamba-2 layers + the shared attention block, then 3 Mamba-2 layers)
-   served the same way, each decode call staging the shared block's KV
+4d. hybrid path, fp32: full-width zamba2-7b cut to 27 of its 81 layers
+   (4 groups of 5 Mamba-2 layers + the shared attention block, then 3
+   Mamba-2 layers: every layer kind) served the same way, each decode call staging the shared block's KV
    block pools and the Mamba-2 state slabs: greedy tokens equal unbatched
    ``generate``'s, both servers used, no block and no slab leaked, decode
    calls recorded as ``decode@hybrid``, peak device memory printed;
@@ -159,7 +159,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
        every masked step; internlm2-1.8b bf16 beside phase 5's paged run
        on the same traffic (client step p50/p99, tokens/s, decode
        launches per call);
-8. launch counts of every kernel over phases 4-7, 10 and 11 (each must be
+8. launch counts of every kernel over phases 4-7 and 10-12 (each must be
    non-zero), then one JSON line describing every kernel;
 9. static cell pricing (``ServeEngine.static_cell_costs``, on meta twins
    of the weights and pools: it launches nothing, so phase 8's counts do
@@ -247,7 +247,30 @@ and prints its peak device memory.
        decisions; ``serve.main([])`` in-process launches flash_attention,
        decode_attention and rmsnorm with every plain version refusing CUDA
        tensors;
-12. last line: ``{"ok": true, "device": {...}}``.
+12. the sharded prefill and decode steps (``launch/steps.py``) on the
+   same (1, 1) mesh, every plain version refusing CUDA tensors, and the
+   dry run (``launch/dryrun.py``):
+   12a. full-width internlm2-1.8b cut to 2 layers, fp32, ``build_prefill``
+       of 2 x 128 and 8 ``build_decode`` steps against the unsharded
+       ``model.apply`` from the same weights: every logit and the final
+       cache bit for bit; then full-width, full-depth bf16, a prefill of
+       4 x 2048 (max_seq 4096) and 16 decode steps, sharded and plain:
+       prefill ms, decode ms p50, tokens/s, peak memory and greedy tokens
+       of each (the gap is DTensor's host overhead), flash_attention,
+       decode_attention and rmsnorm launched;
+   12b. full-width mamba2-780m under ``perf.VARIANTS`` opt_ssm_q128 and
+       opt_ssm_q64 (the split projections cut from the fused weights):
+       fp32 at 2 layers, the logits at chunks of 128 and 64 within 1e-4
+       of the baseline's (chunk 256) max |logit|; bf16 at 48 layers, a
+       prefill of 4 x 2048 and 8 decode steps of each variant and the
+       baseline, greedy tokens side by side, ssd_intra and
+       ssd_slab_decode launched (phase 3 checks ``ssd_intra`` at chunks
+       of 128 and 64 and times it over 4 x 2048 tokens at 256, 128, 64);
+   12c. ``python -m repro_torch.launch.dryrun`` in three subprocesses at
+       once with no card visible: internlm2-1.8b train_4k and mamba2-780m
+       prefill_32k (opt_ssm_q128) single pod, qwen3-moe-235b decode_32k
+       multi-pod, each ok, this process's device memory unmoved;
+13. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-from TREE
 
@@ -1073,9 +1096,9 @@ class KernelChecks:
             f"{n} {x:.0f}x" for x, n in rest))
 
     # -- the SSD kernels at mamba2-780m widths ------------------------------
-    def ssd_views(self, cfg, rows, s, dtype):
+    def ssd_views(self, cfg, rows, s, dtype, chunk: int = 256):
         """The model's views for one prefill of ``rows`` x ``s`` tokens in
-        chunks of min(256, s): x (M,H,Q,P) and B/C (M,Q,N) cut from an
+        chunks of min(chunk, s): x (M,H,Q,P) and B/C (M,Q,N) cut from an
         (rows, s, conv_dim) activation, dt/dA (M,H,Q) permuted from
         (rows, s, H) fp32.  dA lies on a grid of 2**-10 so that cumsum(dA)
         is exact in any order: the kernel sums it sequentially, the plain
@@ -1084,7 +1107,7 @@ class KernelChecks:
         from repro_torch.models.ssm import conv_dim
 
         h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state_dim
-        q = min(256, s)
+        q = min(chunk, s)
         m = rows * (s // q)
         xbc = self.randn(rows, s, conv_dim(cfg), dtype=dtype)
         dt = torch.nn.functional.softplus(self.randn(rows, s, h))
@@ -1129,7 +1152,35 @@ class KernelChecks:
                             self.check("ssd_intra", f"N=64 M={rows} Q={s} "
                                        "state", st, st_want, dt))
                     self.errors["ssd_intra"] = max(self.errors["ssd_intra"], e)
+            # the chunks of perf flag ssd_chunk (phase 12b): two rows of 512
+            for q in (128, 64):
+                args = self.ssd_views(cfg, 2, 512, dt, chunk=q)
+                y, st = ssd_intra(*args)
+                y_want, st_want = ssd_intra_plain(*args)
+                m = args[0].shape[0]
+                e = max(self.check("ssd_intra", f"M={m} Q={q} y", y, y_want,
+                                   dt),
+                        self.check("ssd_intra", f"M={m} Q={q} state", st,
+                                   st_want, dt))
+                self.errors["ssd_intra"] = max(self.errors["ssd_intra"], e)
         self.time_ssm(cfg)
+        self.time_ssd_chunks(cfg)
+
+    def time_ssd_chunks(self, cfg):
+        """ssd_intra's device ms per call in bf16 over one layer of phase
+        12b's prefill (STEPS_SHAPE's 4 x 2048 tokens) at chunks of 256, 128
+        and 64: the same tokens in 32, 64 and 128 chunks."""
+        from repro_torch.kernels.ssd_scan import ssd_intra
+
+        b, s, _ = STEPS_SHAPE
+        h, p, n = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state_dim
+        for q in (256, 128, 64):
+            args = self.ssd_views(cfg, b, s, torch.bfloat16, chunk=q)
+            ms = device_ms(lambda: ssd_intra(*args))
+            m = args[0].shape[0]
+            print(f"time ssd_intra [x ({m},{h},{q},{p}), B/C ({m},{q},{n}): "
+                  f"{b} x {s} tokens in chunks of {q}] bf16: device {ms:.4f} "
+                  f"ms per call ({ms / (b * s) * 1e6:.3f} ns per token)")
 
     def check_ssd(self, cfg, dt):
         """The SSD kernels at ``cfg``'s SSM widths: ``ssd_intra`` on prefill
@@ -2198,13 +2249,20 @@ def mla_path(dev, card):
     return counts
 
 
+# 4d-5d: zamba2-7b's serving depth, cut from 81 to keep the smoke under
+# 1000 s of its 1200 s: 4 groups of 5 Mamba-2 layers and the shared block,
+# then the 3 tail layers -- every layer kind of the full stack
+HYBRID_SERVE_LAYERS = 27
+
+
 def hybrid_path(dev, card):
-    """Phases 4d-5d: zamba2-7b at all 81 layers through the shared block's
-    KV block pools and the Mamba-2 state slabs in one decode call; returns
-    the launch counts."""
+    """Phases 4d-5d: zamba2-7b at HYBRID_SERVE_LAYERS layers through the
+    shared block's KV block pools and the Mamba-2 state slabs in one
+    decode call; returns the launch counts."""
     from repro_torch.configs.registry import get_config
 
-    base = get_config("zamba2_7b")
+    base = dataclasses.replace(get_config("zamba2_7b"),
+                               num_layers=HYBRID_SERVE_LAYERS)
     prompts = _prompts(base.vocab_size)
     counts = fp32_phase("hybrid fp32",
                         dataclasses.replace(base, dtype="float32"), prompts,
@@ -4165,6 +4223,347 @@ def distributed_path(dev, card) -> Counter:
     return launches
 
 
+STEPS_ARCH = "internlm2_1_8b"
+STEPS_PARITY_LAYERS = 2    # 12a fp32: depth of the step-vs-apply parity
+STEPS_PARITY_SHAPE = (2, 128, 256)   # 12a fp32: batch, prompt, max_seq
+STEPS_PARITY_DECODE = 8    # 12a fp32: decode steps
+STEPS_SHAPE = (4, 2048, 4096)        # 12a bf16 / 12b: batch, prompt, max_seq
+STEPS_DECODE = 16          # 12a bf16: decode steps
+SSM_STEPS_ARCH = "mamba2_780m"
+SSM_STEPS_VARIANTS = ("opt_ssm_q128", "opt_ssm_q64")
+SSM_STEPS_DECODE = 8       # 12b: decode steps
+SSM_PARITY_TOL = 1e-4      # 12b fp32: logits at Q 128 / 64 vs 256, of max |.|
+DRYRUN_CELLS = (("internlm2_1_8b", "train_4k"),
+                ("mamba2_780m", "prefill_32k", "--variant", "opt_ssm_q128"),
+                ("qwen3_moe_235b_a22b", "decode_32k", "--multi-pod"))
+DRYRUN_TIMEOUT_S = 300     # 12c: each dry-run subprocess
+
+
+def step_tokens(cfg, batch, seq, seed, dev):
+    g = np.random.default_rng([SEED, seed])
+    return torch.from_numpy(g.integers(0, cfg.vocab_size, (batch, seq),
+                                       dtype=np.int32)).to(dev)
+
+
+def sharded_steps(cfg, rules, params, prompt, max_seq, decode_tokens):
+    """``build_prefill`` then ``build_decode`` over ``rules``' mesh, params
+    placed once: returns (logits of each call as plain tensors, the final
+    cache's leaves, the prefill's seconds, each decode step's seconds)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.training.tree import leaves
+
+    b = prompt.shape[0]
+    pf = steps.build_prefill(cfg, rules, max_seq=max_seq, batch=b,
+                             batch_shapes={"tokens": prompt})
+    placed = shd.distribute(params, pf.specs["params"], rules)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pf(placed, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    out = [shd.to_full(logits)]
+    dec = steps.build_decode(cfg, rules, max_seq=max_seq, batch=b,
+                             batch_shapes={"tokens": decode_tokens[0]},
+                             cache_shapes=cache)
+    t_dec = []
+    for tok in decode_tokens:
+        t0 = time.perf_counter()
+        logits, cache = dec(placed, {"tokens": tok}, cache)
+        torch.cuda.synchronize()
+        t_dec.append(time.perf_counter() - t0)
+        out.append(shd.to_full(logits))
+    return out, [shd.to_full(t) for t in leaves(cache)], t_prefill, t_dec
+
+
+def plain_steps(cfg, params, prompt, max_seq, decode_tokens):
+    """:func:`sharded_steps` through the unsharded ``model.apply``."""
+    from repro_torch.models import model as M
+    from repro_torch.training.tree import leaves
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, _ = M.apply(cfg, params, {"tokens": prompt,
+                                             "max_seq": max_seq},
+                               mode="prefill")
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    out, t_dec = [logits], []
+    for tok in decode_tokens:
+        t0 = time.perf_counter()
+        logits, cache, _ = M.apply(cfg, params, {"tokens": tok},
+                                   mode="decode", cache=cache)
+        torch.cuda.synchronize()
+        t_dec.append(time.perf_counter() - t0)
+        out.append(logits)
+    return out, list(leaves(cache)), t_prefill, t_dec
+
+
+def steps_parity(mesh, dev, card) -> Counter:
+    """12a in fp32: full-width internlm2-1.8b cut to STEPS_PARITY_LAYERS
+    layers, ``build_prefill`` and STEPS_PARITY_DECODE ``build_decode``
+    steps on the (1, 1) mesh against the unsharded ``model.apply`` from the
+    same weights: every logit and the final cache bit for bit.  Returns
+    the sharded run's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_rules
+
+    cfg = dataclasses.replace(get_config(STEPS_ARCH),
+                              num_layers=STEPS_PARITY_LAYERS, dtype="float32")
+    b, s, max_seq = STEPS_PARITY_SHAPE
+    params = init_params(cfg, dev, f"steps 12a {cfg.name}")
+    prompt = step_tokens(cfg, b, s, 0, dev)
+    toks = [step_tokens(cfg, b, 1, 1 + i, dev)
+            for i in range(STEPS_PARITY_DECODE)]
+    with torch.inference_mode():
+        _build.reset_launches()
+        got, cache, _, _ = sharded_steps(cfg, make_rules(mesh), params,
+                                         prompt, max_seq, toks)
+        launches = Counter(_build.launches)
+        want, ref_cache, _, _ = plain_steps(cfg, params, prompt, max_seq, toks)
+    same = (all(torch.equal(a, b) for a, b in zip(got, want))
+            and len(cache) == len(ref_cache)
+            and all(torch.equal(a, b) for a, b in zip(cache, ref_cache)))
+    gap = max((a - b).abs().max().item() for a, b in zip(got, want))
+    tag = f"steps 12a {cfg.name} [{card}]"
+    print(f"{tag}: fp32, {cfg.num_layers} layers, prefill {b} x {s} "
+          f"(max_seq {max_seq}) + {len(toks)} decode steps through "
+          f"build_prefill / build_decode on the (1, 1) mesh vs model.apply: "
+          f"logits and cache bit for bit: {same} (max |gap| {gap:.2e}); "
+          f"launches {dict(launches)}")
+    if not same:
+        raise SmokeFailure(f"{tag}: the sharded steps differ from apply")
+    return launches
+
+
+def steps_bf16(mesh, dev, card) -> Counter:
+    """12a in bf16: full-width, full-depth internlm2-1.8b, a prefill of
+    STEPS_SHAPE and STEPS_DECODE decode steps through the sharded steps
+    and through ``model.apply``: finite logits, the greedy tokens of
+    both, prefill ms and decode ms p50 of each (their gap is DTensor's
+    overhead), tokens/s, peak memory and the sharded run's launches,
+    which must hold flash_attention, decode_attention and rmsnorm."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_rules
+
+    cfg = get_config(STEPS_ARCH)
+    b, s, max_seq = STEPS_SHAPE
+    params = init_params(cfg, dev, f"steps 12a {cfg.name}")
+    prompt = step_tokens(cfg, b, s, 0, dev)
+    toks = [step_tokens(cfg, b, 1, 1 + i, dev) for i in range(STEPS_DECODE)]
+    tag = f"steps 12a {cfg.name} [{card}]"
+    res = {}
+    with torch.inference_mode():
+        for name in ("plain", "sharded"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+            if name == "plain":
+                out = plain_steps(cfg, params, prompt, max_seq, toks)
+            else:
+                out = sharded_steps(cfg, make_rules(mesh), params, prompt,
+                                    max_seq, toks)
+            launches = Counter(_build.launches)
+            logits, _, t_pf, t_dec = out
+            del out
+            p50 = statistics.median(t_dec) * 1e3
+            greedy = [int(x[0, -1].argmax()) for x in logits]
+            res[name] = (t_pf * 1e3, p50, greedy, launches)
+            print(f"{tag}: bf16 {name}, {cfg.num_layers} layers, prefill "
+                  f"{b} x {s} (max_seq {max_seq}) {t_pf * 1e3:.1f} ms "
+                  f"({b * s / t_pf:.0f} tokens/s), {len(toks)} decode steps "
+                  f"ms p50 {p50:.2f} ({b / p50 * 1e3:.0f} tokens/s; the "
+                  f"first step included); peak "
+                  f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+                  f"greedy row 0 {greedy[:8]}; launches {dict(launches)}")
+            if not all(torch.isfinite(x).all() for x in logits):
+                raise SmokeFailure(f"{tag}: {name} logits not finite")
+            del logits
+            free_card()
+    pf_plain, dec_plain, g_plain, _ = res["plain"]
+    pf_shd, dec_shd, g_shd, launches = res["sharded"]
+    print(f"{tag}: DTensor's overhead: prefill {pf_shd - pf_plain:+.1f} ms "
+          f"({pf_shd / pf_plain:.3f}x), decode p50 {dec_shd - dec_plain:+.2f} "
+          f"ms ({dec_shd / dec_plain:.3f}x); greedy tokens equal: "
+          f"{g_plain == g_shd}")
+    need = ("flash_attention", "decode_attention", "rmsnorm")
+    if any(not launches.get(k) for k in need):
+        raise SmokeFailure(f"{tag}: the sharded steps launched "
+                           f"{dict(launches)}, want each of {need}")
+    return launches
+
+
+def split_projections(params):
+    """``params`` of a Mamba-2 stack with each fused ``in_proj`` cut into
+    the split projections that ``perf`` flag ``split_ssm_proj`` makes
+    (``z_proj``, ``xbc_proj``, ``dt_proj``: its column blocks), so that a
+    split-flag run computes what the fused one does."""
+    def go(node):
+        if isinstance(node, dict):
+            if "in_proj" in node:
+                node = dict(node)
+                w = node.pop("in_proj")
+                h = node["A_log"].shape[-1]
+                d_in = node["gate_norm"].shape[-1]
+                node["z_proj"] = w[..., :d_in].contiguous()
+                node["xbc_proj"] = w[..., d_in:w.shape[-1] - h].contiguous()
+                node["dt_proj"] = w[..., w.shape[-1] - h:].contiguous()
+                return node
+            return {k: go(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(go(v) for v in node)
+        return node
+
+    return go(params)
+
+
+def ssm_steps(mesh, dev, card) -> Counter:
+    """12b: full-width mamba2-780m through ``build_prefill`` /
+    ``build_decode`` on the (1, 1) mesh under ``perf.VARIANTS``
+    opt_ssm_q128 and opt_ssm_q64 (split projections cut from the fused
+    weights, so each variant computes the baseline's function): in fp32 at
+    2 layers the prefill and decode logits against the baseline's (chunk
+    256) within SSM_PARITY_TOL of their max |.|; in bf16 at all 48 layers
+    a prefill of STEPS_SHAPE and SSM_STEPS_DECODE decode steps, with the
+    greedy tokens beside the baseline's, ssd_intra launched at each
+    variant's chunk.  Returns the bf16 variants' launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.models import perf
+    from repro_torch.models.ssm import _chunk
+
+    full = get_config(SSM_STEPS_ARCH)
+    rules = make_rules(mesh)
+    tag = f"steps 12b {full.name} [{card}]"
+    launches = Counter()
+    for cfg, (b, s, max_seq), n_dec in (
+            (dataclasses.replace(full, num_layers=2, dtype="float32"),
+             (2, 512, 640), 2),
+            (full, STEPS_SHAPE, SSM_STEPS_DECODE)):
+        params = init_params(cfg, dev, f"steps 12b {cfg.name} {cfg.dtype}")
+        split = split_projections(params)
+        prompt = step_tokens(cfg, b, s, 0, dev)
+        toks = [step_tokens(cfg, b, 1, 1 + i, dev) for i in range(n_dec)]
+        runs = {}
+        with torch.inference_mode():
+            for variant in ("baseline", *SSM_STEPS_VARIANTS):
+                flags = perf.VARIANTS[variant]
+                with perf.use_flags(flags):
+                    _build.reset_launches()
+                    t0 = time.monotonic()
+                    logits, _, t_pf, t_dec = sharded_steps(
+                        cfg, rules, params if variant == "baseline" else split,
+                        prompt, max_seq, toks)
+                    got = Counter(_build.launches)
+                    q = _chunk(s)
+                runs[variant] = [x.float() for x in logits]
+                greedy = [int(x[0, -1].argmax()) for x in logits]
+                print(f"{tag}: {cfg.dtype} {cfg.num_layers} layers, "
+                      f"{variant} (chunk {q}): prefill {b} x {s} "
+                      f"{t_pf * 1e3:.1f} ms, {n_dec} decode steps ms p50 "
+                      f"{statistics.median(t_dec) * 1e3:.2f}; greedy row 0 "
+                      f"{greedy}; launches {dict(got)} "
+                      f"({time.monotonic() - t0:.1f} s)")
+                if not got.get("ssd_intra") or not got.get("ssd_slab_decode"):
+                    raise SmokeFailure(f"{tag}: {variant} launched {dict(got)}")
+                if variant != "baseline":
+                    if q != flags.ssd_chunk:
+                        raise SmokeFailure(f"{tag}: {variant} chunk {q}")
+                    if cfg.dtype == "bfloat16":
+                        launches += got
+                del logits
+        if cfg.dtype == "float32":
+            for variant in SSM_STEPS_VARIANTS:
+                gap = max(((a - r).abs().max() / r.abs().max()).item()
+                          for a, r in zip(runs[variant], runs["baseline"]))
+                print(f"{tag}: fp32 {variant} logits vs the baseline's "
+                      f"(chunk 256): max |gap| {gap:.2e} of max |logit| "
+                      f"(tol {SSM_PARITY_TOL})")
+                if not gap <= SSM_PARITY_TOL:
+                    raise SmokeFailure(f"{tag}: {variant} differs from "
+                                       "the baseline")
+        del params, split, runs
+        free_card()
+    return launches
+
+
+def dryrun_cells(dev, card) -> None:
+    """12c: ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS, one
+    subprocess each, all at once (a fake process group cannot share this
+    process with the NCCL group), none of them with a card to see
+    (CUDA_VISIBLE_DEVICES empty); each must end ok, and this process's
+    device memory must not move meanwhile."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.monotonic()
+    procs = [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
+         "--shape", cell[1], *cell[2:]], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cell in DRYRUN_CELLS]
+    failed = []
+    for cell, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            failed.append(cell)
+        mesh = "multi_pod" if "--multi-pod" in cell else "single_pod"
+        tail = f"__{cell[3]}" if "--variant" in cell else ""
+        path = ROOT / "artifacts" / "dryrun_torch" / \
+            f"{cell[0]}__{cell[1]}__{mesh}{tail}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if proc.returncode != 0 or rec.get("status") != "ok":
+            failed.append(cell)
+            print(f"dryrun 12c {cell}: rc {proc.returncode}\n{out[-2000:]}\n"
+                  f"{err[-3000:]}\n{rec.get('traceback', '')}")
+            continue
+        coll = {k: (v["count"], v["bytes"])
+                for k, v in rec["collectives"].items() if v["count"]}
+        print(f"dryrun 12c {' '.join(cell)} [{card}'s host, no card]: "
+              f"status ok, meta run {rec['lower_s']:.1f} s, per rank "
+              f"{rec['cost_flops']:.4g} flops, {rec['cost_bytes']:.4g} bytes, "
+              f"collectives (count, bytes) {coll}, temp "
+              f"{rec['temp_size_in_bytes'] / 1e9:.2f} GB"
+              + (f", bottleneck {rec['roofline']['bottleneck']}"
+                 if rec.get("roofline") else ""))
+    after = torch.cuda.memory_allocated(dev)
+    print(f"dryrun 12c: {len(procs)} cells in {time.monotonic() - t0:.1f} s; "
+          f"this process's device memory {before} -> {after} bytes")
+    if failed or after != before:
+        raise SmokeFailure(f"dryrun 12c: failed {failed}, memory {before} -> "
+                           f"{after}")
+
+
+def steps_path(dev, card) -> Counter:
+    """Phase 12: 12a's sharded prefill and decode of internlm2-1.8b (fp32
+    parity, then bf16 at full depth) and 12b's mamba2-780m under the
+    split-projection variants on a (1, 1) mesh of one NCCL rank, every
+    kernel module's plain version refusing CUDA tensors; then 12c's dry
+    runs.  Returns the launches of 12a's and 12b's sharded runs."""
+    t0 = time.monotonic()
+    launches = Counter()
+    with one_rank_mesh(dev) as mesh, no_plain_on_card():
+        launches += steps_parity(mesh, dev, card)
+        free_card()
+        launches += steps_bf16(mesh, dev, card)
+        free_card()
+        t1 = time.monotonic()
+        launches += ssm_steps(mesh, dev, card)
+        free_card()
+    t2 = time.monotonic()
+    dryrun_cells(dev, card)
+    print(f"steps: 12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, 12c "
+          f"{time.monotonic() - t2:.1f} s")
+    return launches
+
+
 def time_kernels_of(tree: pathlib.Path) -> int:
     """``--kernels-from TREE``: build the kernels of another checkout's
     ``src/repro_torch`` (for instance the parent commit, unpacked with git
@@ -4236,12 +4635,13 @@ def main() -> int:
                  encdec_path,                                   # phases 4e-5e
                  vlm_path,                                      # phases 4f-5f
                  train_path,                                    # phase 10
-                 distributed_path):                             # phase 11
+                 distributed_path,                              # phase 11
+                 steps_path):                                   # phase 12
         print(f"{path.__name__} starts at {time.monotonic() - t_start:.1f} s")
         counts += path(dev, card)
-    print(f"phase 11 ends at {time.monotonic() - t_start:.1f} s")
+    print(f"phase 12 ends at {time.monotonic() - t_start:.1f} s")
 
-    print(f"launches over phases 4-7, 10 and 11: {dict(counts)}")  # phase 8
+    print(f"launches over phases 4-7 and 10-12: {dict(counts)}")  # phase 8
     missing = [k for k in KERNELS if not counts.get(k)]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")

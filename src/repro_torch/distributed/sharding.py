@@ -203,9 +203,14 @@ def whole_rows(x):
 
 
 def _constrain(x, spec: P):
+    """``x`` laid out by ``spec``, leaving unsharded a dim that its axes
+    do not divide (a batch of 1 over the data axis), as the parameter
+    rules do: ``local_map`` takes every shard to be of one size."""
     rules = current_rules()
     if rules is None or rules.mesh is None or not isinstance(x, DTensor):
         return x
+    spec = P(*(a if x.shape[d] % axis_size(rules.mesh, a) == 0 else None
+               for d, a in enumerate(spec)))
     want = placements(spec, rules.mesh)
     if list(x.placements) == want:
         return x
@@ -225,6 +230,98 @@ def local_call(fn, args, arg_placements, out_placements, grad_placements=None):
                      in_grad_placements=(None if grad_placements is None
                                          else tuple(grad_placements)),
                      redistribute_inputs=True)(*args)
+
+
+def kernel_plan(mesh, anchor, heads=(), *, batch: bool = True) -> list:
+    """Per mesh dim, how a kernel run on local shards splits its work:
+    "batch" where the DTensor ``anchor``'s rows (dim 0) are sharded (and
+    ``batch``), else "heads" while every count in ``heads`` divides by the
+    mesh dim's size (the splits already taken out), else None (that mesh
+    dim's shards are gathered)."""
+    plan, counts = [], list(heads)
+    pls = anchor.placements if isinstance(anchor, DTensor) else \
+        [Replicate()] * mesh.ndim
+    for i, p in enumerate(pls):
+        n = mesh.size(i)
+        if batch and isinstance(p, Shard) and p.dim == 0:
+            plan.append("batch")
+        elif counts and all(c % n == 0 for c in counts):
+            plan.append("heads")
+            counts = [c // n for c in counts]
+        else:
+            plan.append(None)
+    return plan
+
+
+def plan_placements(plan, *, batch=None, heads=None) -> list:
+    """One tensor's placements under a :func:`kernel_plan`: ``batch`` and
+    ``heads`` (placements, None for replicated) on those mesh dims,
+    ``Replicate()`` on the others."""
+    return [{"batch": batch, "heads": heads}.get(k) or Replicate()
+            for k in plan]
+
+
+def local_offsets(x) -> tuple[int, ...]:
+    """The global index of the first element of this rank's shard of the
+    DTensor ``x``, per dim."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    _, off = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return tuple(off)
+
+
+def assign(dst, src) -> None:
+    """``dst.copy_(src)`` in place; a DTensor ``src`` is first laid out as
+    the DTensor ``dst`` is, so each rank copies its own shard."""
+    if isinstance(dst, DTensor):
+        src = as_dtensor(src, dst.device_mesh)
+        if list(src.placements) != list(dst.placements):
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+        return
+    dst.copy_(src)
+
+
+def whole_heads(x, n: int, dim: int = -1):
+    """``x`` ready to have dim ``dim`` viewed as (n, size / n): a
+    DTensor's shard of that dim is gathered unless it splits into whole
+    heads (``n`` divides by the ranks it is split over)."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    dims = [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim]
+    if not dims or n % math.prod(x.device_mesh.size(i) for i in dims) == 0:
+        return x
+    return x.redistribute(placements=[Replicate() if i in dims else p
+                                      for i, p in enumerate(x.placements)])
+
+
+class _MergeHeads(torch.autograd.Function):
+    """Dims (dim, dim + 1) of x viewed as one; the gradient is laid out
+    by :func:`whole_heads` before it is viewed back."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.shape, ctx.dim = x.shape, dim
+        return x.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = whole_heads(g, ctx.shape[ctx.dim], ctx.dim)
+        return g.reshape(ctx.shape), None
+
+
+def merge_heads(x, dim: int):
+    """Dims (dim, dim + 1) of ``x`` -- heads and their width -- as one.  A
+    DTensor under grad goes through :class:`_MergeHeads`: DTensor may
+    shard the merged gradient over more ranks than the heads split over,
+    and cannot view that back."""
+    if isinstance(x, DTensor) and torch.is_grad_enabled() and x.requires_grad:
+        return _MergeHeads.apply(x, dim)
+    return x.flatten(dim, dim + 1)
 
 
 def row_placements(x) -> list:
@@ -383,19 +480,26 @@ def param_specs(params_shape, rules: ShardingRules, *, stacked_prefix: int = 0):
 
 def distribute(tree, specs, rules: ShardingRules):
     """Each tensor leaf of ``tree`` laid out over ``rules.mesh`` by its
-    spec in ``specs`` (a tree of the same structure), as a DTensor: every
-    rank passes the whole tensor and keeps its own shard."""
+    spec in ``specs`` (a tree of the same structure), as a DTensor: a plain
+    tensor is distributed (every rank passes the whole tensor and keeps
+    its own shard), a DTensor redistributed when its layout differs.  A
+    dict entry without a spec, and a leaf that is not a tensor, are kept
+    as they are."""
     from torch.distributed.tensor import distribute_tensor
 
     def go(node, spec):
         if isinstance(node, dict):
-            return {k: go(v, spec[k]) for k, v in node.items()}
+            return {k: go(v, spec[k]) if k in spec else v
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(go(v, s) for v, s in zip(node, spec))
-        if node is None:
-            return None
-        return distribute_tensor(node.detach(), rules.mesh,
-                                 placements(spec, rules.mesh))
+        if not isinstance(node, torch.Tensor):
+            return node
+        want = placements(spec, rules.mesh)
+        if not isinstance(node, DTensor):
+            return distribute_tensor(node.detach(), rules.mesh, want)
+        return (node if list(node.placements) == want
+                else node.redistribute(rules.mesh, want))
 
     return go(tree, specs)
 

@@ -9,6 +9,11 @@ layout: q (B, Nq, H) against k/v caches (B, Smax, Nkv, H) with per-row
 ``row_ids`` (B,), row b reads row ``row_ids[b]`` of a (R, Smax, Nkv, H)
 cache instead: the enc-dec decoder's shared cross-attention segments,
 addressed by each stream's segment id without a gathered copy.
+
+DTensor inputs (a sharded decode step) run under ``local_map``: the
+cache's batch shards stay, head shards where both head counts divide,
+every other shard (a sharded sequence) is gathered, and the wrapper sees
+the local tensors only.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import Shard
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -106,6 +113,26 @@ def check_tensor_cores(name: str, tile: int, *tensors: torch.Tensor) -> None:
         _build.check_aligned(name, t)
 
 
+def _decode_sharded(mesh, q, k, v, lengths, scale, block_k, row_ids):
+    """:func:`decode_attention` on DTensors, per mesh dim: the rows where
+    the cache's batch is sharded (not with ``row_ids``, which index the
+    whole cache), else the heads where Nq and Nkv divide, else gathered."""
+    plan = shd.kernel_plan(mesh, k, (q.shape[1], k.shape[2]),
+                           batch=row_ids is None)
+    qp = shd.plan_placements(plan, batch=Shard(0), heads=Shard(1))
+    kp = shd.plan_placements(plan, batch=Shard(0), heads=Shard(2))
+    rp = shd.plan_placements(plan, batch=Shard(0))
+    args = [q, k, v, lengths] + ([] if row_ids is None else [row_ids])
+    pls = [qp, kp, kp, rp] + ([] if row_ids is None else [rp])
+
+    def local(q, k, v, lengths, row_ids=None):
+        return decode_attention(q, k, v, lengths, scale=scale,
+                                block_k=block_k, row_ids=row_ids)
+
+    return shd.local_call(local, [shd.as_dtensor(t, mesh) for t in args],
+                          pls, qp)
+
+
 def decode_attention(q, k, v, lengths, *, scale: float | None = None,
                      block_k: int = DEFAULT_BLOCK_K, row_ids=None):
     """q (B,Nq,H); k/v (B,Smax,Nkv,H); lengths (B,) int32 -> (B,Nq,H).
@@ -119,6 +146,9 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None,
     cores (see :func:`check_tensor_cores` for what it takes); fp32 on the
     CUDA cores at any widths."""
     ids = () if row_ids is None else (row_ids,)
+    mesh = shd.mesh_of(q, k, v, lengths, *ids)
+    if mesh is not None:
+        return _decode_sharded(mesh, q, k, v, lengths, scale, block_k, row_ids)
     if _build.on_cpu(q, k, v, lengths, *ids):
         return decode_attention_plain(q, k, v, lengths, scale=scale,
                                       row_ids=row_ids)

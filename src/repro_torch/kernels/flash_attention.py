@@ -30,16 +30,16 @@ when grad is enabled and an input requires grad: under ``no_grad`` or
 ``inference_mode`` (the serving path, its CUDA graphs) the call is the
 forward launch alone, with no lse.
 
-DTensor inputs (a sharded train step) run under ``local_map``: batch
-shards stay, head shards stay when both head counts split evenly, every
-other shard is gathered, and the wrapper -- its Function and launches
-included -- sees the local tensors only.
+DTensor inputs (a sharded step) run under ``local_map``: batch shards
+stay, the heads split where both head counts divide, every other shard
+is gathered, and the wrapper -- its Function and launches included --
+sees the local tensors only.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Shard
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import _build
@@ -160,19 +160,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def _flash_sharded(mesh, q, k, v, causal: bool, scale: float):
-    """:func:`flash_attention` on DTensors: per mesh dim, q's batch shard
-    or its head shard (when Nq and Nkv both divide) is kept for q, k and
-    v alike, anything else gathered; the call runs on the local shards."""
+    """:func:`flash_attention` on DTensors: per mesh dim, q's batch shard,
+    else the heads where Nq and Nkv both divide, for q, k and v alike,
+    anything else gathered; the call runs on the local shards."""
     q, k, v = (shd.as_dtensor(t, mesh) for t in (q, k, v))
-    nq, nkv = q.shape[2], k.shape[2]
-    pl = []
-    for i, p in enumerate(q.placements):
-        n = mesh.size(i)
-        if isinstance(p, Shard) and (p.dim == 0 or (
-                p.dim == 2 and nq % n == 0 and nkv % n == 0)):
-            pl.append(p)
-        else:
-            pl.append(Replicate())
+    plan = shd.kernel_plan(mesh, q, (q.shape[2], k.shape[2]))
+    pl = shd.plan_placements(plan, batch=Shard(0), heads=Shard(2))
 
     def local(q, k, v):
         return flash_attention(q, k, v, causal=causal, scale=scale)

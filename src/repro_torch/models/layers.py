@@ -17,6 +17,11 @@ The values every attention layer of one forward shares -- the rotary
 cos/sin and, in decode, each row's slot and length -- are computed once
 per step by :func:`step_values` and passed down as ``step``; a layer
 called without them computes its own.
+
+The new token's write into a dense decode cache (:func:`write_token`)
+scatters under either value of ``perf`` flag ``cache_update``.  On
+DTensors (a sharded decode step) each rank writes its own shard of the
+cache in place, and the decode kernels run on local shards.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.decode_attention import (DEFAULT_BLOCK_K,
@@ -218,6 +224,59 @@ def mla_step(cfg, positions, layer_cache=None) -> StepValues:
 
 
 # --------------------------------------------------------------------------
+# the new token's write into a dense decode cache
+# --------------------------------------------------------------------------
+
+
+def write_token(cache, rows, pos, val) -> None:
+    """``cache[rows[b], pos[b]] = val[b]`` in place, for a (R, T, ...)
+    cache and ``val`` (B, ...).  Rows that repeat a slot (padding rows
+    duplicate row 0) write the same position and value.  On a DTensor
+    cache each rank writes its own shard: only the batch (dim 0) and
+    position (dim 1) may be sharded.
+
+    The reference chooses this write by ``perf`` flag ``cache_update``:
+    "scatter", or "where" (its default), a select over the whole cache
+    that only pays under XLA.  Both leave the same values, so the port
+    scatters under either: on the H100 the whole-cache select cost a
+    24-layer masked-dense decode step about 2 ms more than the scatter."""
+    if not isinstance(cache, DTensor):
+        cache.index_put_((rows, pos), val.to(cache.dtype))
+        return
+    off = shd.local_offsets(cache)
+    if any(off[2:]) or any(isinstance(p, Shard) and p.dim > 1
+                           for p in cache.placements):
+        raise ValueError(f"write_token: a cache sharded past its position "
+                         f"dim: {cache.placements}")
+    rows, pos, val = (shd.to_full(t) for t in (rows, pos, val))
+    _write_local(cache.to_local(), off[0], off[1], cache.shape[0], rows,
+                 pos, val.to(cache.dtype))
+
+
+def _write_local(local, off0: int, off1: int, nrows: int, rows, pos,
+                 val) -> None:
+    """:func:`write_token` into ``local``, the block of a (nrows, T, ...)
+    cache that starts at slot ``off0``, position ``off1``.  Each local slot
+    finds the row that writes it (if any) through an inverse map of
+    ``rows``, so no two writes meet and nothing waits on the host; a slot
+    with no write, or whose position lies in another rank's block, writes
+    back what it holds."""
+    n0, n1 = local.shape[:2]
+    dev = local.device
+    owner = torch.full((nrows,), -1, dtype=torch.long, device=dev)
+    owner[rows.long()] = torch.arange(rows.shape[0], device=dev)
+    own = owner[off0:off0 + n0]
+    src = own.clamp(min=0)
+    t = pos.long()[src] - off1  # (n0,) each slot's position, local
+    hit = (own >= 0) & (t >= 0) & (t < n1)
+    slot = torch.arange(n0, device=dev)
+    tc = t.clamp(0, n1 - 1)
+    tail = [1] * (local.dim() - 2)
+    local.index_put_((slot, tc), torch.where(hit.view(n0, *tail), val[src],
+                                             local[slot, tc]))
+
+
+# --------------------------------------------------------------------------
 # attention (GQA / MQA)
 # --------------------------------------------------------------------------
 
@@ -236,7 +295,8 @@ def init_attention(cfg, generator, dtype, device) -> Params:
 def _project(x, w):
     """x (B, S, d) @ w (d, n, h) -> (B, S, n, h)."""
     d, n, h = w.shape
-    return torch.matmul(x, w.reshape(d, n * h)).view(*x.shape[:-1], n, h)
+    out = shd.whole_heads(torch.matmul(x, shd.merge_heads(w, 1)), n)
+    return out.view(*x.shape[:-1], n, h)
 
 
 def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None,
@@ -288,15 +348,13 @@ def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None,
         new_cache = (k_stack, v_stack)
     else:
         k_cache, v_cache, _ = layer_cache  # (B, Smax, Nkv, H), pos (B,)
-        k_cache.index_put_((step.rows, step.pos), k[:, 0].to(k_cache.dtype))
-        v_cache.index_put_((step.rows, step.pos), v[:, 0].to(v_cache.dtype))
+        write_token(k_cache, step.rows, step.pos, k[:, 0])
+        write_token(v_cache, step.rows, step.pos, v[:, 0])
         out = decode_attention(q[:, 0], k_cache, v_cache, step.lengths,
                                scale=scale)[:, None]
         new_cache = (k_cache, v_cache)
 
-    nq = out.shape[2]
-    out = torch.matmul(out.reshape(b, s, nq * hd),
-                       p["wo"].reshape(nq * hd, -1))
+    out = torch.matmul(shd.merge_heads(out, 2), shd.merge_heads(p["wo"], 0))
     return shd.shard_hidden(out), new_cache
 
 
@@ -332,6 +390,34 @@ def _identity_tables(b: int, smax: int, bk: int, device):
     w = smax // bk
     return (torch.arange(b, device=device)[:, None] * w
             + torch.arange(w, device=device)[None, :]).to(torch.int32)
+
+
+def _dense_mla_decode(q_lat, q_rope, ckv_cache, krope_cache, step, scale):
+    """The MLA decode kernel over dense (B, Smax, r) / (B, Smax, pr) caches
+    viewed as pools of gcd(Smax, DEFAULT_BLOCK_K) positions through
+    identity tables.  On DTensors it runs on local shards: rows where the
+    cache's batch is sharded, heads where they divide, the rest gathered;
+    each rank's tables view its own rows."""
+    def local(q_lat, q_rope, ckv, krope, lengths, tables=None):
+        smax = ckv.shape[1]
+        bk = math.gcd(smax, DEFAULT_BLOCK_K)
+        if tables is None:
+            tables = _identity_tables(ckv.shape[0], smax, bk, ckv.device)
+        return paged_mla_decode_attention(
+            q_lat, q_rope, ckv.view(-1, bk, ckv.shape[-1]),
+            krope.view(-1, bk, krope.shape[-1]), tables, lengths, scale=scale)
+
+    mesh = shd.mesh_of(q_lat, ckv_cache)
+    if mesh is None:
+        return local(q_lat, q_rope, ckv_cache, krope_cache, step.lengths,
+                     step.tables)
+
+    plan = shd.kernel_plan(mesh, ckv_cache, (q_lat.shape[1],))
+    qp = shd.plan_placements(plan, batch=Shard(0), heads=Shard(1))
+    cp = shd.plan_placements(plan, batch=Shard(0))
+    args = tuple(shd.as_dtensor(t, mesh) for t in
+                 (q_lat, q_rope, ckv_cache, krope_cache, step.lengths))
+    return shd.local_call(local, args, (qp, qp, cp, cp, cp), qp)
 
 
 def mla_attention(cfg, p: Params, x, *, positions, cache=None,
@@ -378,32 +464,34 @@ def mla_attention(cfg, p: Params, x, *, positions, cache=None,
         # c_kv is a view into ckv_full: the cache keeps a contiguous copy,
         # which dense decode views as a block pool
         new_cache = (c_kv.contiguous(), k_rope) if cache == "build" else None
-        out = out.reshape(b, s, -1)
+        out = shd.merge_heads(out, 2)
     else:
+        # absorbed decode: q_nope @ w_uk -> latent space, in x's dtype
+        q_lat = _per_head(q_nope[:, 0], p["w_uk"].permute(2, 1, 0)).contiguous()
+        q_rope = q_rope[:, 0].contiguous()
         if len(layer_cache) == 5:
             # Rows never share a tail block (copy-on-write forks), so the
             # scatter is row-disjoint; padding rows duplicate row 0.
             ckv_stack, krope_stack, lidx = layer_cache[:3]
             ckv_pool, krope_pool = ckv_stack[lidx], krope_stack[lidx]
+            ckv_pool.index_put_((step.blk, step.off),
+                                c_kv[:, 0].to(ckv_pool.dtype))
+            krope_pool.index_put_((step.blk, step.off),
+                                  k_rope[:, 0].to(krope_pool.dtype))
             new_cache = (ckv_stack, krope_stack)
-        else:  # dense (B, Smax, ...) caches viewed as (B*Smax/bk, bk, ...)
+            o_lat = paged_mla_decode_attention(
+                q_lat, q_rope, ckv_pool, krope_pool, step.tables,
+                step.lengths, scale=scale)
+        else:  # dense (B, Smax, ...) caches
             ckv_cache, krope_cache, _ = layer_cache
             new_cache = (ckv_cache, krope_cache)
-            bk = math.gcd(ckv_cache.shape[1], DEFAULT_BLOCK_K)
-            ckv_pool = ckv_cache.view(-1, bk, r)
-            krope_pool = krope_cache.view(-1, bk, pr)
-        ckv_pool.index_put_((step.blk, step.off),
-                            c_kv[:, 0].to(ckv_pool.dtype))
-        krope_pool.index_put_((step.blk, step.off),
-                              k_rope[:, 0].to(krope_pool.dtype))
-        # absorbed decode: q_nope @ w_uk -> latent space, in x's dtype
-        q_lat = _per_head(q_nope[:, 0], p["w_uk"].permute(2, 1, 0)).contiguous()
-        o_lat = paged_mla_decode_attention(
-            q_lat, q_rope[:, 0].contiguous(), ckv_pool, krope_pool,
-            step.tables, step.lengths, scale=scale)
-        out = _per_head(o_lat, p["w_uv"]).reshape(b, s, -1)
+            write_token(ckv_cache, step.rows, step.pos, c_kv[:, 0])
+            write_token(krope_cache, step.rows, step.pos, k_rope[:, 0])
+            o_lat = _dense_mla_decode(q_lat, q_rope, ckv_cache, krope_cache,
+                                      step, scale)
+        out = shd.merge_heads(_per_head(o_lat, p["w_uv"]), 1)[:, None]
 
-    out = torch.matmul(out, p["wo"].reshape(-1, p["wo"].shape[-1]))
+    out = torch.matmul(out, shd.merge_heads(p["wo"], 0))
     return shd.shard_hidden(out), new_cache
 
 

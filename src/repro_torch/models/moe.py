@@ -363,7 +363,20 @@ def moe_layer(cfg, p: Params, x):
                                 else Replicate()))
             out = out.redistribute(placements=x_pl)
         else:
-            out, aux = moe_dense(cfg, p, x)
+            # experts that do not split over the model axis: each rank runs
+            # all of them on its own tokens (exact, dropless)
+            def body(router, wg, wu, wd, xx):
+                return moe_dense(cfg, {"router": router, "experts": {
+                    "w_gate": wg, "w_up": wu, "w_down": wd}}, xx)
+
+            x_pl = shd.placements(shd.P(batch, None, None), mesh)
+            weights_grad = _by_axis(rules, model=Replicate(), batch=dp_sum)
+            out, aux = _run_body(
+                rules, body, p, x, in_pls=[replicated] * 4 + [x_pl],
+                grad_pls=[weights_grad] * 4 + [x_pl], out_pl=x_pl,
+                aux_pl=_by_axis(rules, model=Replicate(),
+                                batch=Partial("avg") if rules.shard_batch
+                                else Replicate()))
 
     if "shared" in p:
         out = out + mlp(cfg, p["shared"], x)

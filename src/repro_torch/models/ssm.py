@@ -6,22 +6,27 @@ O(num_chunks) inter-chunk recurrence in torch ops, as the reference leaves
 it to XLA.  Decode runs one recurrent step on the ``ssd_slab_decode``
 kernel: slab-paged decode through the engine's slab ids, dense decode with
 ids 0..B-1 over its own state, so both do the same arithmetic per row.
-Decode caches and slab pools are updated in place.  The reference's
-sharding annotations have no counterpart here.
+Decode caches and slab pools are updated in place.  The ``perf`` flags are
+read where the reference reads them: ``split_ssm_proj`` in
+:func:`init_mamba2` (three projections instead of the fused ``in_proj``)
+and ``ssd_chunk`` in :func:`_chunk` (the intra-chunk length).  On
+DTensors (a sharded prefill or decode step) the kernels run on local
+shards, and the decode caches are written in place in their own layouts.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Shard
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.ssd_scan import ssd_intra, ssd_slab_decode
+from repro_torch.models import perf
 from repro_torch.models.layers import Params, dense_init, rms_norm
-
-DEFAULT_CHUNK = 256
 
 
 def conv_dim(cfg) -> int:
@@ -30,12 +35,21 @@ def conv_dim(cfg) -> int:
 
 def init_mamba2(cfg, generator, dtype, device) -> Params:
     """The reference's distributions; ``A_log``, ``dt_bias`` and ``ssm_D``
-    are fp32 whatever ``dtype``."""
+    are fp32 whatever ``dtype``.  Under ``perf`` flag ``split_ssm_proj``
+    the fused ``in_proj`` is three projections, ``z_proj`` (d, d_in),
+    ``xbc_proj`` (d, cdim) and ``dt_proj`` (d, H), as in the reference."""
     d, d_in, h = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
     cdim = conv_dim(cfg)
     f32 = dict(dtype=torch.float32, device=device)
+    if perf.current().split_ssm_proj:
+        proj = {"z_proj": dense_init(generator, (d, d_in), dtype, device),
+                "xbc_proj": dense_init(generator, (d, cdim), dtype, device),
+                "dt_proj": dense_init(generator, (d, h), dtype, device)}
+    else:
+        proj = {"in_proj": dense_init(generator, (d, d_in + cdim + h), dtype,
+                                      device)}
     return {
-        "in_proj": dense_init(generator, (d, d_in + cdim + h), dtype, device),
+        **proj,
         "conv_w": dense_init(generator, (cfg.conv_width, cdim), dtype, device,
                              scale=1.0 / math.sqrt(cfg.conv_width)),
         "conv_b": torch.zeros((cdim,), dtype=dtype, device=device),
@@ -61,7 +75,19 @@ def _in_projections(cfg, p: Params, x):
 def _causal_conv(x, w, b):
     """Depthwise causal conv1d as a sum of shifted slices (not F.conv1d,
     which runs fp32 through cuDNN in TF32).  x (B,S,C), w (W,C) ->
-    (B,S,C)."""
+    (B,S,C).  On DTensors it runs on local shards: rows where x's batch
+    is sharded, channels where they divide, the sequence whole."""
+    mesh = shd.mesh_of(x, w, b)
+    if mesh is not None:
+        plan = shd.kernel_plan(mesh, x, (x.shape[-1],))
+        xp = shd.plan_placements(plan, batch=Shard(0), heads=Shard(2))
+        wp = shd.plan_placements(plan, heads=Shard(1))
+        bp = shd.plan_placements(plan, heads=Shard(0))
+        gp = [shd.plan_placements(plan, batch=Partial(), heads=p)
+              for p in (Shard(1), Shard(0))]
+        args = [shd.as_dtensor(t, mesh) for t in (x, w, b)]
+        return shd.local_call(_causal_conv, args, (xp, wp, bp), xp,
+                              (xp, *gp))
     width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))
     s = x.shape[1]
@@ -75,15 +101,19 @@ def _split_xbc(cfg, xbc):
     """(B,S,cdim) -> views x (B,S,H,P), B (B,S,G,N), C (B,S,G,N)."""
     d_in, g, n = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state_dim
     b, s = xbc.shape[:2]
-    xs, B, C = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
-    return (xs.view(b, s, cfg.ssm_nheads, cfg.ssm_head_dim),
-            B.view(b, s, g, n), C.view(b, s, g, n))
+    # a DTensor's split columns are gathered first: the split's bounds
+    # need not fall on its shards' (whole_heads lays the parts out again)
+    xs, B, C = torch.split(shd.whole_rows(xbc), [d_in, g * n, g * n], dim=-1)
+    h = cfg.ssm_nheads
+    return (shd.whole_heads(xs, h).view(b, s, h, cfg.ssm_head_dim),
+            shd.whole_heads(B, g).view(b, s, g, n),
+            shd.whole_heads(C, g).view(b, s, g, n))
 
 
-def _chunk(s: int) -> int:
-    """The reference's chunk choice: min(256, S), halved until it divides
-    S."""
-    cq = min(DEFAULT_CHUNK, s)
+def _chunk(s: int, chunk: int | None = None) -> int:
+    """The reference's chunk choice: min(``chunk``, or ``perf`` flag
+    ``ssd_chunk``, S), halved until it divides S."""
+    cq = min(chunk or perf.current().ssd_chunk, s)
     while s % cq:
         cq //= 2
     return max(cq, 1)
@@ -99,6 +129,9 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int):
     C  (B,S,1,N)   output projections
     returns y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32
     """
+    mesh = shd.mesh_of(x, dt, A, B, C)
+    if mesh is not None:
+        return _chunked_sharded(mesh, x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if g != 1 or s % chunk:
@@ -133,13 +166,49 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int):
     return y.reshape(b, s, h, p).to(x.dtype), final
 
 
+def _chunked_sharded(mesh, x, dt, A, B, C, chunk: int):
+    """:func:`ssd_chunked` on DTensors, on local shards -- the kernel and
+    the inter-chunk recurrence alike, so its per-chunk loop runs as local
+    ops: per mesh dim x's rows where they are sharded, else its heads
+    where they divide, else gathered."""
+    plan = shd.kernel_plan(mesh, x, (x.shape[2],))
+    xp = shd.plan_placements(plan, batch=Shard(0), heads=Shard(2))
+    ap = shd.plan_placements(plan, heads=Shard(0))
+    bp = shd.plan_placements(plan, batch=Shard(0))
+    fp = shd.plan_placements(plan, batch=Shard(0), heads=Shard(1))
+    grads = (xp, xp, shd.plan_placements(plan, batch=Partial(), heads=Shard(0)),
+             *[shd.plan_placements(plan, batch=Shard(0), heads=Partial())] * 2)
+    args = [shd.as_dtensor(t, mesh) for t in (x, dt, A, B, C)]
+    return shd.local_call(functools.partial(ssd_chunked, chunk=chunk), args,
+                          (xp, xp, ap, bp, bp), (xp, fp), grads)
+
+
 def ssd_decode_step(state, x, dt, A, B, C):
     """One recurrent step over a dense state: the slab kernel with slab ids
     0..B-1.  state (B,H,P,N) fp32; x (B,H,P); dt (B,H); B,C (B,G,N).
     Returns (y (B,H,P), state') -- state' is new; the caller stores it."""
+    mesh = shd.mesh_of(state, x, dt, B, C)
+    if mesh is not None:
+        return _decode_step_sharded(mesh, state, x, dt, A, B, C)
     rows = torch.arange(state.shape[0], dtype=torch.int32,
                         device=state.device)
     return ssd_slab_decode(state, rows, x, dt, A, B, C)
+
+
+def _decode_step_sharded(mesh, state, x, dt, A, B, C):
+    """:func:`ssd_decode_step` on DTensors, on local shards: per mesh dim
+    the state's rows where they are sharded, else its heads where they
+    (and the groups, unless there is one) divide, else gathered; each
+    rank's slab ids are its own rows."""
+    g = B.shape[1]
+    plan = shd.kernel_plan(mesh, state,
+                           (state.shape[1],) + ((g,) if g > 1 else ()))
+    hp = shd.plan_placements(plan, batch=Shard(0), heads=Shard(1))
+    ap = shd.plan_placements(plan, heads=Shard(0))
+    bp = (hp if g > 1 else shd.plan_placements(plan, batch=Shard(0)))
+    args = [shd.as_dtensor(t, mesh) for t in (state, x, dt, A, B, C)]
+    return shd.local_call(ssd_decode_step, args, (hp, hp, hp, ap, bp, bp),
+                          (hp, hp))
 
 
 def _gate_out(cfg, p: Params, y, z):
@@ -147,8 +216,10 @@ def _gate_out(cfg, p: Params, y, z):
     return y @ p["out_proj"]
 
 
-def mamba2_block(cfg, p: Params, x, *, layer_cache=None):
-    """Full Mamba-2 mixer.  Returns (out, new_layer_cache).
+def mamba2_block(cfg, p: Params, x, *, layer_cache=None,
+                 chunk: int | None = None):
+    """Full Mamba-2 mixer.  Returns (out, new_layer_cache).  ``chunk``
+    overrides the intra-chunk length of train / prefill (:func:`_chunk`).
 
     layer_cache None: train / prefill over the whole sequence (no cache).
     Dense decode: (conv_cache (B,W-1,C), state (B,H,P,N) fp32, pos),
@@ -166,9 +237,9 @@ def mamba2_block(cfg, p: Params, x, *, layer_cache=None):
     if layer_cache is None:
         xBC = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
         xs, B, C = _split_xbc(cfg, xBC)
-        y, _ = ssd_chunked(xs, dt, A, B, C, chunk=_chunk(s))
+        y, _ = ssd_chunked(xs, dt, A, B, C, chunk=_chunk(s, chunk))
         y = y + xs * p["ssm_D"].to(xs.dtype)[:, None]
-        return shd.shard_hidden(_gate_out(cfg, p, y.reshape(b, s, d_in), z)), None
+        return shd.shard_hidden(_gate_out(cfg, p, shd.merge_heads(y, 2), z)), None
 
     paged = len(layer_cache) == 4
     if paged:
@@ -189,11 +260,11 @@ def mamba2_block(cfg, p: Params, x, *, layer_cache=None):
         new_cache = (conv_stack, state_stack)
     else:
         y, new_state = ssd_decode_step(state, xs, dt[:, 0], A, B, C)
-        state.copy_(new_state)
-        conv_cache.copy_(win[:, 1:])
+        shd.assign(state, new_state)
+        shd.assign(conv_cache, win[:, 1:])
         new_cache = (conv_cache, state)
     y = y + xs * p["ssm_D"].to(xs.dtype)[:, None]
-    return shd.shard_hidden(_gate_out(cfg, p, y.reshape(b, 1, d_in), z)), new_cache
+    return shd.shard_hidden(_gate_out(cfg, p, shd.merge_heads(y, 1)[:, None], z)), new_cache
 
 
 def prefill_mamba_cache(cfg, p: Params, x, *, lengths=None):
@@ -218,7 +289,7 @@ def prefill_mamba_cache(cfg, p: Params, x, *, lengths=None):
     xs, B, C = _split_xbc(cfg, xBC)
     y, final = ssd_chunked(xs, dt, A, B, C, chunk=_chunk(s))
     y = y + xs * p["ssm_D"].to(xs.dtype)[:, None]
-    out = _gate_out(cfg, p, y.reshape(b, s, d_in), z)
+    out = _gate_out(cfg, p, shd.merge_heads(y, 2), z)
     w = cfg.conv_width
     if lengths is None:
         conv_cache = (xBC_raw[:, -(w - 1):] if s >= w - 1

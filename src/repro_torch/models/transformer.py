@@ -47,7 +47,7 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
@@ -410,7 +410,8 @@ def unembed(cfg, params, x):
     goes through :class:`_LogitsGemm`.  CPU tensors (no such kernel there)
     and fp32 cast to fp32 first, the same arithmetic.  On DTensors that
     GEMM (which DTensor has no rule for) runs under ``local_map`` on the
-    local rows against the whole table."""
+    local rows against the table's vocab split over each mesh dim that
+    does not split the rows."""
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return shd.shard_logits(_logits(x, table))
 
@@ -421,10 +422,16 @@ def _logits(x, table):
             and x.dtype != torch.float32):
         x = shd.as_dtensor(x, mesh)
         pl = shd.row_placements(x)
+        # the vocab splits over each mesh dim that does not split the rows
+        vocab = [not isinstance(p, Shard) and table.shape[1] % mesh.size(i) == 0
+                 for i, p in enumerate(pl)]
+        out = [Shard(2) if v else p for p, v in zip(pl, vocab)]
         return shd.local_call(
             _logits, (x, shd.as_dtensor(table, mesh)),
-            (pl, [Replicate()] * mesh.ndim), pl,
-            (pl, shd.partial_where_sharded(pl)))
+            (pl, [Shard(1) if v else Replicate() for v in vocab]), out,
+            ([Partial() if v else p for p, v in zip(pl, vocab)],
+             [Shard(1) if v else g for g, v in
+              zip(shd.partial_where_sharded(pl), vocab)]))
     if x.device.type != "cpu" and x.dtype != torch.float32:
         b, s, d = x.shape
         x2 = x.reshape(b * s, d)

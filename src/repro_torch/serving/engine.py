@@ -947,7 +947,14 @@ class ServeEngine:
         concurrent ``remove`` frees both sides itself -- then this raises
         instead of freeing twice), and frees the source.  Any failure rolls
         the destination back, leaving the stream where it was.  The gather
-        reads the source rows before the commit frees them."""
+        reads the source rows before the commit frees them.
+
+        The commit also flips the pool binding and ``_active_jobs`` under
+        ``_recovery_lock``, which ``remove_server`` holds while it begins
+        a drain and plans it: a destination that began to drain (or was
+        retired) during the copy is refused there -- the drain has
+        re-placed the stream without it -- the destination rolled back,
+        and None returned: the stream stays on its source."""
         src, dst = self._paged[src_si], self._paged[dst_si]
         with self._mig_lock:
             held = self._held.get(name)
@@ -1007,26 +1014,39 @@ class ServeEngine:
             self.pool.servers[dst_si].submit(
                 scatter, priority=prio, name=f"{name}/migrate-import").wait()
         except BaseException:
+            self._roll_back_migration(name, seq_id, dst_si)
+            raise
+        with self._recovery_lock:
+            if (dst_si in self.pool.draining()
+                    or dst_si not in self.pool.alive_servers()):
+                self._roll_back_migration(name, seq_id, dst_si)
+                return None
             with self._mig_lock:
                 held = self._held.get(name)
-                if held is not None:
-                    held.discard((dst_si, seq_id))
-                with dst.lock:
-                    dst.mgr.free_seq(seq_id, missing_ok=True)
-            raise
-        with self._mig_lock:
-            held = self._held.get(name)
-            if held is None or (dst_si, seq_id) not in held:
-                # remove() raced the copy: it freed both sides already
-                raise StreamShedError(
-                    f"stream {name!r} removed mid-migration")
-            held.discard((src_si, seq_id))
-            with src.lock:
-                src.mgr.free_seq(seq_id, missing_ok=True)
+                if held is None or (dst_si, seq_id) not in held:
+                    # remove() raced the copy: it freed both sides already
+                    raise StreamShedError(
+                        f"stream {name!r} removed mid-migration")
+                held.discard((src_si, seq_id))
+                with src.lock:
+                    src.mgr.free_seq(seq_id, missing_ok=True)
+            self._active_jobs[name] = dst_si
+            self.pool.complete_migration(name)
         self.migrations_completed += 1
         full = np.full((dst.nb_max,), dst.scratch_block, np.int32)
         full[:n] = new_blocks
         return full, dst_slab, dst_seg
+
+    def _roll_back_migration(self, name: str, seq_id: str,
+                             dst_si: int) -> None:
+        """Free ``seq_id``'s destination allocation on ``dst_si`` and drop
+        it from the ``_held`` ledger: the stream keeps its source."""
+        with self._mig_lock:
+            held = self._held.get(name)
+            if held is not None:
+                held.discard((dst_si, seq_id))
+            with self._paged[dst_si].lock:
+                self._paged[dst_si].mgr.free_seq(seq_id, missing_ok=True)
 
     # -- batched prefill (length-bucketed) ---------------------------------
     def _run_prefill_batch(self, si: int, bucket: int):
@@ -1426,7 +1446,13 @@ class ServeEngine:
                         # step boundary -- no decode of this stream can be
                         # in flight, so the copy sees a quiescent sequence
                         dst = self.pool.pending_migration(name)
-                        if (dst is not None and dst != si
+                        if dst is not None and dst in self.pool.draining():
+                            # a steal asked for before its destination began
+                            # to drain: the drain has re-placed the stream
+                            # (the commit re-checks, for a drain that begins
+                            # during the copy)
+                            self.pool.cancel_migration(name)
+                        elif (dst is not None and dst != si
                                 and dst in self.pool.alive_servers()):
                             dst_slot = self._try_acquire_slot(dst)
                             if dst_slot is None:
@@ -1435,22 +1461,22 @@ class ServeEngine:
                                 self.pool.cancel_migration(name)
                             else:
                                 try:
-                                    table, slab, seg = (
-                                        self._execute_migration(
-                                            name, seq_id, si, dst, prio))
+                                    moved = self._execute_migration(
+                                        name, seq_id, si, dst, prio)
                                 except OutOfBlocksError:
-                                    self._release_slot(dst, dst_slot)
-                                    self.pool.cancel_migration(name)
+                                    moved = None
                                 except BaseException:
                                     self._release_slot(dst, dst_slot)
                                     raise
+                                if moved is None:
+                                    self._release_slot(dst, dst_slot)
+                                    self.pool.cancel_migration(name)
                                 else:
+                                    table, slab, seg = moved
                                     self._release_slot(si, slot)
                                     slot, si = dst_slot, dst
                                     server = self.pool.servers[si]
                                     run_batch = self._run_paged_decode(si)
-                                    self._active_jobs[name] = si
-                                    self.pool.complete_migration(name)
                     payload = ((token, table, length, slab, seg)
                                if self.paged else (slot, token))
                     t1 = time.monotonic()
@@ -1816,7 +1842,12 @@ class ServeEngine:
         eviction, priced as a cache copy instead of a re-prefill) and
         appends the resulting DegradedReport.  The retired server's pools,
         slot cache and graphs are released.  Raises TimeoutError if
-        in-flight work does not clear in ``timeout_s``."""
+        in-flight work does not clear in ``timeout_s``.
+
+        A stream still bound to ``si`` that runs no job there -- its job
+        ended before the step boundary that would have taken its planned
+        migration -- is bound where the drain placed it while the removal
+        waits."""
         with self._recovery_lock:
             self.pool.begin_drain(si)
             report = self.admission.drain_device(
@@ -1836,7 +1867,7 @@ class ServeEngine:
             self.degraded_reports.append(report)
         deadline = time.monotonic() + timeout_s
         while (any(d == si for d in self._active_jobs.values())
-               or self.pool.streams_on(si)):
+               or self._rebind_idle(si)):
             if time.monotonic() > deadline:
                 raise TimeoutError(
                     f"server {si} did not drain within {timeout_s}s")
@@ -1849,6 +1880,22 @@ class ServeEngine:
         if self.paged:
             state = self._paged[si]
             state.pools, state.graphs, state.graph_pool = None, {}, None
+
+    def _rebind_idle(self, si: int) -> list[str]:
+        """Bind each stream that is bound to draining server ``si`` but runs
+        no job there to its admission placement, dropping its planned
+        migration; returns the streams left bound to ``si``."""
+        with self._recovery_lock:
+            for s in self.pool.streams_on(si):
+                d = self.admission.placement.get(s)
+                if self._active_jobs.get(s) == si or d is None or d == si:
+                    continue
+                task = next(t for t in self.admission.devices[d].streams
+                            if t.name == s)
+                self.pool.cancel_migration(s)
+                self.pool.reassign(s, d, utilization=task.G / task.T,
+                                   priority=task.priority)
+            return self.pool.streams_on(si)
 
     # -- occupancy and teardown ---------------------------------------------
     def kv_usage(self) -> dict:

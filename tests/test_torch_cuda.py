@@ -412,7 +412,8 @@ class TestCudaSSDKernels:
     card, at mamba2-780m widths."""
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("rows,q", [(4, 5), (3, 200), (4, 256), (2, 64)])
+    @pytest.mark.parametrize("rows,q", [(4, 5), (3, 200), (4, 256), (2, 64),
+                                        (2, 128)])
     def test_ssd_intra(self, cuda, dtype, rows, q):
         x, dt, da, b, c = _ssd_inputs(30, dtype, rows, q, cuda)
         y, s = ssd_intra(x, dt, da, b, c)
@@ -422,7 +423,7 @@ class TestCudaSSDKernels:
         _close(s, s_want, dtype)
 
     @pytest.mark.parametrize("m", [1, 4])
-    @pytest.mark.parametrize("q", [5, 37, 64, 200, 256])
+    @pytest.mark.parametrize("q", [5, 37, 64, 128, 200, 256])
     @pytest.mark.parametrize("widths", sorted(SSD_TENSOR_CORE_WIDTHS))
     def test_ssd_intra_tensor_cores(self, cuda, widths, q, m):
         p, n = widths
@@ -1501,7 +1502,8 @@ class TestCudaBackwardKernels:
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("m,h,q,p,n", [
         (2, 48, 256, 64, 128), (3, 48, 5, 64, 128), (2, 112, 200, 64, 64),
-        (2, 4, 1, 16, 16), (1, 3, 37, 128, 128)])
+        (2, 4, 1, 16, 16), (1, 3, 37, 128, 128), (4, 48, 128, 64, 128),
+        (4, 48, 64, 64, 128)])
     @pytest.mark.parametrize("cot", ["y", "s", "both"])
     def test_ssd_intra_backward(self, cuda, dtype, m, h, q, p, n, cot):
         """ssd_intra's backward on the model's strided views (x, B, C cut

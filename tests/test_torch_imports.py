@@ -131,3 +131,16 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     eng = ServeEngine(cfg, {}, device="cpu")
     assert eng.device == torch.device("cpu")
     eng.close()
+
+
+@pytest.mark.parametrize("rel", ["launch/steps.py", "launch/dryrun.py"])
+def test_launch_steps_and_dryrun_are_walked(rel):
+    """The step builders and the dry run are in the walk above (no jax, no
+    reference import), and importing them starts no process group and
+    touches no card."""
+    import torch.distributed as dist
+
+    assert PORT / rel in PORT_FILES
+    importlib.import_module("repro_torch." + rel[:-3].replace("/", "."))
+    assert not dist.is_initialized()
+    assert not torch.cuda.is_initialized()

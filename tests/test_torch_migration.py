@@ -344,6 +344,132 @@ class TestEngineMigration:
 
 
 class TestElastic:
+    def test_steal_into_a_draining_server_is_dropped(self, setup):
+        """A steal asked for before its destination began to drain is
+        dropped at the stream's next step boundary: the stream stays on
+        its server (moving it into the draining one would leave that
+        server a stream its drain has already re-placed, and
+        ``remove_server`` would wait for it forever)."""
+        cfg, params, _, _ = setup
+        want = _reference_tokens(cfg, params, PROMPT8)
+        eng = _engine(cfg, params)
+        try:
+            assert eng.admit(_spec("s0", 1)).admitted
+            src = eng.pool.server_of("s0")
+            dst = 1 - src
+            _, d = eng.admission.migrate("s0", dst)
+            assert d == dst and eng.pool.request_migration("s0", dst)
+            eng.pool.begin_drain(dst)
+            assert eng.generate("s0", PROMPT8, steps=STEPS).tokens == want
+            assert eng.pool.server_of("s0") == src
+            assert eng.pool.pending_migration("s0") is None
+            assert eng.migrations_completed == 0
+            _assert_no_leaks(eng)
+        finally:
+            eng.close()
+
+    def test_drain_that_begins_during_the_copy_keeps_the_stream(self, setup):
+        """``remove_server`` of a steal's destination, started while the
+        steal's copy runs: the commit finds the destination draining (or
+        already retired) and refuses it, so the stream keeps its source, the destination's
+        allocation is rolled back, and the removal does not wait for the
+        stream (moving it in would leave the drained server a stream its
+        drain has already re-placed)."""
+        cfg, params, _, _ = setup
+        want = _reference_tokens(cfg, params, PROMPT8)
+        eng = _engine(cfg, params)
+        errors, removal = [], []
+
+        def remove(dst):
+            try:
+                eng.remove_server(dst, timeout_s=30.0)
+            except BaseException as e:  # noqa: BLE001 - asserted below
+                errors.append(e)
+
+        try:
+            assert eng.admit(_spec("s0", 1)).admitted
+            src = eng.pool.server_of("s0")
+            dst = 1 - src
+            _, d = eng.admission.migrate("s0", dst)
+            assert d == dst and eng.pool.request_migration("s0", dst)
+            import_call = eng._import_call
+
+            def drain_mid_copy(si, *args):
+                if not removal:  # the first import: the steal's copy
+                    removal.append(threading.Thread(target=remove,
+                                                    args=(dst,)))
+                    removal[0].start()
+                    deadline = time.monotonic() + 30.0
+                    while (dst in eng.pool.alive_servers()
+                           and dst not in eng.pool.draining()):
+                        assert time.monotonic() < deadline, errors
+                        time.sleep(0.001)
+                return import_call(si, *args)
+
+            eng._import_call = drain_mid_copy
+            assert eng.generate("s0", PROMPT8, steps=STEPS).tokens == want
+            removal[0].join(60.0)
+            assert not removal[0].is_alive() and not errors, errors
+            assert eng.pool.alive_servers() == [src]
+            assert eng.pool.server_of("s0") == src
+            assert eng.pool.pending_migration("s0") is None
+            assert eng.migrations_completed == 0
+            _assert_no_leaks(eng)
+        finally:
+            eng.close()
+
+    def test_remove_server_when_the_job_ends_before_its_migration(
+            self, setup):
+        """``remove_server`` plans a live migration for a stream whose job
+        is in its last decode step: the job ends on the draining server
+        without reaching another step boundary, so the migration is never
+        taken.  The removal binds the finished stream where the drain
+        placed it instead of waiting for it until it times out."""
+        cfg, params, _, _ = setup
+        eng = _engine(cfg, params)
+        errors, removal = [], []
+
+        def remove(si):
+            try:
+                eng.remove_server(si, timeout_s=30.0)
+            except BaseException as e:  # noqa: BLE001 - asserted below
+                errors.append(e)
+
+        try:
+            assert eng.admit(_spec("s0", 1)).admitted
+            src = eng.pool.server_of("s0")
+            run_decode = eng._run_paged_decode
+            calls = []
+
+            def last_step_drains(si):
+                run = run_decode(si)
+
+                def hooked(payloads):
+                    calls.append(si)
+                    if len(calls) == STEPS:  # the job's last decode call
+                        removal.append(threading.Thread(target=remove,
+                                                        args=(src,)))
+                        removal[0].start()
+                        deadline = time.monotonic() + 30.0
+                        while eng.pool.pending_migration("s0") is None:
+                            assert time.monotonic() < deadline, errors
+                            time.sleep(0.001)
+                    return run(payloads)
+
+                return hooked
+
+            eng._run_paged_decode = last_step_drains
+            eng.generate("s0", PROMPT8, steps=STEPS)
+            removal[0].join(60.0)
+            assert not removal[0].is_alive() and not errors, errors
+            assert eng.pool.alive_servers() == [1 - src]
+            assert eng.pool.server_of("s0") == 1 - src
+            assert eng.pool.pending_migration("s0") is None
+            assert eng.migrations_completed == 0
+            _assert_no_leaks(eng)
+        finally:
+            eng.close()
+
     def test_consolidate_then_remove_server(self, setup):
         """Scale-down end to end: grow to 3 servers, consolidate server 0,
         retire it (its pools and graphs are released), and keep serving
