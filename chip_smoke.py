@@ -276,8 +276,9 @@ and prints its peak device memory.
 
 builds the kernels of another checkout (for instance the parent commit,
 unpacked with ``git archive``) and times its ``rmsnorm`` and ``ssd_intra``
-on the same inputs as phase 3, so that two versions are compared on one
-card in one call.
+on the same inputs as phase 3, and its two backward kernels at every
+training shape phase 3 times them at (each with its device time by kernel
+name), so that two versions are compared on one card in one call.
 """
 
 from __future__ import annotations
@@ -379,7 +380,8 @@ SASS_SOURCES = ("decode_attention.cu", "paged_decode_attention.cu",
                 "ssd_intra.cu", "rmsnorm.cu", "flash_attention.cu",
                 "flash_attention_bwd.cu", "ssd_intra_bwd.cu")
 TENSOR_CORE_KERNELS = ("decode_tc_kernel", "ssd_tc_kernel", "flash_tc_kernel",
-                       "dkdv_tc_kernel", "dq_tc_kernel")
+                       "dkdv_tc_kernel", "dq_tc_kernel",
+                       "ssd_bwd_head_tc_kernel", "ssd_bwd_groups_tc_kernel")
 
 
 def start_sass_report(csrc: pathlib.Path, nvcc: str):
@@ -505,6 +507,36 @@ def device_ms(fn, *, iters: int = 50, tries: int = 3) -> float:
         if sum(e.count for e in rows) >= iters:
             return sum(getattr(e, key) for e in rows) / 1e3 / iters
     return float("nan")
+
+
+def device_split(fn, *, iters: int = 20) -> dict[str, float]:
+    """Device time per call of ``fn`` by kernel name, from one
+    torch.profiler window of ``iters`` calls (a multi-kernel launch's
+    share of each kernel)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    _, key, rows = device_kernels(prof)
+    out: dict[str, float] = {}
+    for e in rows:
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("(")[0]
+        out[name] = out.get(name, 0.0) + getattr(e, key) / 1e3 / iters
+    return out
+
+
+def print_split(name: str, split: dict[str, float],
+                tag: str = "split") -> None:
+    total = sum(split.values())
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in
+                      sorted(split.items(), key=lambda kv: -kv[1]))
+    print(f"{tag} {name}: {total:.4f} ms device = {parts}")
 
 
 def device_ms_beside_floor(fn, *, iters: int = 50, tries: int = 3):
@@ -1597,8 +1629,31 @@ class KernelChecks:
                 "rmsnorm_bwd": self.time_rmsnorm_bwd(cfg, 4096)}
         print_rows({"flash_attention_bwd": rows["flash_attention_bwd"]},
                    "SDPA backward")
+        print_split("flash_attention_bwd",
+                    rows["flash_attention_bwd"]["split"])
         print_rows({"rmsnorm_bwd": rows["rmsnorm_bwd"]}, "F.rms_norm backward")
         self.rows.update(rows)
+
+    def time_backward(self, tag: str = "time") -> None:
+        """The two backward kernels' timed rows at every training shape
+        phase 3 times them at, each with its device time by kernel name:
+        ``--kernels-from`` prints these for another checkout's kernels."""
+        from repro_torch.configs.registry import get_config
+
+        cfg = get_config("internlm2_1_8b")
+        rows = {"flash_attention_bwd": self.time_flash_bwd_shape(
+            ("gqa", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, cfg.num_heads,
+             cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, True))}
+        rows.update({f"flash_attention_bwd@{shape[0]}":
+                     self.time_flash_bwd_shape(shape)
+                     for shape in FLASH_BWD_SHAPES})
+        for fam, arch in (("", "mamba2_780m"), ("@hybrid", "zamba2_7b")):
+            rows[f"ssd_intra_bwd{fam}"] = self.time_ssd_intra_bwd(
+                get_config(arch))
+        for name, r in rows.items():
+            print_rows({name: r}, "SDPA backward" if "flash" in name else "",
+                       tag)
+            print_split(name, r["split"], tag.replace("time", "split"))
 
     def time_rmsnorm_bwd(self, cfg, rows):
         """The rmsnorm backward in bf16 on ``rows`` rows of cfg's d_model
@@ -1658,6 +1713,8 @@ class KernelChecks:
                       self.time_flash_bwd_shape(shape)
                       for shape in FLASH_BWD_SHAPES}
         print_rows(flash_rows, "SDPA backward")
+        for name, r in {**rows, **flash_rows}.items():
+            print_split(name, r["split"])
         self.rows.update(rows)
         self.rows.update(flash_rows)
 
@@ -1760,12 +1817,14 @@ class KernelChecks:
         nbytes = m * (2 * q * h * p * el + 4 * q * h * 4 + 4 * q * n * el
                       + q * h * p * 4 + h * n * p * 4)
         flops = 2 * m * (3 * pairs * n + h * (2 * pairs * p + 2 * q * n * p))
-        return timed(
+        row = timed(
             lambda: ssd_intra_bwd(*args, dy, ds),
             lambda: ssd_intra_bwd_plain(*args, dy, ds), None,
             bound_ms(nbytes, flops, dt),
             f"x ({m},{h},{q},{p}), B/C ({m},{q},{n}), dy, ds: "
             f"dx ddt ddA dB dC")
+        row["split"] = device_split(lambda: ssd_intra_bwd(*args, dy, ds))
+        return row
 
     def time_flash_bwd_shape(self, shape):
         """The flash backward in bf16 at one of FLASH_BWD_SHAPES, beside
@@ -1789,7 +1848,7 @@ class KernelChecks:
         # Operations: QK^T and dQ, dK of width H; dO V^T and dV of width Hv
         nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())) * el \
             + 4 * lse.numel()
-        return timed(
+        row = timed(
             lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=causal),
             lambda: flash_attention_bwd_plain(q, k, v, out, lse, do,
                                               causal=causal),
@@ -1799,6 +1858,9 @@ class KernelChecks:
             f"{name}: q ({b},{s},{nq},{h}), k ({b},{sk},{nkv},{h}), v "
             f"({b},{sk},{nkv},{hv}) {'causal' if causal else 'full'}, "
             f"dq dk dv")
+        row["split"] = device_split(
+            lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=causal))
+        return row
 
 
 # ---------------------------------------------------------------------------
@@ -4582,6 +4644,7 @@ def time_kernels_of(tree: pathlib.Path) -> int:
     tag = f"time[{tree.name}]"
     checks.time_rmsnorm(get_config("internlm2_1_8b"), tag)
     checks.time_ssd_intra(get_config("mamba2_780m"), tag)
+    checks.time_backward(tag)
     return 0
 
 

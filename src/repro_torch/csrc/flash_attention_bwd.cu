@@ -30,20 +30,38 @@
 //   * dq: one block per (query tile, query head, batch row); it walks the
 //     key tiles up to the diagonal (causal) or all Sk keys (full),
 //     recomputes P and dS the same way and sums dQ += dS K in registers.
-// Masks: queries past S carry lse 1e30 (P = 0 exactly); keys past Sk are
-// masked where dq sums over them and never written where dk/dv own them.
+// Masks: queries past S carry P = 0; keys past Sk are masked where dq sums
+// over them and never written where dk/dv own them.
 // Two versions of the dk/dv and dq kernels, chosen by dtype:
 //   * bf16, tensor cores (dkdv_tc_kernel, dq_tc_kernel) at (H, Hv) = (64,
 //     64) whisper, (112, 112) zamba2, (128, 128) internlm2 and (192, 128)
-//     MLA: 64-row tiles, 4 warps of 16 rows, operand tiles copied with
-//     cp.async into shared memory padded by 16 bytes a row, every product
-//     an mma.sync.m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix -- S
-//     = QK^T and dP = dO V^T (or their transposes in dkdv) from row-major
-//     tiles, P and dS kept in registers and rounded to bf16 as the A
-//     operand of the next product, as the forward rounds P; one tile of
-//     each operand at a time, no pipeline.  dkdv holds (H + Hv) / 2 fp32
-//     accumulators a thread: at (192, 128) that is 160, so it may spill
-//     (phase 2 of chip_smoke.py prints the count);
+//     MLA: 64-row tiles, 4 warps of 16 rows, every product an
+//     mma.sync.m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix from
+//     shared memory padded by 16 bytes a row -- S = QK^T and dP = dO V^T
+//     (or their transposes in dkdv) from row-major tiles, P and dS kept in
+//     registers and rounded to bf16 as the A operand of the next product,
+//     as the forward rounds P.  What held the first version (PR 23) back,
+//     and what this one does about it:
+//       - it waited for each streamed tile before computing on it: the
+//         streamed operand (dkdv: Q, dO, lse and D; dq: K and V) now runs
+//         through a ring of two cp.async stages, the next tile landing
+//         while this one is computed -- except at (192, 128), where two
+//         stages (130 KB) leave room for one block an SM and one stage
+//         (86 KB) for two, which measured faster (PERF.md, PR 26);
+//       - the blocks of one head ran heaviest first but one head after
+//         another, so the lightest causal tiles of the last heads made the
+//         tail: the grid now puts the tile index last (blockIdx.y), so the
+//         heaviest tiles of every head start first;
+//       - a warp holds its 16 x 64 S and dP tiles (64 fp32 registers)
+//         beside (H + Hv) / 2 accumulators, and dkdv spills 24-240 bytes
+//         from (112, 112) up (phase 2 of chip_smoke.py prints the counts).
+//         Taking the tile's columns 32 at a time did not bring dkdv under
+//         255 registers and ran slower at (128, 128) and (192, 128), so
+//         the tiles stay 64 wide;
+//     dq still recomputes S and dP: 7 S x Sk products where a fused pass
+//     does 5, the price of summing dQ without atomics or an fp32 scratch
+//     round trip per key tile (which at S 1024 would move more bytes than
+//     the two products cost);
 //   * fp32, CUDA cores (dkdv_kernel, dq_kernel) at the same widths and the
 //     reduced configs' (16, 16), (24, 16) and (32, 32): 32-row tiles staged
 //     in shared memory, rows padded to H + 1 (Hv + 1) floats so the 32
@@ -322,10 +340,23 @@ struct TcLayout {
   static constexpr int kSV = HV + 8;  // v and do tiles
   static constexpr int kT = kTile * kS;
   static constexpr int kTV = kTile * kSV;
-  // q, k, v and do tiles, then the tile's lse (log2 domain) and D rows
-  static constexpr size_t kBytes =
-      sizeof(bf16) * (2 * kT + 2 * kTV) + sizeof(float) * 2 * kTile;
+  // stages of the ring of streamed tiles: two, but one at (192, 128), where
+  // two would leave room for one block an SM (dkdv's registers allow two)
+  static constexpr int kStages = H + HV > 256 ? 1 : 2;
+  // a (q or k, do or v) pair of tiles; the streamed stage adds two rows of
+  // floats (dkdv: the tile's lse and D)
+  static constexpr size_t kPair = sizeof(bf16) * (kT + kTV);
+  static constexpr size_t kStage = kPair + sizeof(float) * 2 * kTile;
+  // the resident pair, its rows of floats (dq: lse and D) and the ring
+  static constexpr size_t kBytes = kPair + sizeof(float) * 2 * kTile + kStages * kStage;
 };
+
+// 4-byte global -> shared copy; with valid == false the word is zeroed
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
 
 // acc (16 rows x 64 cols, C fragments) = A[a_row0, +16) . B[0, 64)^T over
 // width W, A and B row-major (rows, W) tiles in shared memory of row stride S
@@ -397,15 +428,19 @@ __device__ __forceinline__ const bf16* head_rows(const bf16* t, int b, int n, in
   return t + (static_cast<long long>(b) * rows * heads + n) * w;
 }
 
-// One block per (64-key tile, kv head, batch row); warp w owns keys
-// [16 w, 16 w + 16) of the tile and sums their dK and dV rows in registers
-// over the g query heads and the query tiles that see the key tile.
-// Per query tile (S^T = K Q^T; rows keys, columns queries):
-// P^T = exp2(S^T scale log2e - lse2), dV += P^T dO, dP^T = V dO^T,
-// dS^T = P^T (dP^T - D), dK += dS^T Q; P^T and dS^T become the A
+// One block per (kv head and batch row, 64-key tile), the key tiles in
+// order (when causal the first sees the most query tiles, so the heaviest
+// blocks of every head start first); warp w owns keys [16 w, 16 w + 16)
+// of the tile and sums their dK and dV rows in registers over the g query
+// heads and the query tiles that see the key tile.  K and V stay in shared
+// memory; the query tiles (Q, dO, lse, D) stream through the ring of
+// cp.async stages, the next tile landing while this one is computed.  Per
+// query tile (S^T = K Q^T; rows keys, columns queries): P^T = exp2(S^T
+// scale log2e - lse log2e), dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T
+// - D), dK += dS^T Q; P^T and dS^T become the A
 // operands in registers, rounded to bf16 (the forward's P is too).  Keys
 // past Sk are rows of this block that are never written; queries past S
-// have P = 0 through their lse.
+// are masked.
 template <int H, int HV>
 __global__ void __launch_bounds__(kThreads)
 dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -417,13 +452,10 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);
   bf16* sv = sk + L::kT;
-  bf16* sq = sv + L::kTV;
-  bf16* sdo = sq + L::kT;
-  float* slse = reinterpret_cast<float*>(sdo + L::kTV);
-  float* sdelta = slse + kTile;
+  unsigned char* ring = smem_raw + L::kPair + sizeof(float) * 2 * kTile;
 
-  const int j0 = blockIdx.x * kTile;  // the first key tiles see the most query tiles: first
-  const int kvh = blockIdx.y, b = blockIdx.z, g = nq / nkv;
+  const int kvh = blockIdx.x % nkv, b = blockIdx.x / nkv, g = nq / nkv;
+  const int j0 = blockIdx.y * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, quad = lane & 3;
   const long long q_rs = static_cast<long long>(nq) * H, do_rs = static_cast<long long>(nq) * HV;
   const long long k_rs = static_cast<long long>(nkv) * H, v_rs = static_cast<long long>(nkv) * HV;
@@ -433,6 +465,29 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   copy_rows_async<kTile, HV, kThreads>(sv, L::kSV, head_rows(v, b, kvh, seq_k, nkv, HV), v_rs,
                                        j0, seq_k);
   cp_async_commit();
+
+  // the walk: for each of the g heads, the query tiles at or past the keys
+  // (causal) or every query tile (full)
+  const int first = causal ? j0 : 0;
+  const int per_head = (seq - first + kTile - 1) / kTile;
+  const int total = g * per_head;
+  auto issue = [&](int t) {
+    const int gi = t / per_head, i0 = first + (t - gi * per_head) * kTile, n = kvh * g + gi;
+    bf16* sq = reinterpret_cast<bf16*>(ring + (t % L::kStages) * L::kStage);
+    bf16* sdo = sq + L::kT;
+    float* slse = reinterpret_cast<float*>(sdo + L::kTV);
+    copy_rows_async<kTile, H, kThreads>(sq, L::kS, head_rows(q, b, n, seq, nq, H), q_rs, i0, seq);
+    copy_rows_async<kTile, HV, kThreads>(sdo, L::kSV, head_rows(dout, b, n, seq, nq, HV), do_rs,
+                                         i0, seq);
+    if (threadIdx.x < kTile) {
+      const int r = threadIdx.x;
+      const bool ok = i0 + r < seq;
+      const long long at = ok ? (static_cast<long long>(b) * nq + n) * seq + i0 + r : 0;
+      cp_async_4(slse + r, lse + at, ok);
+      cp_async_4(slse + kTile + r, delta + at, ok);
+    }
+    cp_async_commit();
+  };
 
   float dka[H / 8][4], dva[HV / 8][4];
 #pragma unroll
@@ -445,46 +500,50 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) dva[i][e] = 0.f;
   const int key0 = warp * 16 + (lane >> 2);  // this lane's keys (in the tile): key0, key0 + 8
 
-  for (int gi = 0; gi < g; ++gi) {
-    const int n = kvh * g + gi;
-    // causal: the query tiles at or past the keys; full: every query tile
-    for (int i0 = causal ? j0 : 0; i0 < seq; i0 += kTile) {
-      __syncthreads();  // the previous tile's readers are done
-      copy_rows_async<kTile, H, kThreads>(sq, L::kS, head_rows(q, b, n, seq, nq, H), q_rs, i0,
-                                          seq);
-      copy_rows_async<kTile, HV, kThreads>(sdo, L::kSV, head_rows(dout, b, n, seq, nq, HV),
-                                           do_rs, i0, seq);
-      cp_async_commit();
-      load_tc_rows(slse, sdelta, lse, delta, b, n, nq, i0, seq);
+  if (L::kStages > 1) issue(0);
+  for (int t = 0; t < total; ++t) {
+    if (L::kStages == 1) {
+      issue(t);
       cp_async_wait<0>();
-      __syncthreads();
-      const bool diag = causal && i0 == j0;
-
-      float s[8][4];  // S^T, then P^T
-      gemm_nt<H, L::kS>(s, sk, warp * 16, sq, lane);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * quad + (e & 1);  // query (in the tile)
-          const float p = exp2f(s[nt][e] * scale_log2 - slse[col]);
-          s[nt][e] = diag && col < key0 + (e >> 1) * 8 ? 0.f : p;
-        }
-      uint32_t pf[4][4];
-      to_a_frags(pf, s);
-      gemm_pc<HV, L::kSV>(dva, pf, sdo, lane);
-
-      float dp[8][4];  // dP^T, then dS^T
-      gemm_nt<HV, L::kSV>(dp, sv, warp * 16, sdo, lane);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[nt][e] = s[nt][e] * (dp[nt][e] - sdelta[nt * 8 + 2 * quad + (e & 1)]);
-      uint32_t dsf[4][4];
-      to_a_frags(dsf, dp);
-      gemm_pc<H, L::kS>(dka, dsf, sq, lane);
+    } else if (t + 1 < total) {
+      issue(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();  // tile t (and K, V) landed for every thread
+    const int i0 = first + (t % per_head) * kTile;
+    const bf16* sq = reinterpret_cast<const bf16*>(ring + (t % L::kStages) * L::kStage);
+    const bf16* sdo = sq + L::kT;
+    const float* slse = reinterpret_cast<const float*>(sdo + L::kTV);
+    const float* sdelta = slse + kTile;
+    const bool diag = causal && i0 == j0;
+
+    float s[8][4];  // S^T, then P^T
+    gemm_nt<H, L::kS>(s, sk, warp * 16, sq, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * quad + (e & 1);  // query (in the tile)
+        const float p = exp2f(s[nt][e] * scale_log2 - slse[col] * kLog2e);
+        s[nt][e] = i0 + col >= seq || (diag && col < key0 + (e >> 1) * 8) ? 0.f : p;
+      }
+    uint32_t pf[4][4];
+    to_a_frags(pf, s);
+    gemm_pc<HV, L::kSV>(dva, pf, sdo, lane);
+
+    float dp[8][4];  // dP^T, then dS^T
+    gemm_nt<HV, L::kSV>(dp, sv, warp * 16, sdo, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[nt][e] = s[nt][e] * (dp[nt][e] - sdelta[nt * 8 + 2 * quad + (e & 1)]);
+    uint32_t dsf[4][4];
+    to_a_frags(dsf, dp);
+    gemm_pc<H, L::kS>(dka, dsf, sq, lane);
+    __syncthreads();  // tile t's readers are done: its stage takes the next tile
   }
 
   const long long kv_at = static_cast<long long>(b) * seq_k * nkv + kvh;
@@ -504,11 +563,14 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// One block per (64-query tile, query head, batch row); warp w owns query
+// One block per (query head and batch row, 64-query tile), the last query
+// tile first (when causal it sees the most key tiles); warp w owns query
 // rows [16 w, 16 w + 16) and sums their dQ in registers over the key tiles
-// up to the diagonal (causal) or over all Sk keys (full): S = Q K^T, P =
-// exp2(S scale log2e - lse2), dP = dO V^T, dS = P (dP - D), dQ += dS K.
-// Keys past Sk (the ragged last tile) get P = 0.
+// up to the diagonal (causal) or over all Sk keys (full).  Q, dO, lse and
+// D stay in shared memory; the key tiles (K, V) stream through the ring
+// of cp.async stages.  Per key tile: S = Q K^T, P = exp2(S scale
+// log2e - lse log2e), dP = dO V^T, dS = P (dP - D), dQ += dS K.  Keys past
+// Sk (the ragged last tile) get P = 0.
 template <int H, int HV>
 __global__ void __launch_bounds__(kThreads)
 dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -519,13 +581,12 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
   bf16* sdo = sq + L::kT;
-  bf16* sk = sdo + L::kTV;
-  bf16* sv = sk + L::kT;
-  float* slse = reinterpret_cast<float*>(sv + L::kTV);
+  float* slse = reinterpret_cast<float*>(sdo + L::kTV);
   float* sdelta = slse + kTile;
+  unsigned char* ring = smem_raw + L::kPair + sizeof(float) * 2 * kTile;
 
-  const int i0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // the longest causal sweeps first
-  const int n = blockIdx.y, b = blockIdx.z, kvh = n / (nq / nkv);
+  const int n = blockIdx.x % nq, b = blockIdx.x / nq, kvh = n / (nq / nkv);
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, quad = lane & 3;
   const long long q_rs = static_cast<long long>(nq) * H, do_rs = static_cast<long long>(nq) * HV;
   const long long k_rs = static_cast<long long>(nkv) * H, v_rs = static_cast<long long>(nkv) * HV;
@@ -536,21 +597,37 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   cp_async_commit();
   load_tc_rows(slse, sdelta, lse, delta, b, n, nq, i0, seq);
 
+  const bf16* kb = head_rows(k, b, kvh, seq_k, nkv, H);
+  const bf16* vb = head_rows(v, b, kvh, seq_k, nkv, HV);
+  const int j_end = causal ? i0 + 1 : seq_k;  // causal: up to the diagonal tile
+  const int total = (j_end + kTile - 1) / kTile;
+  auto issue = [&](int t) {
+    bf16* sk = reinterpret_cast<bf16*>(ring + (t % L::kStages) * L::kStage);
+    copy_rows_async<kTile, H, kThreads>(sk, L::kS, kb, k_rs, t * kTile, seq_k);
+    copy_rows_async<kTile, HV, kThreads>(sk + L::kT, L::kSV, vb, v_rs, t * kTile, seq_k);
+    cp_async_commit();
+  };
+
   float dqa[H / 8][4];
 #pragma unroll
   for (int i = 0; i < H / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
   const int row0 = warp * 16 + (lane >> 2);  // this lane's rows (in the tile): row0, row0 + 8
-  const bf16* kb = head_rows(k, b, kvh, seq_k, nkv, H);
-  const bf16* vb = head_rows(v, b, kvh, seq_k, nkv, HV);
 
-  const int j_end = causal ? i0 + 1 : seq_k;  // causal: up to the diagonal tile
-  for (int j0 = 0; j0 < j_end; j0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    copy_rows_async<kTile, H, kThreads>(sk, L::kS, kb, k_rs, j0, seq_k);
-    copy_rows_async<kTile, HV, kThreads>(sv, L::kSV, vb, v_rs, j0, seq_k);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
+  if (L::kStages > 1) issue(0);
+  for (int t = 0; t < total; ++t) {
+    if (L::kStages == 1) {
+      issue(t);
+      cp_async_wait<0>();
+    } else if (t + 1 < total) {
+      issue(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and Q, dO, lse, D) landed for every thread
+    const int j0 = t * kTile;
+    const bf16* sk = reinterpret_cast<const bf16*>(ring + (t % L::kStages) * L::kStage);
+    const bf16* sv = sk + L::kT;
     const bool diag = causal && j0 == i0;
     const int cols = seq_k - j0;  // keys of the tile inside Sk
 
@@ -574,6 +651,7 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
     uint32_t dsf[4][4];
     to_a_frags(dsf, dp);
     gemm_pc<H, L::kS>(dqa, dsf, sk, lane);
+    __syncthreads();  // tile t's readers are done: its stage takes the next tile
   }
 
 #pragma unroll
@@ -612,12 +690,12 @@ int launch_tc(const Args& a, cudaStream_t s) {
       static_cast<const bf16*>(a.o), dot, a.delta, rows, a.seq, a.nq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_tc_kernel<H, HV><<<dim3((a.seq_k + kTile - 1) / kTile, a.nkv, a.b), kThreads, bytes, s>>>(
+  dkdv_tc_kernel<H, HV><<<dim3(a.nkv * a.b, (a.seq_k + kTile - 1) / kTile), kThreads, bytes, s>>>(
       qt, kt, vt, dot, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.seq,
       a.seq_k, a.nq, a.nkv, a.causal, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_tc_kernel<H, HV><<<dim3((a.seq + kTile - 1) / kTile, a.nq, a.b), kThreads, bytes, s>>>(
+  dq_tc_kernel<H, HV><<<dim3(a.nq * a.b, (a.seq + kTile - 1) / kTile), kThreads, bytes, s>>>(
       qt, kt, vt, dot, a.lse, a.delta, static_cast<bf16*>(a.dq), a.seq, a.seq_k, a.nq, a.nkv,
       a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());

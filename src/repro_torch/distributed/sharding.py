@@ -217,6 +217,82 @@ def _constrain(x, spec: P):
     return x.redistribute(rules.mesh, want)
 
 
+def _whole_partials(y):
+    pls = list(y.placements)
+    want = [Replicate() if isinstance(p, Partial)
+            and y.shape[0] % y.device_mesh.size(i) else p
+            for i, p in enumerate(pls)]
+    return y if want == pls else y.redistribute(placements=want)
+
+
+class _PartialRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y):
+        return _whole_partials(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_partials(g) if isinstance(g, DTensor) else g
+
+
+def reduce_partial_rows(y):
+    """``y`` (a DTensor; else as it is), and its gradient, with each
+    ``Partial()`` placement reduced to ``Replicate()`` on a mesh dim that
+    does not divide the rows (dim 0).  A product against a weight sharded
+    over the batch axes (FSDP) on rows left whole is partial over those
+    axes, and so is the gradient that such a product sends back; the
+    pointwise op that meets either next would reduce-scatter it over the
+    rows however few they are: an uneven shard, which DTensor's views and
+    ``local_map`` refuse.  Where the rows divide, DTensor's own choice
+    stands."""
+    if not isinstance(y, DTensor):
+        return y
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _PartialRows.apply(y)
+    return _whole_partials(y)
+
+
+def dense(x, w):
+    """``x @ w`` for activations ``x`` (..., d) and a weight ``w`` (d, f).
+    On DTensors under grad (a train step), a split of ``w``'s contraction
+    dim over a mesh dim on which ``x`` is whole -- FSDP's storage split
+    over batch axes that leave the rows unsharded -- is gathered first, as
+    FSDP gathers a weight for its products: the product then sums as the
+    unsharded step does.  Without grad the split stays (the serving
+    layouts keep weights sharded and combine the partial sums), and
+    :func:`reduce_partial_rows` settles what it leaves."""
+    mesh = mesh_of(x, w)
+    if mesh is not None and isinstance(w, DTensor) and torch.is_grad_enabled():
+        xp = as_dtensor(x, mesh).placements
+        want = [Replicate() if isinstance(p, Shard) and p.dim == 0
+                and isinstance(xp[i], Replicate) else p
+                for i, p in enumerate(w.placements)]
+        if want != list(w.placements):
+            w = w.redistribute(placements=want)
+    return reduce_partial_rows(torch.matmul(x, w))
+
+
+def _unstrided(x):
+    """``x`` (a DTensor; else as it is) with no ``_StridedShard``.  Such a
+    placement ``(d, split_factor=sf)`` is what a view leaves when it merges
+    a dim split over one mesh dim into a dim before it: dim ``d`` viewed
+    back as ``(sf, size / sf)`` makes it a plain shard of the inner dim,
+    which is gathered before the two are merged again.  (Redistributing
+    the strided layout directly can fail inside DTensor.)"""
+    if not isinstance(x, DTensor):
+        return x
+    strided = [p for p in x.placements if hasattr(p, "split_factor")]
+    if not strided:
+        return x
+    d, sf = strided[0].dim, strided[0].split_factor
+    shape = list(x.shape)
+    y = x.view(*shape[:d], sf, shape[d] // sf, *shape[d + 1:])
+    y = y.redistribute(placements=[
+        Replicate() if getattr(p, "dim", None) == d + 1 else p
+        for p in y.placements])
+    return _unstrided(y.flatten(d, d + 1))
+
+
 def local_call(fn, args, arg_placements, out_placements, grad_placements=None):
     """``fn(*args)`` on the local shards of DTensor ``args`` (each
     redistributed to its entry of ``arg_placements``; None for a
@@ -224,7 +300,11 @@ def local_call(fn, args, arg_placements, out_placements, grad_placements=None):
     ``grad_placements`` (optional, per arg) are the placements of each
     argument's gradient, e.g. ``Partial()`` for a replicated weight that
     meets batch-sharded rows.  The kernel wrappers run their launches
-    through this, so a launch only ever sees local tensors."""
+    through this, so a launch only ever sees local tensors.  An argument
+    split by a ``_StridedShard`` (a view that merged a dim split over one
+    mesh axis into one split over another) has that tensor dim gathered
+    first: ``local_map``'s own redistribute may fail on it."""
+    args = [_unstrided(a) for a in args]
     return local_map(fn, out_placements=out_placements,
                      in_placements=tuple(arg_placements),
                      in_grad_placements=(None if grad_placements is None
@@ -237,19 +317,21 @@ def kernel_plan(mesh, anchor, heads=(), *, batch: bool = True) -> list:
     "batch" where the DTensor ``anchor``'s rows (dim 0) are sharded (and
     ``batch``), else "heads" while every count in ``heads`` divides by the
     mesh dim's size (the splits already taken out), else None (that mesh
-    dim's shards are gathered)."""
-    plan, counts = [], list(heads)
+    dim's shards are gathered).  The mesh dims that already shard one of
+    the anchor's other dims (its heads, as the cache rules lay a state
+    out) take the heads first, so the anchor keeps its layout where it
+    can; the rest follow in mesh order."""
     pls = anchor.placements if isinstance(anchor, DTensor) else \
         [Replicate()] * mesh.ndim
-    for i, p in enumerate(pls):
+    plan: list = ["batch" if batch and isinstance(p, Shard) and p.dim == 0
+                  else None for p in pls]
+    counts = list(heads)
+    held = [i for i, p in enumerate(pls) if isinstance(p, Shard) and p.dim]
+    for i in held + [i for i in range(mesh.ndim) if i not in held]:
         n = mesh.size(i)
-        if batch and isinstance(p, Shard) and p.dim == 0:
-            plan.append("batch")
-        elif counts and all(c % n == 0 for c in counts):
-            plan.append("heads")
+        if plan[i] is None and counts and all(c % n == 0 for c in counts):
+            plan[i] = "heads"
             counts = [c // n for c in counts]
-        else:
-            plan.append(None)
     return plan
 
 

@@ -56,7 +56,8 @@ SIGNATURES = {
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "ssd_intra_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_L), _I, _I, _P],
-    "ssd_intra_bwd_launch": [_P] * 13 + [_I] * 5 + [ctypes.POINTER(_L), _I, _P],
+    "ssd_intra_bwd_launch": [_P] * 13 + [_I] * 5 + [ctypes.POINTER(_L), _I, _I,
+                                                    _P],
     "ssd_slab_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],

@@ -203,8 +203,10 @@ def ssd_intra_bwd(x, dt, dA, B, C, dy, ds):
     """(dx, ddt, ddA, dB, dC) of :func:`ssd_intra` from its inputs and the
     cotangents dy (M,H,Q,P) fp32 of y and ds (M,H,N,P) fp32 of s.  CPU
     tensors take the plain version; CUDA tensors launch the backward
-    kernel, which takes Q <= 256, P <= 128, N <= 128 and strided x, B, C
-    and dy with a unit-stride last axis, and raises ``ValueError`` (or
+    kernel (on the tensor cores on :func:`ssd_intra_route`'s tensor-core
+    route, else on the CUDA cores), which takes Q <= 256, P <= 128, N <= 128
+    and strided x, B, C and dy with a unit-stride last axis, and raises
+    ``ValueError`` (or
     ``TypeError`` for a dtype) before any launch for anything else.  dx
     comes back as a (M,H,Q,P) view of a (M,Q,H,P) buffer (x's layout in
     the model), ddt and ddA fp32, dB and dC in B's dtype."""
@@ -231,11 +233,19 @@ def ssd_intra_bwd(x, dt, dA, B, C, dy, ds):
     dC = torch.empty((m, q, n), dtype=C.dtype, device=dev)
     if m == 0:
         return dx, ddt, ddA, dB, dC
+    route = ssd_intra_route(x, B, C)
     # fp32 scratch: seg, R's column sums, v e (M,H,Q each); R's row sums
     # per 64-wide tile pair (M,H,ceil(Q/64),Q); C B^T and dG summed over the
-    # heads (M,Q,Q each)
-    scratch = torch.empty(m * h * q * (3 + -(-q // 64)) + 2 * m * q * q,
-                          dtype=torch.float32, device=dev)
+    # heads (M,Q,Q each); on the tensor cores also dy's and ds's bf16 pairs
+    # (M,H,P,Q+N in floats), the dB head term (M,Q,N) and the partial sums
+    # of G = min(H, 8) head groups (G (M,Q,Q + M,Q,N)), each region 16-byte
+    # aligned
+    size = m * h * q * (3 + -(-q // 64)) + 2 * m * q * q
+    if route == "tensor_cores":
+        groups = min(h, 8)
+        size += (m * h * p * (q + n) + m * q * n * (1 + groups)
+                 + groups * m * q * q + 16)
+    scratch = torch.empty(size, dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 19)(
         *x.stride()[:3], *dt.stride(), *dA.stride(), *B.stride()[:2],
         *C.stride()[:2], *dy.stride()[:3], *dx.stride()[:3])
@@ -244,7 +254,7 @@ def ssd_intra_bwd(x, dt, dA, B, C, dy, ds):
                   dy.data_ptr(), ds.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
                   ddA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
                   scratch.data_ptr(), m, h, q, p, n, strides, dtype,
-                  _build.stream_of(x))
+                  int(route == "tensor_cores"), _build.stream_of(x))
     return dx, ddt, ddA, dB, dC
 
 

@@ -295,7 +295,7 @@ def init_attention(cfg, generator, dtype, device) -> Params:
 def _project(x, w):
     """x (B, S, d) @ w (d, n, h) -> (B, S, n, h)."""
     d, n, h = w.shape
-    out = shd.whole_heads(torch.matmul(x, shd.merge_heads(w, 1)), n)
+    out = shd.whole_heads(shd.dense(x, shd.merge_heads(w, 1)), n)
     return out.view(*x.shape[:-1], n, h)
 
 
@@ -517,8 +517,8 @@ def init_mlp(cfg, generator, dtype, device, d_ff: int | None = None) -> Params:
 
 def mlp(cfg, p: Params, x):
     if "w_gate" in p:
-        h = F.silu(torch.matmul(x, p["w_gate"])) * torch.matmul(x, p["w_up"])
+        h = F.silu(shd.dense(x, p["w_gate"])) * shd.dense(x, p["w_up"])
     else:  # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(torch.matmul(x, p["w_up"]), approximate="tanh")
-    h = shd.shard_ffn(h)
+        h = F.gelu(shd.dense(x, p["w_up"]), approximate="tanh")
+    h = shd.shard_ffn(shd.reduce_partial_rows(h))
     return torch.matmul(h, p["w_down"])

@@ -67,9 +67,10 @@ def _in_projections(cfg, p: Params, x):
     d_in = cfg.d_inner
     cdim = conv_dim(cfg)
     if "in_proj" in p:
-        return torch.split(x @ p["in_proj"], [d_in, cdim, cfg.ssm_nheads],
-                           dim=-1)
-    return x @ p["z_proj"], x @ p["xbc_proj"], x @ p["dt_proj"]
+        return torch.split(shd.dense(x, p["in_proj"]),
+                           [d_in, cdim, cfg.ssm_nheads], dim=-1)
+    return (shd.dense(x, p["z_proj"]), shd.dense(x, p["xbc_proj"]),
+            shd.dense(x, p["dt_proj"]))
 
 
 def _causal_conv(x, w, b):

@@ -438,7 +438,7 @@ def _logits(x, table):
         if torch.is_grad_enabled() and (x.requires_grad or table.requires_grad):
             return _LogitsGemm.apply(x2, table).view(b, s, -1)
         return torch.mm(x2, table, out_dtype=torch.float32).view(b, s, -1)
-    return torch.matmul(x.float(), table.float())
+    return shd.dense(x.float(), table.float())
 
 
 def forward(cfg, params, batch, *, mode: str, cache=None, remat: bool = False,

@@ -268,7 +268,8 @@ class _PagedState:
 
 class ServeEngine:
     def __init__(self, cfg, params, *, max_seq: int = 128,
-                 ordering: str = "priority", admission_cores: int = 2,
+                 batch_size: int = 1, ordering: str = "priority",
+                 admission_cores: int = 2,
                  epsilon_ms: float = 0.05, kv_blocks: int = 0,
                  kv_block_size: int = 16, num_servers: int = 1,
                  batching: bool = False, max_batch: int = 8,
@@ -299,6 +300,7 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
+        self.batch_size = batch_size
         self.batching = batching
         self.paged = paged
         self.max_batch = max_batch

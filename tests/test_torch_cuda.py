@@ -1474,7 +1474,15 @@ class TestCudaBackwardKernels:
         (2, 100, 100, 16, 16, 64, 64, False),    # whisper's encoder
         (2, 1, 150, 16, 16, 64, 64, False),      # its cross-attention
         (2, 40, 150, 16, 16, 64, 64, False),
-        (1, 70, 150, 16, 16, 64, 64, False)])
+        (1, 70, 150, 16, 16, 64, 64, False),
+        # the ragged edges of the 64-row tiles and of the 32-column
+        # sub-tiles that (128, 128) and (192, 128) take: one row past a
+        # tile, a sub-tile and a half, grouped heads over four tiles
+        (1, 97, 97, 4, 2, 128, 128, True),
+        (2, 65, 65, 8, 8, 192, 128, True),
+        (1, 33, 161, 4, 4, 192, 128, False),
+        (1, 129, 129, 4, 4, 112, 112, False),
+        (1, 200, 200, 16, 4, 64, 64, True)])
     def test_flash_backward_wide(self, cuda, dtype, b, s, sk, nq, nkv, h, hv,
                                  causal):
         """The widened backward: Hv != H, full attention with a key length
@@ -1503,7 +1511,10 @@ class TestCudaBackwardKernels:
     @pytest.mark.parametrize("m,h,q,p,n", [
         (2, 48, 256, 64, 128), (3, 48, 5, 64, 128), (2, 112, 200, 64, 64),
         (2, 4, 1, 16, 16), (1, 3, 37, 128, 128), (4, 48, 128, 64, 128),
-        (4, 48, 64, 64, 128)])
+        (4, 48, 64, 64, 128),
+        # the tensor-core route's edges: zamba2 at a whole chunk, 9 heads
+        # in 8 groups of 2 (the last three empty), one row past a tile
+        (2, 112, 256, 64, 64), (2, 9, 200, 64, 128), (1, 48, 65, 64, 64)])
     @pytest.mark.parametrize("cot", ["y", "s", "both"])
     def test_ssd_intra_backward(self, cuda, dtype, m, h, q, p, n, cot):
         """ssd_intra's backward on the model's strided views (x, B, C cut
@@ -1536,6 +1547,46 @@ class TestCudaBackwardKernels:
         again = ssd_intra_bwd(x, dt, da, b, c, dy, ds)
         torch.cuda.synchronize()
         assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+    @pytest.mark.parametrize("kernel", ["flash_attention_bwd",
+                                        "ssd_intra_bwd"])
+    def test_backward_reruns_bit_identical(self, cuda, kernel):
+        """Five runs of each backward kernel in bf16 at a training shape,
+        with other launches in between to move the blocks' schedule, give
+        the same bits: every sum has a fixed order (no float atomics)."""
+        from repro_torch.kernels.flash_attention import flash_attention_bwd
+        from repro_torch.kernels.ssd_scan import ssd_intra_bwd, ssd_intra_route
+
+        if kernel == "flash_attention_bwd":
+            q, k, v, do = _inputs(51, "bfloat16", (2, 300, 16, 128),
+                                  (2, 300, 8, 128), (2, 300, 8, 128),
+                                  (2, 300, 16, 128), device=cuda)
+            o, lse = flash_attention_plain(q, k, v, with_lse=True)
+
+            def run():
+                return flash_attention_bwd(q, k, v, o, lse, do)
+        else:
+            m, h, n, p = 4, 48, 128, 64
+            xbc = _inputs(52, "bfloat16", (m, 256, h * p + 2 * n),
+                          device=cuda)[0]
+            x = xbc[..., :h * p].view(m, 256, h, p).permute(0, 2, 1, 3)
+            b, c = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+            assert ssd_intra_route(x, b, c) == "tensor_cores"
+            dt = torch.nn.functional.softplus(
+                _inputs(53, "float32", (m, h, 256), device=cuda)[0])
+            da = torch.round(dt * -0.5 * 1024) / 1024
+            dy, ds = _inputs(54, "float32", (m, h, 256, p), (m, h, n, p),
+                             device=cuda)
+
+            def run():
+                return ssd_intra_bwd(x, dt, da, b, c, dy, ds)
+        first = run()
+        noise = torch.randn(1 << 20, device=cuda)
+        for _ in range(4):
+            noise = noise.sin()
+            again = run()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, g) for a, g in zip(again, first))
 
     def test_ssd_intra_function_end_to_end(self, cuda):
         """Under grad ssd_intra launches its forward once and, on backward,

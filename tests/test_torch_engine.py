@@ -300,3 +300,18 @@ def test_remove_frees_held_blocks(setup):
         assert eng.kv_blocks_in_use() == 0
     finally:
         eng.close()
+
+
+def test_batch_size_keyword_as_the_reference_takes_it(setup):
+    # the reference's engine takes and stores batch_size (tests/test_serving.py
+    # builds it so); the port takes the same keyword and serves with it
+    cfg, params, _, _ = setup
+    eng = ServeEngine(cfg, params, max_seq=32, batch_size=1, device="cpu")
+    try:
+        assert eng.batch_size == 1
+        assert eng.admit(_spec("bs", 1, steps=3)).admitted
+        res = eng.generate("bs", np.array([[1, 2, 3, 4]], np.int32), steps=3)
+        assert len(res.tokens) == 3
+        assert all(0 <= t < cfg.vocab_size for t in res.tokens)
+    finally:
+        eng.close()
