@@ -30,7 +30,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    deepseek-v2-lite-16b widths (latent pools, lengths on both sides of
    every KV split boundary, identity-table views of width 16 and 32), and
    every kernel of the hybrid path again at zamba2-7b widths (rmsnorm on
-   rows of 3584 and of the gated norm's 7168, with the route each takes;
+   rows of 3584 and of the gated norm's 7168, both in registers in bf16;
    the attention kernels at 32/32 heads of 112, group size 1; the SSD
    kernels at 112 heads of P 64, N 64), and every kernel of the enc-dec
    path at whisper-medium widths (rmsnorm at 1024 in registers; the
@@ -53,7 +53,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (4,1024,16,192/128) and zamba2 (4,1024,32,112) causal, whisper's
    encoder (4,1500,16,64) full and its cross-attention, S 1, 40 and 448
    against Sk 1500, with the forward's lse at each; the rmsnorm backward
-   at every family width, 512-7168) -- then its median time beside the
+   at every family width, 512-7168, on 1, 5, 4096 and 6000 rows) -- then
+   its median time beside the
    plain version's, the library call's (where one PyTorch call computes
    the same function) and its bound, each kernel's and library call's
    device time per call from one profiler window, a ranking by device
@@ -68,9 +69,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    own, and the encoder's flash, for information; the VLM path's flash,
    decode pair and rmsnorm as timed rows of their own; the two backward
    kernels at the training shape beside the backward of SDPA and of
-   ``F.rms_norm``, ``ssd_intra``'s backward at mamba2's and zamba2's
-   training shapes, the flash backward at each of the families' shapes
-   beside SDPA's);
+   ``F.rms_norm``, the rmsnorm backward at (4096, D) for every training
+   width and at whisper's (6000, 1024), each with its device time by
+   kernel name (row pass, dw pass), ``ssd_intra``'s backward at mamba2's
+   and zamba2's training shapes, the flash backward at each of the
+   families' shapes beside SDPA's); the phase's seconds;
 4. GQA path, fp32: full-width internlm2-1.8b (random weights from a seed)
    served by ``ServeEngine(batching=True, paged=True)`` -- 4 streams on 2
    servers, after ``precompile`` has warmed every cell and captured each
@@ -267,18 +270,21 @@ and prints its peak device memory.
        ssd_slab_decode launched (phase 3 checks ``ssd_intra`` at chunks
        of 128 and 64 and times it over 4 x 2048 tokens at 256, 128, 64);
    12c. ``python -m repro_torch.launch.dryrun`` in three subprocesses at
-       once with no card visible: internlm2-1.8b train_4k and mamba2-780m
-       prefill_32k (opt_ssm_q128) single pod, qwen3-moe-235b decode_32k
-       multi-pod, each ok, this process's device memory unmoved;
+       once with no card visible, started with 12a and run beside 12a and
+       12b (their CPU work beside the card's): internlm2-1.8b train_4k and
+       mamba2-780m prefill_32k (opt_ssm_q128) single pod, qwen3-moe-235b
+       decode_32k multi-pod, each ok, this process's device memory
+       unmoved while it waits for them;
 13. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-from TREE
 
 builds the kernels of another checkout (for instance the parent commit,
-unpacked with ``git archive``) and times its ``rmsnorm`` and ``ssd_intra``
-on the same inputs as phase 3, and its two backward kernels at every
-training shape phase 3 times them at (each with its device time by kernel
-name), so that two versions are compared on one card in one call.
+unpacked with ``git archive``) and times its ``rmsnorm`` (also at
+zamba2-7b's 3584 and 7168) and ``ssd_intra`` on the same inputs as phase
+3, and its three backward kernels at every training shape phase 3 times
+them at (each with its device time by kernel name), so that two versions
+are compared on one card in one call.
 """
 
 from __future__ import annotations
@@ -327,6 +333,12 @@ FLASH_BWD_SHAPES = (
 # whisper (1024), mamba2 and qwen2-vl (1536), internlm2 and deepseek
 # (2048), mamba2's gated norm (3072), zamba2 (3584) and its gated norm (7168)
 RMSNORM_BWD_WIDTHS = (512, 1024, 1536, 2048, 3072, 3584, 7168)
+# its rows: one row, a partial warp's worth, the step's 4 x 1024 tokens and
+# whisper's encoder (4 x 1500)
+RMSNORM_BWD_ROWS = (1, 5, 4096, 6000)
+# its timed shapes: (4096, D) at every width, and whisper's encoder
+RMSNORM_BWD_TIMED = tuple((4096, d) for d in RMSNORM_BWD_WIDTHS) + (
+    (6000, 1024),)
 # published H100 SXM peaks (dense): HBM bytes/s and flop/s by input type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -486,13 +498,13 @@ def device_kernels(prof):
     return events, key, rows
 
 
-def device_ms(fn, *, iters: int = 50, tries: int = 3) -> float:
-    """Device time per call of ``fn``: the summed device time of every
-    kernel that ``iters`` back-to-back calls launched, from one
-    torch.profiler window (the host's issue rate does not enter).  Every
-    call launches at least one kernel, so a window that recorded fewer
-    than ``iters`` device activities lost some and is taken again; NaN
-    (not measured) if every one of ``tries`` windows came back short."""
+def device_window(fn, iters: int, tries: int):
+    """The device activity rows of one torch.profiler window of ``iters``
+    back-to-back calls of ``fn``, and their time attribute.  Every call
+    launches the same kernels, so a window whose activities are no
+    positive multiple of ``iters`` lost some (a call of two kernels can
+    lose a third of them and still count past ``iters``) and is taken
+    again; (None, None) if every one of ``tries`` windows lost some."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -504,27 +516,30 @@ def device_ms(fn, *, iters: int = 50, tries: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         _, key, rows = device_kernels(prof)
-        if sum(e.count for e in rows) >= iters:
-            return sum(getattr(e, key) for e in rows) / 1e3 / iters
-    return float("nan")
+        count = sum(e.count for e in rows)
+        if count >= iters and count % iters == 0:
+            return rows, key
+    return None, None
 
 
-def device_split(fn, *, iters: int = 20) -> dict[str, float]:
-    """Device time per call of ``fn`` by kernel name, from one
+def device_ms(fn, *, iters: int = 50, tries: int = 3) -> float:
+    """Device time per call of ``fn``: the summed device time of every
+    kernel that ``iters`` back-to-back calls launched, from one whole
+    torch.profiler window (:func:`device_window`; the host's issue rate
+    does not enter); NaN (not measured) if no window came back whole."""
+    rows, key = device_window(fn, iters, tries)
+    if rows is None:
+        return float("nan")
+    return sum(getattr(e, key) for e in rows) / 1e3 / iters
+
+
+def device_split(fn, *, iters: int = 20, tries: int = 3) -> dict[str, float]:
+    """Device time per call of ``fn`` by kernel name, from one whole
     torch.profiler window of ``iters`` calls (a multi-kernel launch's
-    share of each kernel)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    _, key, rows = device_kernels(prof)
+    share of each kernel); empty if no window came back whole."""
+    rows, key = device_window(fn, iters, tries)
     out: dict[str, float] = {}
-    for e in rows:
+    for e in rows or ():
         name = e.key.replace("(anonymous namespace)::", "")
         name = name.removeprefix("void ").split("(")[0]
         out[name] = out.get(name, 0.0) + getattr(e, key) / 1e3 / iters
@@ -1347,10 +1362,8 @@ class KernelChecks:
         and bf16: rmsnorm on rows of d_model (3584) and d_inner (7168, the
         gated norm), each with the route it takes; the attention kernels at
         32/32 heads of 112 (group size 1); the SSD kernels at 112 heads of
-        P 64, N 64.  Then device times beside SDPA at the hybrid shapes,
-        for information."""
-        import torch.nn.functional as F
-
+        P 64, N 64.  Then device times beside SDPA and F.rms_norm at the
+        hybrid shapes, for information."""
         from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
                                                  rmsnorm_route)
 
@@ -1367,18 +1380,7 @@ class KernelChecks:
                     self.errors["rmsnorm"] = max(self.errors["rmsnorm"], e)
             self.check_attention(cfg, dt)
             self.check_ssd(cfg, dt)
-        # one decode step's norms: d_model in registers, d_inner on the
-        # vector loop
-        for d in (cfg.d_model, cfg.d_inner):
-            x = self.randn(4, 1, d, dtype=torch.bfloat16)
-            w = (self.randn(d) * 0.1 + 1.0).to(torch.bfloat16)
-            print_rows({"rmsnorm": timed(
-                lambda: rmsnorm(x, w, eps), lambda: rmsnorm_plain(x, w, eps),
-                lambda: F.rms_norm(x, (d,), w, eps),
-                bound_ms((2 * x.numel() + d) * 2, 4 * x.numel(),
-                         torch.bfloat16),
-                f"x (4,1,{d}), {rmsnorm_route(x, w)} route (hybrid, "
-                "information only)")}, "F.rms_norm")
+        self.time_rmsnorm_hybrid(cfg)
         lengths = [p + STEPS + 1 for p in PROMPT_LENS]
         w_cols = 1 << (-(-max(lengths) // BLOCK) - 1).bit_length()
         print_rows({"flash_attention": self.time_flash(
@@ -1390,6 +1392,28 @@ class KernelChecks:
         self.time_ssd_intra(cfg, "time[hybrid]")
         print_rows({"ssd_slab_decode": self.time_slab_decode(
             cfg, " (hybrid, information only)")}, "")
+
+    def time_rmsnorm_hybrid(self, cfg, tag: str = "time") -> None:
+        """rmsnorm in bf16 at zamba2's norms, d_model and the gated norm's
+        d_inner, on one decode step (4 rows) and one 256-token prefill
+        call, beside F.rms_norm (for information)."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+        eps = cfg.norm_eps
+        for d in (cfg.d_model, cfg.d_inner):
+            w = (self.randn(d) * 0.1 + 1.0).to(torch.bfloat16)
+            for shape in ((4, 1, d), (1, 256, d)):
+                x = self.randn(*shape, dtype=torch.bfloat16)
+                print_rows({"rmsnorm": timed(
+                    lambda: rmsnorm(x, w, eps),
+                    lambda: rmsnorm_plain(x, w, eps),
+                    lambda: F.rms_norm(x, (d,), w, eps),
+                    bound_ms((2 * x.numel() + d) * 2, 4 * x.numel(),
+                             torch.bfloat16),
+                    f"x ({','.join(map(str, shape))}) (hybrid, information "
+                    "only)")}, "F.rms_norm", tag)
 
     # -- the enc-dec path's kernels at whisper-medium widths -----------------
     def run_encdec(self, cfg):
@@ -1625,13 +1649,11 @@ class KernelChecks:
             for rows, dw_ in ((4096, d), (256, 1032), (256, 37)):
                 self.check_rmsnorm_bwd(dt, rows, dw_, cfg.norm_eps)
         rows = {"flash_attention_bwd": self.time_flash_bwd_shape(
-                    ("gqa", 4, 1024, 1024, nq, nkv, h, h, True)),
-                "rmsnorm_bwd": self.time_rmsnorm_bwd(cfg, 4096)}
-        print_rows({"flash_attention_bwd": rows["flash_attention_bwd"]},
-                   "SDPA backward")
+                    ("gqa", 4, 1024, 1024, nq, nkv, h, h, True))}
+        print_rows(rows, "SDPA backward")
         print_split("flash_attention_bwd",
                     rows["flash_attention_bwd"]["split"])
-        print_rows({"rmsnorm_bwd": rows["rmsnorm_bwd"]}, "F.rms_norm backward")
+        rows["rmsnorm_bwd"] = self.time_rmsnorm_bwd_shapes()[(4096, d)]
         self.rows.update(rows)
 
     def time_backward(self, tag: str = "time") -> None:
@@ -1654,23 +1676,36 @@ class KernelChecks:
             print_rows({name: r}, "SDPA backward" if "flash" in name else "",
                        tag)
             print_split(name, r["split"], tag.replace("time", "split"))
+        self.time_rmsnorm_bwd_shapes(tag)
 
-    def time_rmsnorm_bwd(self, cfg, rows):
-        """The rmsnorm backward in bf16 on ``rows`` rows of cfg's d_model
+    def time_rmsnorm_bwd_shapes(self, tag: str = "time") -> dict:
+        """The rmsnorm backward's timed rows at RMSNORM_BWD_TIMED, each
+        printed with its device time by kernel name (the row pass and the
+        dw pass); returned by (rows, D)."""
+        out = {}
+        for rows, d in RMSNORM_BWD_TIMED:
+            r = out[(rows, d)] = self.time_rmsnorm_bwd(rows, d)
+            print_rows({"rmsnorm_bwd": r}, "F.rms_norm backward", tag)
+            print_split(f"rmsnorm_bwd ({rows},{d})", r["split"],
+                        tag.replace("time", "split"))
+        return out
+
+    def time_rmsnorm_bwd(self, rows, d, eps=1e-5):
+        """The rmsnorm backward in bf16 on ``rows`` rows of width ``d``
         (4096 = the training step's 4 x 1024 tokens), beside the backward
         of F.rms_norm on the same inputs."""
         import torch.nn.functional as F
 
         from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
 
-        dt, el, d, eps = torch.bfloat16, 2, cfg.d_model, cfg.norm_eps
+        dt, el = torch.bfloat16, 2
         x = self.randn(rows, d, dtype=dt)
         w = (self.randn(d) * 0.1 + 1.0).to(dt)
         dy = self.randn(rows, d, dtype=dt)
         xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
         lib_y = F.rms_norm(xl, (d,), wl, eps)
         n = x.numel()
-        return timed(
+        row = timed(
             lambda: rmsnorm_bwd(x, w, dy, eps),
             lambda: rmsnorm_bwd_plain(x, w, dy, eps),
             lambda: torch.autograd.grad(lib_y, (xl, wl), dy,
@@ -1679,6 +1714,8 @@ class KernelChecks:
             # element (the statistics, dx and the dw term)
             bound_ms((3 * n + 2 * d) * el, 12 * n, dt),
             f"x ({rows},{d}), dx dw")
+        row["split"] = device_split(lambda: rmsnorm_bwd(x, w, dy, eps))
+        return row
 
     # -- the backward kernels at the other families' training shapes -------
     def run_backward_families(self, configs):
@@ -1692,9 +1729,9 @@ class KernelChecks:
         MLA (4,1024,16,192/128) and zamba2 (4,1024,32,112) causal, whisper's
         encoder (4,1500,16,64) full and its cross-attention, S 1, 40 and
         448 against Sk 1500, with the forward's lse (LSE_TOL) at each; the
-        rmsnorm backward at every family width.  Then timed rows in bf16
-        at the training shapes beside the bound and, for flash, the SDPA
-        backward."""
+        rmsnorm backward at every family width on RMSNORM_BWD_ROWS rows.
+        Then timed rows in bf16 at the training shapes beside the bound
+        and, for flash, the SDPA backward."""
         for cfg in (configs["mamba2_780m"], configs["zamba2_7b"]):
             for dt in (torch.float32, torch.bfloat16):
                 for q in (1, 5, 200, 256):
@@ -1703,7 +1740,8 @@ class KernelChecks:
             for shape in FLASH_BWD_SHAPES:
                 self.check_flash_bwd(shape, dt)
             for d in RMSNORM_BWD_WIDTHS:
-                self.check_rmsnorm_bwd(dt, 4096, d, 1e-5)
+                for rows in RMSNORM_BWD_ROWS:
+                    self.check_rmsnorm_bwd(dt, rows, d, 1e-5)
         rows = {}
         for fam, cfg in (("", configs["mamba2_780m"]),
                          ("@hybrid", configs["zamba2_7b"])):
@@ -1786,12 +1824,12 @@ class KernelChecks:
     def check_rmsnorm_bwd(self, dt, rows, d, eps):
         from repro_torch.kernels.rmsnorm import (rmsnorm_bwd,
                                                  rmsnorm_bwd_plain,
-                                                 rmsnorm_route)
+                                                 rmsnorm_bwd_route)
 
         x = self.randn(rows, d, dtype=dt) * 3.0
         w = (self.randn(d) * 0.1 + 1.0).to(dt)
         dy = self.randn(rows, d, dtype=dt)
-        case = f"x({rows}, {d}), {rmsnorm_route(x, w)} route"
+        case = f"x({rows}, {d}), {rmsnorm_bwd_route(x, w, dy)} route"
         got = rmsnorm_bwd(x, w, dy, eps)
         for what, g, ref in zip(("dx", "dw"), got,
                                 rmsnorm_bwd_plain(x, w, dy, eps)):
@@ -3406,9 +3444,9 @@ def train_parity(dev, card, arch=TRAIN_ARCH,
     held against the CPU's AdamW step on the card's own gradients: every
     weight's update within 1e-3 lr of it (a first Adam step moves a weight
     by about lr, so a missing, halved or sign-flipped update fails).  The
-    CPU's whole step (its own gradients) is compared for information only:
-    a gradient near 0 whose sign differs between the two devices flips
-    that weight's first update, by up to 2 lr."""
+    CPU's own step stops at its gradients: the CPU runs AdamW once, on the
+    card's gradients, the reference of that bound (its unfused passes
+    over every weight are the longest part of the CPU's work)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as M
     from repro_torch.training import optimizer as opt
@@ -3426,30 +3464,34 @@ def train_parity(dev, card, arch=TRAIN_ARCH,
                          device=cpu)
     data = train_batch(cfg, PARITY_BATCH, seq, 0)
 
-    def step(where, grads=None):
-        """One step from ``init`` on ``where``, with ``grads`` (a tree on
-        ``where``) when given instead of the step's own; returns the loss
-        (None with ``grads``), the gradients and params after AdamW as CPU
-        lists, the step's lr and seconds."""
-        params = tree_map(lambda t: t.to(where, copy=True), init)
-        state = opt.init(params, settings.adamw)
+    def step(where, grads=None, update=True):
+        """One step from ``init`` on ``where``: its own gradients, or
+        ``grads`` (a tree on ``where``) when given, then AdamW unless not
+        ``update``; returns the loss (None with ``grads``), the gradients
+        and the params after AdamW (None without it) as CPU lists, the
+        step's lr (None without AdamW) and seconds."""
+        # AdamW writes the params in place, so it takes a copy of init
+        params = tree_map(lambda t: t.to(where, copy=update), init)
+        state = opt.init(params, settings.adamw) if update else None
         batch = {k: torch.from_numpy(v).to(where) for k, v in data.items()}
         t0 = time.monotonic()
-        loss = None
+        loss = m = None
         if grads is None:
             (loss, _), grads = value_and_grad(loss_fn, params, batch)
-        _, _, m = opt.update(grads, state, params, settings.adamw)
+        if update:
+            _, _, m = opt.update(grads, state, params, settings.adamw)
         if where.type == "cuda":
             torch.cuda.synchronize()
         return (None if loss is None else loss.item(),
-                [g.to(cpu, copy=True) for g in leaves(grads)],
-                [t.to(cpu, copy=True) for t in leaves(params)],
-                float(m["lr"]), time.monotonic() - t0)
+                [g.to(cpu) for g in leaves(grads)],
+                [t.to(cpu) for t in leaves(params)] if update else None,
+                None if m is None else float(m["lr"]),
+                time.monotonic() - t0)
 
     with no_plain_on_card():
         l_gpu, g_gpu, p_gpu, lr, s_gpu = step(dev)
     free_card()
-    l_cpu, g_cpu, p_cpu, _, s_cpu = step(cpu)
+    l_cpu, g_cpu, _, _, s_cpu = step(cpu, update=False)
     _, _, p_want, _, _ = step(cpu, grads=unflatten(init, g_gpu))
     p_init = leaves(init)
     tag = f"train 10a {cfg.name} [{card}]"
@@ -3466,9 +3508,6 @@ def train_parity(dev, card, arch=TRAIN_ARCH,
     zero = sum(1 for g in g_gpu if not g.abs().max() > 0)
     u_err = max((a - b).abs().max().item() for a, b in zip(p_gpu, p_want))
     u_max = max((b - p0).abs().max().item() for b, p0 in zip(p_want, p_init))
-    flips = sum(int(((a - b).abs() > 1e-3 * lr).sum())
-                for a, b in zip(p_gpu, p_cpu))
-    n = sum(p.numel() for p in p_init)
     print(f"{tag}: full width, {dict(depth)}, fp32, batch {PARITY_BATCH} x "
           f"{seq}{frames_note(cfg)}: loss card {l_gpu:.7f} cpu "
           f"{l_cpu:.7f} (rel {rel:.2e}, tol 1e-5); worst gradient leaf "
@@ -3478,10 +3517,8 @@ def train_parity(dev, card, arch=TRAIN_ARCH,
           f"{zero} all-zero on the card; AdamW at lr {lr:.3e}: the card's "
           f"update against the CPU's on the card's gradients max abs diff "
           f"{u_err:.2e} = {u_err / lr:.2e} lr (tol 1e-3 lr; largest update "
-          f"{u_max / lr:.3f} lr); against the CPU's whole step, {flips} of "
-          f"{n} weights differ by more than 1e-3 lr (gradients near 0 of "
-          f"other sign; information); step {s_gpu:.2f} s card, {s_cpu:.2f} "
-          f"s cpu")
+          f"{u_max / lr:.3f} lr); step {s_gpu:.2f} s card, gradients "
+          f"{s_cpu:.2f} s cpu")
     if not (rel <= 1e-5 and all(err <= tol for err, tol, _ in gaps)
             and zero == 0
             and u_err <= 1e-3 * lr and u_max >= 0.5 * lr):
@@ -3698,7 +3735,8 @@ TRAIN_CATEGORIES = (
     ("flash backward", ("delta_kernel", "dkdv_kernel", "dq_kernel",
                         "dkdv_tc_kernel", "dq_tc_kernel")),
     ("rmsnorm forward", ("row_kernel", "vec_kernel", "scalar_kernel")),
-    ("rmsnorm backward", ("bwd_kernel", "dw_reduce_kernel")),
+    ("rmsnorm backward", ("bwd_rows_kernel", "bwd_loop_kernel",
+                          "dw_reduce_kernel")),
     ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
 )
 
@@ -4551,23 +4589,30 @@ def ssm_steps(mesh, dev, card) -> Counter:
     return launches
 
 
-def dryrun_cells(dev, card) -> None:
-    """12c: ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS, one
-    subprocess each, all at once (a fake process group cannot share this
-    process with the NCCL group), none of them with a card to see
-    (CUDA_VISIBLE_DEVICES empty); each must end ok, and this process's
-    device memory must not move meanwhile."""
+def start_dryrun_cells():
+    """12c's subprocesses: ``python -m repro_torch.launch.dryrun`` on
+    DRYRUN_CELLS, one each, all at once (a fake process group cannot
+    share this process with the NCCL group), none of them with a card to
+    see (CUDA_VISIBLE_DEVICES empty) and each on one thread.  Started
+    with phase 12 and not waited for: their CPU work runs beside 12a's
+    and 12b's card work.  Returns (start time, [(cell, process)])."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
-    before = torch.cuda.memory_allocated(dev)
-    t0 = time.monotonic()
-    procs = [(cell, subprocess.Popen(
+    return time.monotonic(), [(cell, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
          "--shape", cell[1], *cell[2:]], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         for cell in DRYRUN_CELLS]
+
+
+def dryrun_cells(dev, card, started) -> None:
+    """12c: waits for :func:`start_dryrun_cells`'s subprocesses; each must
+    end ok, and this process's device memory must not move while it
+    waits."""
+    t0, procs = started
+    before = torch.cuda.memory_allocated(dev)
     failed = []
     for cell, proc in procs:
         try:
@@ -4596,8 +4641,9 @@ def dryrun_cells(dev, card) -> None:
               + (f", bottleneck {rec['roofline']['bottleneck']}"
                  if rec.get("roofline") else ""))
     after = torch.cuda.memory_allocated(dev)
-    print(f"dryrun 12c: {len(procs)} cells in {time.monotonic() - t0:.1f} s; "
-          f"this process's device memory {before} -> {after} bytes")
+    print(f"dryrun 12c: {len(procs)} cells in {time.monotonic() - t0:.1f} s "
+          f"from the start of phase 12; this process's device memory while "
+          f"it waited {before} -> {after} bytes")
     if failed or after != before:
         raise SmokeFailure(f"dryrun 12c: failed {failed}, memory {before} -> "
                            f"{after}")
@@ -4607,22 +4653,30 @@ def steps_path(dev, card) -> Counter:
     """Phase 12: 12a's sharded prefill and decode of internlm2-1.8b (fp32
     parity, then bf16 at full depth) and 12b's mamba2-780m under the
     split-projection variants on a (1, 1) mesh of one NCCL rank, every
-    kernel module's plain version refusing CUDA tensors; then 12c's dry
-    runs.  Returns the launches of 12a's and 12b's sharded runs."""
+    kernel module's plain version refusing CUDA tensors, with 12c's dry
+    runs started beside them and waited for after them.  Returns the
+    launches of 12a's and 12b's sharded runs."""
     t0 = time.monotonic()
     launches = Counter()
-    with one_rank_mesh(dev) as mesh, no_plain_on_card():
-        launches += steps_parity(mesh, dev, card)
-        free_card()
-        launches += steps_bf16(mesh, dev, card)
-        free_card()
-        t1 = time.monotonic()
-        launches += ssm_steps(mesh, dev, card)
-        free_card()
+    started = start_dryrun_cells()
+    try:
+        with one_rank_mesh(dev) as mesh, no_plain_on_card():
+            launches += steps_parity(mesh, dev, card)
+            free_card()
+            launches += steps_bf16(mesh, dev, card)
+            free_card()
+            t1 = time.monotonic()
+            launches += ssm_steps(mesh, dev, card)
+            free_card()
+    except BaseException:
+        for _, proc in started[1]:
+            proc.kill()
+            proc.communicate()
+        raise
     t2 = time.monotonic()
-    dryrun_cells(dev, card)
+    dryrun_cells(dev, card, started)
     print(f"steps: 12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, 12c "
-          f"{time.monotonic() - t2:.1f} s")
+          f"{time.monotonic() - t2:.1f} s more")
     return launches
 
 
@@ -4643,6 +4697,7 @@ def time_kernels_of(tree: pathlib.Path) -> int:
     checks = KernelChecks(torch.device("cuda"))
     tag = f"time[{tree.name}]"
     checks.time_rmsnorm(get_config("internlm2_1_8b"), tag)
+    checks.time_rmsnorm_hybrid(get_config("zamba2_7b"), tag)
     checks.time_ssd_intra(get_config("mamba2_780m"), tag)
     checks.time_backward(tag)
     return 0
@@ -4677,6 +4732,7 @@ def main() -> int:
     sass_report(sass, nvcc)
 
     checks = KernelChecks(dev)                                  # phase 3
+    t3 = time.monotonic()
     checks.run(get_config("internlm2_1_8b"))
     checks.run_ssm(get_config("mamba2_780m"))
     checks.run_mla(get_config("deepseek_v2_lite_16b"))
@@ -4687,6 +4743,7 @@ def main() -> int:
     checks.run_backward_families({a: get_config(a) for a in (
         "mamba2_780m", "zamba2_7b")})
     checks.rank()
+    print(f"phase 3: {time.monotonic() - t3:.1f} s")
 
     # phase 7 runs inside these: 7b and 7d in every fp32 phase, 7a, 7c
     # and 7d's bf16 comparison in the internlm2-1.8b phases

@@ -123,7 +123,8 @@ def test_plain_lse_is_the_rows_logsumexp(causal):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(3, 5, 64), (7, 100), (2, 1, 37)])
+@pytest.mark.parametrize("shape", [(3, 5, 64), (7, 100), (2, 1, 37),
+                                   (2, 7168), (3, 3584)])
 def test_rmsnorm_backward_plain_against_jax_vjp(dtype, shape):
     x, w, dy = _np(3, shape, shape[-1:], shape)
     x = x * 3.0

@@ -1378,8 +1378,13 @@ class TestCudaBackwardKernels:
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("rows,d", [(64, 2048), (5, 3584), (5, 1032),
-                                        (5, 100), (5, 37)])
+                                        (5, 100), (5, 37)] + [
+        (rows, d) for d in (512, 1024, 1536, 2048, 3072, 3584, 7168)
+        for rows in (1, 5, 4096, 6000) if (rows, d) != (5, 3584)])
     def test_rmsnorm_backward(self, cuda, dtype, rows, d):
+        """Every training width at 1 row, 5 (a partial warp's worth of
+        rows), 4096 and 6000, and the loops' widths; a rerun
+        bit-identical."""
         from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
 
         x, w, dy = _inputs(42, dtype, (rows, d), (d,), (rows, d), device=cuda)

@@ -29,6 +29,7 @@ def launches(monkeypatch):
     calls = []
     monkeypatch.setattr(_build, "on_cpu", lambda *t: False)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "sm_count", lambda dev: 132)  # an H100's
     monkeypatch.setattr(_build, "launch",
                         lambda name, entry, *args: calls.append((name, args)))
     return calls
@@ -118,6 +119,10 @@ class TestRMSNormRoute:
         (100, torch.bfloat16, 0, "scalar"),   # not whole 16-byte vectors
         (37, torch.float32, 0, "scalar"),
         (2048, torch.bfloat16, 1, "scalar"),  # misaligned base
+        (7168, torch.bfloat16, 0, "registers"),  # zamba2's gated norm
+        (3584, torch.float32, 0, "registers"),  # 28 vectors a lane
+        (7168, torch.float32, 0, "vectors"),  # 56 vectors a lane: too many
+        (7168, torch.bfloat16, 4, "scalar"),  # an 8-byte offset
     ])
     def test_route(self, d, dtype, offset, want):
         x = torch.zeros(4 * d + offset, dtype=dtype)[offset:].view(4, d)
@@ -126,7 +131,7 @@ class TestRMSNormRoute:
 
     @pytest.mark.parametrize("d,route", [(512, 2), (1024, 2), (1536, 2),
                                          (2048, 2), (3072, 2), (3584, 2),
-                                         (1280, 1), (12, 0)])
+                                         (1280, 1), (12, 0), (7168, 2)])
     def test_wrapper_passes_the_route(self, launches, d, route):
         x = torch.zeros((4, 1, d), dtype=torch.bfloat16)
         out = R.rmsnorm(x, torch.ones(d, dtype=torch.bfloat16), 1e-6)
@@ -357,17 +362,57 @@ class TestBackwardArgs:
             FA.flash_attention(q, q, q)
         assert launches == []
 
-    @pytest.mark.parametrize("rows,d,route,blocks", [
-        (4096, 2048, 2, 256), (5, 2048, 2, 2), (256, 1032, 1, 64),
-        (3, 37, 0, 1)])
-    def test_rmsnorm_bwd_args(self, launches, rows, d, route, blocks):
-        x = torch.zeros((rows, d), dtype=torch.bfloat16)
-        w = torch.ones(d, dtype=torch.bfloat16)
+    # (rows, D, route, blocks) on a card of 132 SMs: the register route
+    # takes two blocks of 8 warps per SM, 8 / bwd_row_split rows at once
+    # (bf16: 1 warp a row at 512 and 1024, 2 at 1536, 2048 and 3584, 4 at
+    # 3072 and 7168; fp32: 1 at 512, 2 at 1024, 4 at 1536, 2048 and 3584,
+    # 8 at 3072 and 7168); the loops two blocks of 4 warps per SM, a row
+    # per warp.  The first four ids are the names these cases had when the
+    # grid was ceil(rows / 4) blocks up to 256; their blocks column is the
+    # present rule's.
+    @pytest.mark.parametrize("dtype,rows,d,route,blocks", [
+        pytest.param(torch.bfloat16, 4096, 2048, 2, 264, id="4096-2048-2-256"),
+        pytest.param(torch.bfloat16, 5, 2048, 2, 2, id="5-2048-2-2"),
+        pytest.param(torch.bfloat16, 256, 1032, 1, 64, id="256-1032-1-64"),
+        pytest.param(torch.bfloat16, 3, 37, 0, 1, id="3-37-0-1"),
+        pytest.param(torch.bfloat16, 4096, 7168, 2, 264, id="bf16-4096-7168"),
+        pytest.param(torch.bfloat16, 5, 7168, 2, 3, id="bf16-5-7168"),
+        pytest.param(torch.bfloat16, 6000, 1024, 2, 264, id="bf16-6000-1024"),
+        pytest.param(torch.bfloat16, 9, 3584, 2, 3, id="bf16-9-3584"),
+        pytest.param(torch.bfloat16, 1, 512, 2, 1, id="bf16-1-512"),
+        pytest.param(torch.float32, 5, 7168, 2, 5, id="fp32-5-7168"),
+        pytest.param(torch.float32, 6000, 3072, 2, 264, id="fp32-6000-3072"),
+        pytest.param(torch.float32, 5, 1536, 2, 3, id="fp32-5-1536"),
+        pytest.param(torch.bfloat16, 6000, 1032, 1, 264, id="bf16-6000-1032"),
+        pytest.param(torch.float32, 5, 37, 0, 2, id="fp32-5-37")])
+    def test_rmsnorm_bwd_args(self, launches, dtype, rows, d, route, blocks):
+        x = torch.zeros((rows, d), dtype=dtype)
+        w = torch.ones(d, dtype=dtype)
         dx, dw = R.rmsnorm_bwd(x, w, x, 1e-5)
         assert dx.shape == x.shape and dw.shape == w.shape
         ((name, a),) = launches
         assert name == "rmsnorm_bwd"
         assert a[6:9] == (rows, d, blocks) and a[-2] == route
+        assert a[-3] == _build.DTYPE_CODES[dtype]
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_rmsnorm_bwd_row_split_fits_the_kernel(self, dtype):
+        """Every register-route width splits into whole warp-wide vectors
+        over at most a block's warps, by the fewest warps that keep a
+        lane's share within BWD_LANE_BYTES, or else the most the row splits
+        into (the rule of csrc/rmsnorm.cu's row_split)."""
+        el = torch.tensor([], dtype=dtype).element_size()
+        vec = 16 // el
+        for d in R.ROW_WIDTHS:
+            k = R.bwd_row_split(d, el)
+            assert k in (1, 2, 4, 8) and k <= R.BWD_WARPS
+            assert d % (32 * k * vec) == 0
+            assert k == 1 or d * el > 32 * R.BWD_LANE_BYTES * (k // 2)
+            if d * el > 32 * R.BWD_LANE_BYTES * k:  # split no further
+                assert k == R.BWD_WARPS or d % (2 * 32 * k * vec)
+            assert d * el <= 32 * 112 * k  # at most 7 vectors a lane
+        assert R.bwd_row_split(2048, 2) == 2 and R.bwd_row_split(7168, 2) == 4
+        assert R.bwd_row_split(3584, 2) == 2 and R.bwd_row_split(7168, 4) == 8
 
     def test_rmsnorm_bwd_refusals_come_before_any_launch(self, launches):
         x = torch.zeros((4, 256), dtype=torch.bfloat16)
@@ -378,6 +423,26 @@ class TestBackwardArgs:
         with pytest.raises(ValueError, match="exceed"):
             R.rmsnorm_bwd(wide, torch.ones(wide.shape[1], dtype=torch.bfloat16),
                           wide, 1e-5)
+        assert launches == []
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_rmsnorm_bwd_split_route_refusals(self, launches, dtype):
+        """The rows shared by several warps (7168) take what the other
+        routes take and refuse the rest before any launch: dy of another
+        dtype, shape or layout, w of another width, float64."""
+        x = torch.zeros((5, 7168), dtype=dtype)
+        w = torch.ones(7168, dtype=dtype)
+        other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+        with pytest.raises(TypeError):
+            R.rmsnorm_bwd(x, w, x.to(other), 1e-5)
+        with pytest.raises(TypeError):
+            R.rmsnorm_bwd(x.double(), w.double(), x.double(), 1e-5)
+        with pytest.raises(ValueError):
+            R.rmsnorm_bwd(x, w[:3584], x, 1e-5)
+        with pytest.raises(ValueError):
+            R.rmsnorm_bwd(x, w, x[:4], 1e-5)
+        with pytest.raises(ValueError):  # a non-contiguous dy
+            R.rmsnorm_bwd(x, w, torch.zeros((7168, 5), dtype=dtype).t(), 1e-5)
         assert launches == []
 
     @pytest.mark.parametrize("m,h,q,p,n,dtype", [
