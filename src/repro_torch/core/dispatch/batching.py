@@ -25,10 +25,11 @@ semantics (the head's callable serves the whole batch).
 Shape decisions stay visible: a ``run_batch`` that compacts rows, pads to a
 power-of-two bucket, or narrows the KV gather to the live block-table width
 reports what it chose via :meth:`BatchingServer.record_meta`; the entries
-land in ``stats.batch_meta`` next to ``batch_sizes`` so the analysis side
-(and tests) can audit that compaction/bucketing only ever SHRANK the device
-call — the declared per-request WCET is the full-width call, which is what
-keeps the per-server bounds (Eqs (1)-(6)) sound under both knobs.
+land in ``stats.batch_meta`` (each with the call's true ``rows``) so the
+analysis side (and tests) can audit that compaction/bucketing only ever
+SHRANK the device call — the declared per-request WCET is the full-width
+call, which is what keeps the per-server bounds (Eqs (1)-(6)) sound under
+both knobs.
 
 The measurement -> fit -> admission loop rides the same channel.  Each meta
 entry carries the call's timed duration (``seconds``) next to its shape
@@ -132,6 +133,9 @@ class BatchingServer(AcceleratorServer):
         for r in batch:
             r.start_t = start
             self.stats.wakeup_latencies.append(start - r.submit_t)
+        traced = self.stats.tracing
+        if traced:
+            self._trace_start(batch)
         results: list[Any] = []
         error: BaseException | None = None
         payloads = [r.payload for r in batch]
@@ -157,7 +161,7 @@ class BatchingServer(AcceleratorServer):
                     r.result = results[i]
                 r.end_t = t0
                 r._done.set()
-        self.stats.notify_latencies.append(time.monotonic() - t0)
         self.stats.completed += len(batch)
         self.stats.batches += 1
-        self.stats.batch_sizes.append(len(batch))
+        if traced:
+            self._trace_end(batch, start)

@@ -19,7 +19,10 @@ Beyond-paper extensions (used by serving; each is off by default):
   * deadline-aware ordering (EDF on absolute deadlines) for straggler
     mitigation in serving.
   * per-request timing stats, so epsilon can be *measured* (overheads
-    benchmark mirrors the paper's §6.2).
+    benchmark mirrors the paper's §6.2), and spans on the host clock when
+    tracing is switched on (``ServerStats.set_tracing``): each dispatch
+    unit, each request from submit to end, and each client's wake from a
+    request's end to its return from ``wait``.
   * fault tolerance: every device call runs through :meth:`_attempt`, which
     retries ``core.faults.TransientDeviceError`` with bounded exponential
     backoff and escalates to a server-wide failure on
@@ -42,14 +45,14 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 from repro_torch.core.dispatch.policy import ORDERINGS, request_key
 from repro_torch.core.faults import (DeviceLostError, ServerFailedError,
                                TransientDeviceError)
 
-__all__ = ["AcceleratorServer", "CellStats", "Request", "ServerStats",
-           "cell_key", "BATCH_META_CAP"]
+__all__ = ["AcceleratorServer", "CellStats", "Request", "ServerStats", "Span",
+           "cell_key", "BATCH_META_CAP", "SPAN_CAP"]
 
 # Ring-buffer capacity of the raw per-call shape-decision log.  Sustained
 # traffic makes one entry per device call, so an unbounded list is a memory
@@ -57,6 +60,28 @@ __all__ = ["AcceleratorServer", "CellStats", "Request", "ServerStats",
 # running per-cell aggregates (``ServerStats.cell_stats``) carry the full
 # history the cost model consumes.
 BATCH_META_CAP = 4096
+
+# Ring capacity of one server's span records while tracing is on.  A
+# traced 2 s window of a 16-stream server holds about 3,000 of them.
+SPAN_CAP = 65536
+
+
+class Span(NamedTuple):
+    """One traced interval on the host clock (``time.monotonic``).
+
+    Names the dispatch layer records: "call" (one dispatch unit, from its
+    dequeue to the last of its clients' events being set), "request"
+    (submit to end, ``call_id`` the call that ended it) and "wake" (a
+    request's end to its client's return from ``wait``; the same
+    ``request_id`` as its request).  A callable that runs inside a call
+    records its own steps with that call's ``call_id`` (the serving
+    engine's "stage", "wait", "readback" and "insert")."""
+
+    name: str
+    t0: float
+    t1: float
+    call_id: int | None = None
+    request_id: int | None = None
 
 
 def cell_key(meta: dict) -> tuple | None:
@@ -147,12 +172,21 @@ class Request:
     submit_t: float = 0.0
     start_t: float = 0.0
     end_t: float = 0.0
+    request_id: int = 0  # the server's count of submits
+    call_id: int | None = None  # the traced call that served it
     _done: threading.Event = field(default_factory=threading.Event, repr=False)
+    # the ring ``wait`` records the client's wake in (traced calls only)
+    _spans: deque | None = field(default=None, repr=False)
 
     def wait(self, timeout: float | None = None) -> Any:
         """Suspend the caller until the request completes (no busy-wait)."""
         if not self._done.wait(timeout):
             raise TimeoutError(f"request {self.name!r} not done within {timeout}s")
+        spans = self._spans
+        if spans is not None:
+            self._spans = None
+            spans.append(Span("wake", self.end_t, time.monotonic(),
+                              self.call_id, self.request_id))
         if self.error is not None:
             raise self.error
         return self.result
@@ -176,11 +210,9 @@ class ServerStats:
     completed: int = 0
     max_queue_len: int = 0
     wakeup_latencies: list[float] = field(default_factory=list)  # submit -> dequeue
-    notify_latencies: list[float] = field(default_factory=list)  # fn done -> client wakeable
-    # batch dequeue (BatchingServer): device calls made, and how many
-    # requests each one coalesced
+    # batch dequeue (BatchingServer): device calls made (each call's
+    # coalesced rows are its ``batch_meta`` entry's ``rows``)
     batches: int = 0
-    batch_sizes: list[int] = field(default_factory=list)
     # shape decisions the run_batch callable reports per device call
     # (BatchingServer.record_meta): e.g. paged decode {rows, padded, width,
     # compacted, seconds} or bucketed prefill {rows, padded, bucket,
@@ -191,6 +223,23 @@ class ServerStats:
     # running per-cell aggregate keyed by ``cell_key(meta)`` — the cost
     # model's measurement input (analysis.cost_model.StepCostModel.ingest)
     cell_stats: dict = field(default_factory=dict)
+    # tracing, off by default: a ring of ``Span`` records (allocated when
+    # tracing is switched on) and the id of the last traced dispatch unit
+    tracing: bool = False
+    spans: deque | None = None
+    call_id: int = 0
+
+    def set_tracing(self, on: bool) -> None:
+        """Switch span recording on (into a fresh ring of ``SPAN_CAP``) or
+        off (the ring stays readable)."""
+        if on and not self.tracing:
+            self.spans = deque(maxlen=SPAN_CAP)
+        self.tracing = on
+
+    def span(self, name: str, t0: float, t1: float, call_id=None,
+             request_id=None) -> None:
+        """Record one span (only while tracing: the ring exists)."""
+        self.spans.append(Span(name, t0, t1, call_id, request_id))
 
     def record_meta(self, meta: dict) -> None:
         """Log one device call's shape decision: append to the bounded ring
@@ -243,6 +292,7 @@ class AcceleratorServer:
             if self._stop:
                 raise RuntimeError("server stopped")
             self._seq += 1
+            req.request_id = self._seq
             heapq.heappush(self._queue, (self._key(req), self._seq, req))
             self.stats.max_queue_len = max(self.stats.max_queue_len, len(self._queue))
             self._lock.notify()
@@ -382,14 +432,36 @@ class AcceleratorServer:
             t0 = time.monotonic()
             req.end_t = t0
             req._done.set()  # wake the client (it was suspended, not polling)
-        self.stats.notify_latencies.append(time.monotonic() - t0)
         self.stats.completed += 1
+
+    def _trace_start(self, batch: list[Request]) -> None:
+        """Give a traced dispatch unit the next call id, and its requests
+        the ring their clients record their wake in."""
+        stats = self.stats
+        stats.call_id += 1
+        for r in batch:
+            r.call_id = stats.call_id
+            r._spans = stats.spans
+
+    def _trace_end(self, batch: list[Request], start: float) -> None:
+        """Record a traced dispatch unit's "call" span (from ``start``, its
+        dequeue, to now: every client's event is set) and its requests'
+        "request" spans."""
+        stats = self.stats
+        end = time.monotonic()
+        cid = batch[0].call_id
+        stats.span("call", start, end, cid)
+        for r in batch:
+            stats.span("request", r.submit_t, r.end_t, cid, r.request_id)
 
     def _execute(self, batch: list[Request]) -> None:
         """Run one dispatch unit on the accelerator (server thread only)."""
         req = batch[0]
         req.start_t = time.monotonic()
         self.stats.wakeup_latencies.append(req.start_t - req.submit_t)
+        traced = self.stats.tracing
+        if traced:
+            self._trace_start(batch)
         try:
             result = self._attempt(req.fn)  # non-preemptive accelerator run
             error: BaseException | None = None
@@ -399,6 +471,8 @@ class AcceleratorServer:
         except BaseException as e:  # noqa: BLE001 - surfaced to the client
             result, error = None, e
         self._complete(req, result, error)
+        if traced:
+            self._trace_end(batch, req.start_t)
 
     def _serve(self) -> None:
         while True:

@@ -64,6 +64,21 @@ How the reference's device mechanisms map onto PyTorch:
     encodes zero frames, so all of a server's streams share one
     cross-attention segment (the copy-on-write dedup case).
 
+Tracing adds the engine's spans to the servers'
+(``core.server_runtime.Span``): each batched decode or prefill call split
+into "stage" (bucket choice, packing the rows and the copy into the
+graph's inputs), "wait" (the replay or eager step issued until the
+server's stream has drained) and "readback" (the logits rows copied to the
+host as numpy), and each insert.  By default tracing follows the torch
+profiler, so that the spans and a device trace cover one interval: a
+server switches when its device call sees the profiler started or
+stopped, and the switch takes effect at its next dispatch unit.
+``set_tracing`` switches it on or off for good.  A call's ``batch_meta``
+``seconds`` runs from the copy into the graph's inputs to the rows on the
+host, so the three steps cover it and the packing before it.  Each decode
+call's ``batch_meta`` entry counts the server's streams in their decode
+loop when the call began (``decoding``).
+
 ``static_cell_costs`` prices cells without running them on the card: each
 cell's impl runs once on meta twins of the weights and pools under
 ``analysis.op_cost``, the counterpart of the reference's compile-and-walk
@@ -77,10 +92,12 @@ import logging
 import math
 import threading
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from repro_torch import resolve_device
 from repro_torch.analysis.cost_model import autotune_buckets, bucket_up
@@ -142,6 +159,16 @@ def _cache_leaves(cache) -> list:
     """A dense decode cache's tensors other than ``pos``, in a fixed
     order."""
     return _tensors({k: v for k, v in cache.items() if k != "pos"})
+
+
+def _record_steps(stats, marks: list, t1: float) -> None:
+    """Record a traced call's steps in its server's ``stats``: "stage" from
+    the first of ``marks`` to the second, "wait" to the third, "readback"
+    to ``t1``."""
+    cid = stats.call_id
+    stats.span("stage", marks[0], marks[1], cid)
+    stats.span("wait", marks[1], marks[2], cid)
+    stats.span("readback", marks[2], t1, cid)
 
 
 @dataclass
@@ -339,6 +366,11 @@ class ServeEngine:
         self._steal_min_gain_ms = 0.0
         self.migrations_completed = 0
         self._streams: dict[str, StreamSpec] = {}
+        # tracing (set_tracing; None: follow the profiler) and, per server,
+        # the streams in their decode loop (each decode call's ``decoding``)
+        self._tracing: bool | None = None
+        self._decoding: Counter = Counter()
+        self._decoding_lock = threading.Lock()
         # one CUDA stream per server: its device calls queue behind each
         # other and never behind another server's
         self._cuda_streams = ([torch.cuda.Stream(self.device)
@@ -402,7 +434,13 @@ class ServeEngine:
     def _on_device(self, si: int, fn):
         """Run ``fn`` in server ``si``'s device context -- inference mode
         and the server's CUDA stream, both thread-local -- and return its
-        result once the stream has drained."""
+        result once the stream has drained.  Following the profiler, the
+        server's tracing is switched here, on its own thread, so that it
+        changes between two of its dispatch units and never inside one."""
+        if self._tracing is None:
+            stats = self.pool.servers[si].stats
+            if stats.tracing != _profiler._is_profiler_enabled:
+                stats.set_tracing(_profiler._is_profiler_enabled)
         with torch.inference_mode():
             if self._cuda_streams is None:
                 return fn()
@@ -420,6 +458,28 @@ class ServeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    # -- tracing ------------------------------------------------------------
+    def set_tracing(self, on: bool | None) -> None:
+        """Switch every server's spans on or off (a fresh ring each time
+        they are switched on), or with None back to the default: on while
+        a torch profiler records.  With tracing off a call issues exactly
+        the device work it issues untraced; with it on, a decode or
+        prefill call on the card drains its stream once more, after the
+        replay, so that the wait ends there."""
+        self._tracing = on
+        for s in self.pool.servers:
+            s.stats.set_tracing(on is True)
+
+    def trace_records(self) -> list[tuple]:
+        """A copy of every server's span records, each as (server index,
+        *``Span``); the program writes none of them to disk."""
+        return [(si, *sp) for si, s in enumerate(self.pool.servers)
+                for sp in list(s.stats.spans or ())]
+
+    def _count_decoding(self, si: int, delta: int) -> None:
+        with self._decoding_lock:
+            self._decoding[si] += delta
 
     def _prefill(self, tokens, lengths=None, params=None):
         """Prefill ``tokens`` (B, S) (true ``lengths`` (B,) int32 of a
@@ -628,8 +688,12 @@ class ServeEngine:
     def _insert_slot(self, si: int, slot: int, cache, src_row: int) -> None:
         """Runs on server ``si``'s thread (serialized with its batches)."""
         state = self._slots[si]
+        stats = self.pool.servers[si].stats
+        t0 = time.monotonic() if stats.tracing else None
         self._on_device(si, lambda: self._insert_impl(
             self._slot_cache(state), cache, src_row, slot))
+        if t0 is not None:
+            stats.span("insert", t0, time.monotonic(), stats.call_id)
 
     def _run_decode_batch(self, si: int):
         """run_batch callable for server ``si`` (masked-dense): payloads are
@@ -638,6 +702,11 @@ class ServeEngine:
         preallocated scratch."""
 
         def run(payloads):
+            server = self.pool.servers[si]
+            # while tracing, the instants that begin the stage, end it and
+            # end the wait
+            marks = [time.monotonic()] if server.stats.tracing else None
+            decoding = self._decoding[si]
             state = self._slots[si]
             pack = state.pack_scratch
             pack[:] = 0
@@ -649,20 +718,30 @@ class ServeEngine:
 
             def step():
                 if graph is not None:
-                    logits = graph.replay(pack)
+                    graph.load(pack)
+                    if marks is not None:
+                        marks.append(time.monotonic())
+                    logits = graph.replay()
                 else:
-                    logits = self._decode_masked_impl(
-                        self._tensor(pack), self._slot_cache(state))
+                    packed, cache = self._tensor(pack), self._slot_cache(state)
+                    if marks is not None:
+                        marks.append(time.monotonic())
+                    logits = self._decode_masked_impl(packed, cache)
+                if marks is not None:
+                    self._sync()
+                    marks.append(time.monotonic())
                 return logits[:, -1].cpu().numpy()
 
             t0 = time.monotonic()
             rows = self._on_device(si, step)
             dt = time.monotonic() - t0
+            if marks is not None:
+                _record_steps(server.stats, marks, t0 + dt)
             self._ran_cold(self._warm_decode, cold, cell)
-            self.pool.servers[si].record_meta(
+            server.record_meta(
                 kind=self._decode_kind, rows=len(payloads),
                 padded=self.max_batch, width=0, compacted=False, seconds=dt,
-                cold=cold, graphed=graph is not None)
+                cold=cold, graphed=graph is not None, decoding=decoding)
             return [rows[slot] for slot, _ in payloads]
 
         return run
@@ -727,6 +806,8 @@ class ServeEngine:
                            table: np.ndarray, slab: int, seg: int) -> None:
         """Runs on server ``si``'s thread (serialized with its batches)."""
         state = self._paged[si]
+        stats = self.pool.servers[si].stats
+        t0 = time.monotonic() if stats.tracing else None
 
         def insert():
             if state.pools is None:
@@ -735,6 +816,8 @@ class ServeEngine:
                                     seg)
 
         self._on_device(si, insert)
+        if t0 is not None:
+            stats.span("insert", t0, time.monotonic(), stats.call_id)
 
     def _run_paged_decode(self, si: int):
         """run_batch callable for server ``si``: payloads are (token,
@@ -746,6 +829,11 @@ class ServeEngine:
         (0 for slab-only families: no gather axis at all)."""
 
         def run(payloads):
+            server = self.pool.servers[si]
+            # while tracing, the instants that begin the stage, end it and
+            # end the wait
+            marks = [time.monotonic()] if server.stats.tracing else None
+            decoding = self._decoding[si]
             state = self._paged[si]
             bs = state.mgr.block_size
             n = len(payloads)
@@ -778,20 +866,30 @@ class ServeEngine:
 
             def step():
                 if graph is not None:
-                    logits = graph.replay(staged)
+                    graph.load(staged)
+                    if marks is not None:
+                        marks.append(time.monotonic())
+                    logits = graph.replay()
                 else:
-                    logits = self._decode_paged_impl(self._tensor(staged),
-                                                     state.pools)
+                    packed = self._tensor(staged)
+                    if marks is not None:
+                        marks.append(time.monotonic())
+                    logits = self._decode_paged_impl(packed, state.pools)
+                if marks is not None:
+                    self._sync()
+                    marks.append(time.monotonic())
                 return logits[:n, -1].cpu().numpy()
 
             t0 = time.monotonic()
             rows = self._on_device(si, step)
             dt = time.monotonic() - t0
+            if marks is not None:
+                _record_steps(server.stats, marks, t0 + dt)
             self._ran_cold(self._warm_decode, cold, (n_pad, w))
-            self.pool.servers[si].record_meta(
+            server.record_meta(
                 kind=self._decode_kind, rows=n, padded=n_pad, width=w,
                 compacted=n_pad < self.max_batch, seconds=dt, cold=cold,
-                graphed=graph is not None)
+                graphed=graph is not None, decoding=decoding)
             return [rows[i] for i in range(n)]
 
         return run
@@ -1061,6 +1159,10 @@ class ServeEngine:
         replay in between)."""
 
         def run(payloads):
+            server = self.pool.servers[si]
+            # while tracing, the instants that begin the stage, end it and
+            # end the wait
+            marks = [time.monotonic()] if server.stats.tracing else None
             n = len(payloads)
             n_pad = bucket_up(n, self._row_buckets)
             # bump-up on the row axis (the bucket axis was already steered
@@ -1087,18 +1189,28 @@ class ServeEngine:
 
             def prefill():
                 if graph is not None:
-                    rows, cache = graph.replay(toks, lens)
+                    graph.load(toks, lens)
+                    if marks is not None:
+                        marks.append(time.monotonic())
+                    rows, cache = graph.replay()
                     cache = _clone(cache)
                 else:
-                    rows, cache = self._prefill_batch_impl(
-                        self._tensor(toks), self._tensor(lens))
+                    toks_d, lens_d = self._tensor(toks), self._tensor(lens)
+                    if marks is not None:
+                        marks.append(time.monotonic())
+                    rows, cache = self._prefill_batch_impl(toks_d, lens_d)
+                if marks is not None:
+                    self._sync()
+                    marks.append(time.monotonic())
                 return rows[:n].cpu().numpy(), cache
 
             t0 = time.monotonic()
             rows, cache = self._on_device(si, prefill)
             dt = time.monotonic() - t0
+            if marks is not None:
+                _record_steps(server.stats, marks, t0 + dt)
             self._ran_cold(self._warm_prefill, cold, (n_pad, bucket))
-            self.pool.servers[si].record_meta(
+            server.record_meta(
                 kind=self._prefill_kind, rows=n, padded=n_pad, bucket=bucket,
                 seconds=dt, cold=cold, graphed=graph is not None)
             return [(rows[i], cache, i) for i in range(n)]
@@ -1407,6 +1519,7 @@ class ServeEngine:
         try:
             slot = self._acquire_slot(si)
             self._active_jobs[name] = si
+            decoding = False  # counted in the server's ``_decoding``
             try:
                 t0 = time.monotonic()
                 row_logits, cache, src_row = server.submit_batch(
@@ -1437,6 +1550,8 @@ class ServeEngine:
                 run_batch = (self._run_paged_decode(si) if self.paged
                              else self._run_decode_batch(si))
                 i = 0
+                self._count_decoding(si, 1)
+                decoding = True
                 while len(res.tokens) < steps:
                     if name in self._shed:
                         raise StreamShedError(
@@ -1476,6 +1591,8 @@ class ServeEngine:
                                 else:
                                     table, slab, seg = moved
                                     self._release_slot(si, slot)
+                                    self._count_decoding(si, -1)
+                                    self._count_decoding(dst, 1)
                                     slot, si = dst_slot, dst
                                     server = self.pool.servers[si]
                                     run_batch = self._run_paged_decode(si)
@@ -1495,6 +1612,8 @@ class ServeEngine:
                     log.generated.append(token)
                     i += 1
             finally:
+                if decoding:
+                    self._count_decoding(si, -1)
                 self._active_jobs.pop(name, None)
                 self._release_slot(si, slot)
         finally:
@@ -1816,6 +1935,7 @@ class ServeEngine:
             if self.paged:
                 self._paged.append(self._paged_state())
             s = self.pool.servers[si]
+            s.stats.set_tracing(self._tracing is True)
             if self._ft_params is not None:
                 s.max_retries = self._ft_params["max_retries"]
                 s.retry_backoff_s = self._ft_params["retry_backoff_s"]

@@ -381,6 +381,72 @@ def test_engine_on_the_card(cuda):
         eng.close()
 
 
+@pytest.mark.cuda
+def test_engine_traced_on_the_card(cuda):
+    """Tracing on the card: the graphed paged engine gives the same tokens
+    traced as untraced, and each batched call's wait, ended by a stream
+    synchronize, lies between its stage and its readback; the steps cover
+    the call's ``seconds``."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine, StreamSpec
+
+    cfg = dataclasses.replace(get_config("internlm2_1_8b").reduced(),
+                              dtype="float32")
+    params = M.init_params(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                           device=cuda)
+    prompts = {f"s{i}": np.arange(1, n + 1, dtype=np.int32)[None] % 128
+               for i, n in enumerate([3, 5, 9, 17])}
+    eng = ServeEngine(cfg, params, max_seq=32, num_servers=2, batching=True,
+                      max_batch=4, paged=True, kv_block_size=8, device=cuda)
+
+    def round_():
+        got = {}
+        threads = [threading.Thread(
+            target=lambda n=n: got.__setitem__(n, eng.generate(
+                n, prompts[n], steps=6).tokens)) for n in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        return got
+
+    try:
+        eng.precompile(prompt_buckets=(4, 8, 16, 32))
+        for n in prompts:
+            assert eng.admit(StreamSpec(
+                name=n, priority=1, period_ms=8000.0, deadline_ms=8000.0,
+                prefill_ms=50.0, decode_ms=5.0, decode_steps=6)).admitted
+        want = round_()
+        before = [len(s.stats.batch_meta) for s in eng.pool.servers]
+        eng.set_tracing(True)
+        assert round_() == want
+        eng.set_tracing(False)
+        recs = eng.trace_records()
+        for si, s in enumerate(eng.pool.servers):
+            meta = list(s.stats.batch_meta)[before[si]:]
+            steps = {}
+            for r in recs:
+                if r[0] == si and r[1] in ("stage", "wait", "readback"):
+                    steps.setdefault(r[4], {})[r[1]] = r
+            assert meta and len(steps) == len(meta)
+            assert any(m["graphed"] for m in meta)
+            for (_, got), m in zip(sorted(steps.items()), meta):
+                stage, wait, read = got["stage"], got["wait"], got["readback"]
+                assert stage[3] == wait[2] < wait[3] == read[2] < read[3]
+                assert read[3] - stage[2] >= m["seconds"]
+                # the packing before ``seconds``: well under 1 ms
+                assert read[3] - stage[2] == pytest.approx(m["seconds"],
+                                                           abs=1e-3)
+    finally:
+        eng.close()
+
+
 # mamba2-780m widths
 SSM_H, SSM_P, SSM_N, SSM_CDIM = 48, 64, 128, 3328
 

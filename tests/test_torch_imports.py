@@ -24,9 +24,8 @@ COPIES = (
     [f"configs/{p.name}" for p in sorted((SRC / "repro" / "configs").glob("*.py"))]
     + [f"core/{m}.py" for m in ("task_model", "faults", "migration",
                                 "server_analysis", "allocation", "taskset_gen",
-                                "admission", "server_runtime")]
-    + [f"core/dispatch/{m}.py" for m in ("__init__", "policy", "batching",
-                                         "pool")]
+                                "admission")]
+    + [f"core/dispatch/{m}.py" for m in ("__init__", "policy", "pool")]
     + ["runtime/straggler.py", "runtime/faultinject.py", "serving/kvcache.py",
        "analysis/cost_model.py", "analysis/roofline.py",
        "analysis/hlo_cost.py", "core/mpcp_analysis.py",
@@ -49,7 +48,10 @@ CLASS_COPIES = [("runtime/fault_tolerance.py", ("WorkerState",
                 ("runtime/elastic.py", ("plan_after_failure",
                                         "degraded_throughput_fraction",
                                         "LoadTrajectory",
-                                        "ElasticPoolController"))]
+                                        "ElasticPoolController")),
+                # the port's server and batching server trace their calls
+                ("core/server_runtime.py", ("cell_key", "CellStats")),
+                ("core/dispatch/batching.py", ("BatchRequest",))]
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
