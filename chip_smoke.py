@@ -28,8 +28,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the exact-length one; slab ids permuted and repeated), the MLA decode
    kernel and flash attention with a value width of its own at
    deepseek-v2-lite-16b widths (latent pools, lengths on both sides of
-   every KV split boundary, identity-table views of width 16 and 32), and
-   every kernel of the hybrid path again at zamba2-7b widths (rmsnorm on
+   every KV split boundary, identity-table views of width 16 and 32) and
+   the routed experts of the decode step on one MoE layer (1, 8 and 16
+   rows; fp32 on the scalar route, bf16 on the tensor cores; timed at
+   those rows against ``moe_dense``, and the whole layer routed against
+   dense up to 512 rows), and every kernel of the hybrid path again at zamba2-7b widths (rmsnorm on
    rows of 3584 and of the gated norm's 7168, both in registers in bf16;
    the attention kernels at 32/32 heads of 112, group size 1; the SSD
    kernels at 112 heads of P 64, N 64), and every kernel of the enc-dec
@@ -97,7 +100,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    its own): greedy tokens equal unbatched ``generate``'s, both servers
    used, no block leaked, decode calls recorded as ``decode@mla``, peak
    device memory printed (the depth is cut only if the fp32 weights do not
-   fit, and the cut is printed);
+   fit, and the cut is printed); each decode step's MoE layers run the
+   routed experts' kernel (its scalar route), prefill runs ``moe_dense``;
 5c. MLA + MoE path, bf16: the same traffic at full depth, timed, and a
    profile of one 4-row paged decode step;
 4d. hybrid path, fp32: full-width zamba2-7b cut to 27 of its 81 layers
@@ -292,6 +296,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import pathlib
@@ -369,7 +374,18 @@ KERNELS = {
                     "src/repro/kernels/rmsnorm.py:34"),
     "ssd_intra_bwd": ("src/repro_torch/csrc/ssd_intra_bwd.cu",
                       "src/repro/kernels/ssd_scan.py:66"),
+    # the decode step's routed experts: the reference has no kernel there
+    # (its moe_dense is jnp, every token through every expert)
+    "moe_routed_experts": ("src/repro_torch/csrc/moe_routed_experts.cu",
+                           "none: src/repro/models/moe.py moe_dense is jnp"),
 }
+# the routed experts' rows a decode call: checked and timed (a 1-row call,
+# about deepseek-sat-decode's mean of 8.7, a full 16-row tile), and wider,
+# where an expert's slots outgrow a 16-row tile; each timing cycles through
+# MOE_CALLS routings
+MOE_ROWS = (1, 8, 16)
+MOE_WIDE_ROWS = (32, 64, 128, 256, 512)
+MOE_CALLS = 16
 # device memory kept free beside the fp32 MLA weights: pools, the prefill
 # activations of 4 x 256 tokens through every expert, logits
 MLA_FP32_HEADROOM = 12 * 2**30
@@ -390,10 +406,12 @@ def card_line() -> str:
 # instructions (cuobjdump); their bf16 tensor-core kernels must hold HMMA
 SASS_SOURCES = ("decode_attention.cu", "paged_decode_attention.cu",
                 "ssd_intra.cu", "rmsnorm.cu", "flash_attention.cu",
-                "flash_attention_bwd.cu", "ssd_intra_bwd.cu")
+                "flash_attention_bwd.cu", "ssd_intra_bwd.cu",
+                "moe_routed_experts.cu")
 TENSOR_CORE_KERNELS = ("decode_tc_kernel", "ssd_tc_kernel", "flash_tc_kernel",
                        "dkdv_tc_kernel", "dq_tc_kernel",
-                       "ssd_bwd_head_tc_kernel", "ssd_bwd_groups_tc_kernel")
+                       "ssd_bwd_head_tc_kernel", "ssd_bwd_groups_tc_kernel",
+                       "experts_tc_kernel")
 
 
 def start_sass_report(csrc: pathlib.Path, nvcc: str):
@@ -1036,6 +1054,7 @@ class KernelChecks:
                 self.errors["flash_attention"] = max(
                     self.errors["flash_attention"], e)
         self.time_mla(cfg)
+        self.run_moe_routed(cfg)
 
     def time_mla(self, cfg):
         """Times at the MLA path's shapes in bf16 (the config's dtype): one
@@ -1122,6 +1141,100 @@ class KernelChecks:
                      2 * nq * (2 * r + pr) * live, dt),
             f"W={w_cols}, lengths {lengths} (information only)")
         print_rows({"paged_mla_decode_attention": info}, "SDPA")
+
+    # -- the routed experts at deepseek-v2-lite-16b widths -------------------
+    def moe_calls(self, cfg, rows, dtype, n=MOE_CALLS):
+        """``n`` decode calls of ``rows`` rows for one MoE layer: x (rows, D)
+        and the top-k of random logits (routing about uniform, as a trained
+        router's over many calls) with its softmax weights."""
+        calls = []
+        for _ in range(n):
+            top, idx = torch.topk(self.randn(rows, cfg.num_experts),
+                                  cfg.num_experts_per_tok, dim=-1)
+            calls.append((self.randn(rows, cfg.d_model, dtype=dtype), idx,
+                          torch.softmax(top, dim=-1).to(dtype)))
+        return calls
+
+    def run_moe_routed(self, cfg):
+        """``moe_routed_experts`` against its plain version on one layer at
+        ``cfg``'s widths, MOE_ROWS rows: fp32 (the scalar route) and bf16
+        (the tensor cores)."""
+        from repro_torch.kernels.moe_experts import (
+            moe_experts_route, moe_routed_experts, moe_routed_experts_plain)
+        from repro_torch.models.moe import init_moe
+
+        name = "moe_routed_experts"
+        for dt in (torch.float32, torch.bfloat16):
+            ex = init_moe(cfg, self.gen, dt, self.dev)["experts"]
+            ws = (ex["w_gate"], ex["w_up"], ex["w_down"])
+            for rows in MOE_ROWS:
+                x, idx, w = self.moe_calls(cfg, rows, dt, n=1)[0]
+                route = moe_experts_route(x, *ws)
+                e = self.check(name, f"rows={rows} E={cfg.num_experts} "
+                               f"K={cfg.num_experts_per_tok} route={route}",
+                               moe_routed_experts(x, idx, w, *ws),
+                               moe_routed_experts_plain(x, idx, w, *ws), dt)
+                self.errors[name] = max(self.errors.get(name, 0.0), e)
+            del ex, ws
+        self.time_moe_routed(cfg)
+
+    def time_moe_routed(self, cfg):
+        """Times of ``moe_routed_experts`` on one bf16 layer at MOE_ROWS
+        rows against ``moe_dense`` (the library yardstick: every decode
+        step's path before the routed one), the bound being the chosen
+        experts' weights, x and out over 3.35 TB/s; then, at MOE_ROWS and
+        MOE_WIDE_ROWS, the whole layer routed (``moe_routed``) against
+        dense, router included in both, device time.  Each call takes the
+        next of MOE_CALLS routings, so it finds its experts' weights out of
+        the L2 cache as a decode step's layers do."""
+        from repro_torch.kernels.moe_experts import (
+            moe_routed_experts, moe_routed_experts_plain)
+        from repro_torch.models.moe import init_moe, moe_dense, moe_routed
+
+        dt, el = torch.bfloat16, 2
+        d, f = cfg.d_model, cfg.moe_d_ff
+        p = init_moe(cfg, self.gen, dt, self.dev)
+        ws = (p["experts"]["w_gate"], p["experts"]["w_up"],
+              p["experts"]["w_down"])
+
+        def cycled(calls, fn):
+            each = itertools.cycle(calls)
+            return lambda: fn(*next(each))
+
+        rows_out = {}
+        for rows in MOE_ROWS + MOE_WIDE_ROWS:
+            calls = self.moe_calls(cfg, rows, dt)
+            xs = [(c[0][:, None, :],) for c in calls]
+            if rows in MOE_ROWS:
+                hit = statistics.mean(len(torch.unique(c[1])) for c in calls)
+                key = "moe_routed_experts" + ("" if rows == MOE_ROWS[1]
+                                              else f"@{rows}")
+                r = rows_out[key] = timed(
+                    cycled(calls, lambda x, i, w: moe_routed_experts(
+                        x, i, w, *ws)),
+                    cycled(calls, lambda x, i, w: moe_routed_experts_plain(
+                        x, i, w, *ws)),
+                    cycled(xs, lambda x: moe_dense(cfg, p, x)),
+                    # each chosen expert's three matrices once; x in, out
+                    bound_ms(hit * 3 * d * f * el + 2 * rows * d * el,
+                             2 * 3 * d * f * rows * cfg.num_experts_per_tok,
+                             dt),
+                    f"x ({rows},{d}), {hit:.2f} of {cfg.num_experts} "
+                    f"experts of D {d} F {f} a call")
+                print(f"time moe_routed_experts rows {rows}: "
+                      f"{100 * r['bound'][0] / r['device_ms']:.1f}% of 3.35 "
+                      f"TB/s on the chosen experts' bytes; moe_dense "
+                      f"{r['library_device_ms'] / r['device_ms']:.2f}x its "
+                      "device time")
+            routed = device_ms(cycled(xs, lambda x: moe_routed(cfg, p, x)))
+            dense = device_ms(cycled(xs, lambda x: moe_dense(cfg, p, x)))
+            print(f"time moe layer bf16 rows {rows} (T*K/E "
+                  f"{rows * cfg.num_experts_per_tok / cfg.num_experts:.2f}): "
+                  f"routed {routed:.4f} ms device, dense {dense:.4f} ms "
+                  f"device, dense / routed {dense / routed:.2f}x")
+        print_rows(rows_out, "moe_dense")
+        self.rows.update(rows_out)
+        del p, ws
 
     def rank(self) -> None:
         """Phase 3's timings ranked by device time: against the library

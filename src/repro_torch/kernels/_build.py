@@ -62,6 +62,7 @@ SIGNATURES = {
     "ssd_slab_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],
+    "moe_routed_experts_launch": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 # kernel name -> launches since the last reset (a launch counts only once

@@ -15,6 +15,14 @@ all numerically equivalent (up to capacity drops):
                  computes only its local experts and the partial outputs
                  are summed.  Used for decode (seq length 1).
 
+The port adds a fourth for the single-device decode step, where the
+reference runs dense: ``moe_routed`` computes each token's chosen experts
+only, in ``kernels.moe_experts.moe_routed_experts`` (on the card a
+hand-written kernel that reads only the chosen experts' weights).  It
+gives dense's result up to the order of fp32 sums; :func:`moe_route` takes
+it only where no gradient is wanted and the call's rows are few enough
+that an expert's share of them fits the kernel's row tile.
+
 The reference's ``shard_map`` bodies run under ``local_map`` on the local
 shards of DTensors (plain tensors are taken as replicated).  Its ``psum``
 and ``pmean`` over the body's output become ``Partial`` placements of the
@@ -42,6 +50,7 @@ from torch.distributed.nn.functional import all_to_all_single
 from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.distributed import sharding as shd
+from repro_torch.kernels.moe_experts import ROW_TILE, moe_routed_experts
 from repro_torch.models.layers import Params, dense_init, mlp
 
 
@@ -102,6 +111,43 @@ def moe_dense(cfg, p: Params, x):
     combine.scatter_add_(1, idx, weights)
     out = torch.einsum("te,etd->td", combine, y_all)
     return out.reshape(b, s, d), aux
+
+
+def moe_routed(cfg, p: Params, x):
+    """Each token through the experts it chose only (exact, dropless):
+    (B,S,D) -> ((B,S,D), aux), the router and aux as ``moe_dense``'s."""
+    b, s, d = x.shape
+    tokens = x.reshape(-1, d)
+    idx, weights, aux = router_topk(cfg, p, tokens)
+    ex = p["experts"]
+    out = moe_routed_experts(tokens, idx, weights, ex["w_gate"], ex["w_up"],
+                             ex["w_down"])
+    return out.reshape(b, s, d), aux
+
+
+def moe_route(cfg, p: Params, x, rules=None) -> str:
+    """The MoE layer's path for x (B,S,D) under ``rules``:
+    "expert_parallel" on a mesh whose model axis is above 1; else "routed"
+    for a decode step (S == 1) that wants no gradient -- grad disabled, or
+    no input requiring it -- on values a device holds, whose B * K slots
+    average at most one ROW_TILE an expert; else "dense" (training,
+    prefill, the meta tensors of static pricing, which hold no routing to
+    follow, and wide decode calls, where the kernel's row tiles would
+    stream an expert's weights more than once and dense's GEMMs read each
+    once: at deepseek-v2-lite's widths the routed layer is 4.6x faster at
+    1 row, even from 32 to 128 rows and 0.70x at 256, PERF.md)."""
+    if not (rules is None or rules.mesh is None
+            or shd.axis_size(rules.mesh, rules.model_axis) == 1):
+        return "expert_parallel"
+    ex = p["experts"]
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, p["router"], ex["w_gate"], ex["w_up"],
+                                  ex["w_down"]))
+    fits = x.shape[0] * cfg.num_experts_per_tok <= ROW_TILE * cfg.num_experts
+    if (x.shape[1] == 1 and not wants_grad and x.device.type != "meta"
+            and fits):
+        return "routed"
+    return "dense"
 
 
 def _expert_ffn(experts: Params, h):
@@ -281,15 +327,17 @@ def _moe_decode_tpdata(cfg, rules, p: Params, x):
 
 def moe_layer(cfg, p: Params, x):
     """Dispatching MoE layer: picks the execution path from the active
-    sharding rules, as the reference does.  Returns (out (B,S,D),
-    aux_loss)."""
+    sharding rules, as the reference does, and on a single device from the
+    step (:func:`moe_route`).  Returns (out (B,S,D), aux_loss)."""
     b, s, d = x.shape
     rules = shd.current_rules()
     k = cfg.num_experts_per_tok
     e = cfg.num_experts
 
-    if (rules is None or rules.mesh is None
-            or shd.axis_size(rules.mesh, rules.model_axis) == 1):
+    route = moe_route(cfg, p, x, rules)
+    if route == "routed":
+        out, aux = moe_routed(cfg, p, x)
+    elif route == "dense":
         out, aux = moe_dense(cfg, p, x)
     else:
         mesh = rules.mesh

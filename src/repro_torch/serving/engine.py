@@ -77,7 +77,10 @@ stopped, and the switch takes effect at its next dispatch unit.
 ``seconds`` runs from the copy into the graph's inputs to the rows on the
 host, so the three steps cover it and the packing before it.  Each decode
 call's ``batch_meta`` entry counts the server's streams in their decode
-loop when the call began (``decoding``).
+loop when the call began (``decoding``).  At each server's switch the
+engine copies the routed MoE experts' counter on the server's stream (no
+host sync), and ``experts_read`` gives the experts read and the experts
+that could have been read between the switches on and off.
 
 ``static_cell_costs`` prices cells without running them on the card: each
 cell's impl runs once on meta twins of the weights and pools under
@@ -105,6 +108,7 @@ from repro_torch.core.admission import PoolAdmissionController
 from repro_torch.core.dispatch.pool import ServerPool
 from repro_torch.core.faults import ServerFailedError, StreamShedError
 from repro_torch.core.task_model import GpuSegment, Task
+from repro_torch.kernels import moe_experts
 from repro_torch.models import model as M
 from repro_torch.runtime.straggler import DeadlineAwarePolicy, StepTimeWatchdog
 from repro_torch.serving.graphs import GraphCell
@@ -371,6 +375,13 @@ class ServeEngine:
         self._tracing: bool | None = None
         self._decoding: Counter = Counter()
         self._decoding_lock = threading.Lock()
+        # copies of the routed experts' counter where the first server's
+        # tracing switches on and at each switch off, read by
+        # ``experts_read``
+        self._experts_lock = threading.Lock()
+        self._experts_tracing = 0  # servers whose tracing is on
+        self._experts_start: torch.Tensor | None = None
+        self._experts_end: torch.Tensor | None = None
         # one CUDA stream per server: its device calls queue behind each
         # other and never behind another server's
         self._cuda_streams = ([torch.cuda.Stream(self.device)
@@ -437,15 +448,21 @@ class ServeEngine:
         result once the stream has drained.  Following the profiler, the
         server's tracing is switched here, on its own thread, so that it
         changes between two of its dispatch units and never inside one."""
+        switched = None
         if self._tracing is None:
             stats = self.pool.servers[si].stats
             if stats.tracing != _profiler._is_profiler_enabled:
                 stats.set_tracing(_profiler._is_profiler_enabled)
+                switched = stats.tracing
         with torch.inference_mode():
             if self._cuda_streams is None:
+                if switched is not None:
+                    self._mark_experts(switched)
                 return fn()
             stream = self._cuda_streams[si]
             with torch.cuda.stream(stream):
+                if switched is not None:
+                    self._mark_experts(switched)
                 out = fn()
             stream.synchronize()
             return out
@@ -469,13 +486,46 @@ class ServeEngine:
         replay, so that the wait ends there."""
         self._tracing = on
         for s in self.pool.servers:
+            was = s.stats.tracing
             s.stats.set_tracing(on is True)
+            if s.stats.tracing != was:
+                self._mark_experts(s.stats.tracing)
 
     def trace_records(self) -> list[tuple]:
         """A copy of every server's span records, each as (server index,
         *``Span``); the program writes none of them to disk."""
         return [(si, *sp) for si, s in enumerate(self.pool.servers)
                 for sp in list(s.stats.spans or ())]
+
+    def _mark_experts(self, on: bool) -> None:
+        """At a server's switch of tracing: a copy of the routed experts'
+        counter (``kernels.moe_experts``, made here if no routed call has
+        made it yet), on the current stream.  The copy at the switch on
+        that finds no server tracing starts the interval, each copy at a
+        switch off ends it."""
+        snap = moe_experts.experts_counter(self.device).clone()
+        with self._experts_lock:
+            if on:
+                if not self._experts_tracing:
+                    self._experts_start, self._experts_end = snap, None
+                self._experts_tracing += 1
+            else:
+                self._experts_tracing = max(self._experts_tracing - 1, 0)
+                self._experts_end = snap
+
+    def experts_read(self) -> tuple[int, int] | None:
+        """(experts read, experts that could have been read) by the routed
+        MoE decode layers (``models/moe.py::moe_routed``) from the first
+        server's switch of tracing on to the last switch off after it;
+        None before such an interval has closed, (0, 0) where no routed
+        layer ran in it.  The counter is the device's, so a second engine
+        on the device would count in it too."""
+        with self._experts_lock:
+            start, end = self._experts_start, self._experts_end
+        if start is None or end is None:
+            return None
+        read, possible = (end - start).tolist()
+        return int(read), int(possible)
 
     def _count_decoding(self, si: int, delta: int) -> None:
         with self._decoding_lock:

@@ -1395,6 +1395,209 @@ def _close_to_max(got, want, tol):
     assert err <= tol * max(want.abs().max().item(), 1e-30), (err, tol)
 
 
+# deepseek-v2-lite-16b's routed experts: 64 of D 2048, F 1408, top 6
+MOE_ARCH = "deepseek_v2_lite_16b"
+
+
+def _moe_layer(dtype, device, seed=0, cfg=None):
+    """One MoE layer's weights at ``cfg``'s widths (default: deepseek's)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as MOE
+
+    cfg = cfg or get_config(MOE_ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, MOE.init_moe(cfg, gen, getattr(torch, dtype), device)
+
+
+def _routing(cfg, rows, dtype, device, seed):
+    """x (rows, D) and a top-k routing of distinct experts a row, with
+    weights that sum to 1, drawn from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((rows, cfg.d_model), generator=gen, device=device)
+    logits = torch.randn((rows, cfg.num_experts), generator=gen,
+                         device=device)
+    top, idx = torch.topk(logits, cfg.num_experts_per_tok, dim=-1)
+    weights = torch.softmax(top, dim=-1)
+    dt = getattr(torch, dtype)
+    return x.to(dt), idx, weights.to(dt)
+
+
+def _experts(p):
+    ex = p["experts"]
+    return ex["w_gate"], ex["w_up"], ex["w_down"]
+
+
+@pytest.mark.cuda
+class TestCudaMoERoutedExperts:
+    """``moe_routed_experts`` (``csrc/moe_routed_experts.cu``) against its
+    plain version at deepseek-v2-lite-16b's widths: 1-16 rows, each row's
+    bits alone equal to its bits among 15 others, replays of a captured
+    graph under new routings, the counter, and the engine's decode path."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("rows", [1, 2, 8, 15, 16])
+    def test_kernel_against_plain(self, cuda, dtype, rows):
+        from repro_torch.kernels import moe_experts as ME
+
+        cfg, p = _moe_layer(dtype, cuda)
+        x, idx, w = _routing(cfg, rows, dtype, cuda, seed=rows)
+        assert ME.moe_experts_route(x, *_experts(p)) == (
+            "tensor_cores" if dtype == "bfloat16" else "scalar")
+        _build.reset_launches()
+        got = ME.moe_routed_experts(x, idx, w, *_experts(p))
+        assert _build.launches["moe_routed_experts"] == 1
+        _close(got, ME.moe_routed_experts_plain(x, idx, w, *_experts(p)),
+               dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_scalar_route_at_reduced_widths(self, cuda, dtype):
+        import dataclasses
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels import moe_experts as ME
+
+        cfg, p = _moe_layer(dtype, cuda, cfg=dataclasses.replace(
+            get_config(MOE_ARCH).reduced(), dtype=dtype))
+        x, idx, w = _routing(cfg, 5, dtype, cuda, seed=3)
+        assert ME.moe_experts_route(x, *_experts(p)) == "scalar"
+        _close(ME.moe_routed_experts(x, idx, w, *_experts(p)),
+               ME.moe_routed_experts_plain(x, idx, w, *_experts(p)), dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_a_row_alone_equals_the_row_among_others(self, cuda, dtype):
+        from repro_torch.kernels import moe_experts as ME
+
+        cfg, p = _moe_layer(dtype, cuda)
+        x, idx, w = _routing(cfg, 16, dtype, cuda, seed=7)
+        x[5], idx[5], w[5] = x[2], idx[2], w[2]  # two rows share everything
+        both = ME.moe_routed_experts(x, idx, w, *_experts(p))
+        for i in range(16):
+            alone = ME.moe_routed_experts(x[i:i + 1], idx[i:i + 1],
+                                          w[i:i + 1], *_experts(p))
+            assert torch.equal(alone[0], both[i]), i
+        assert torch.equal(both[5], both[2])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_graph_replays_follow_new_routing(self, cuda, dtype):
+        from repro_torch.kernels import moe_experts as ME
+
+        cfg, p = _moe_layer(dtype, cuda)
+        static = _routing(cfg, 8, dtype, cuda, seed=11)
+        ME.moe_routed_experts(*static, *_experts(p))  # warm, eagerly
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = ME.moe_routed_experts(*static, *_experts(p))
+        counter = ME.experts_counter(cuda)
+        for seed in (12, 13):
+            new = _routing(cfg, 8, dtype, cuda, seed=seed)
+            for dst, src in zip(static, new):
+                dst.copy_(src)
+            before = counter.clone()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert (counter - before).tolist() == [
+                len(torch.unique(new[1])), cfg.num_experts]
+            assert torch.equal(out, ME.moe_routed_experts(*new, *_experts(p)))
+
+    @pytest.mark.parametrize("rows", [1, 6, 16])
+    def test_counter_counts_the_distinct_experts(self, cuda, rows):
+        from repro_torch.kernels import moe_experts as ME
+
+        cfg, p = _moe_layer("bfloat16", cuda)
+        x, idx, w = _routing(cfg, rows, "bfloat16", cuda, seed=20 + rows)
+        idx[-1] = idx[0]  # a padding row: row 0's experts again
+        ME.moe_routed_experts(x, idx, w, *_experts(p))
+        counter = ME.experts_counter(cuda)
+        before = counter.clone()
+        ME.moe_routed_experts(x, idx, w, *_experts(p))
+        torch.cuda.synchronize()
+        assert (counter - before).tolist() == [len(torch.unique(idx)),
+                                               cfg.num_experts]
+
+    def test_refusals_come_before_any_launch(self, cuda):
+        from repro_torch.kernels import moe_experts as ME
+
+        cfg, p = _moe_layer("bfloat16", cuda)
+        x, idx, w = _routing(cfg, 4, "bfloat16", cuda, seed=1)
+        _build.reset_launches()
+        with pytest.raises(ValueError, match="int64"):
+            ME.moe_routed_experts(x, idx.int(), w, *_experts(p))
+        with pytest.raises(TypeError):
+            ME.moe_routed_experts(x.float(), idx, w, *_experts(p))
+        big = ME.MAX_SLOTS // cfg.num_experts_per_tok + 1
+        xb, ib, wb = _routing(cfg, big, "bfloat16", cuda, seed=2)
+        with pytest.raises(ValueError, match="slots"):
+            ME.moe_routed_experts(xb, ib, wb, *_experts(p))
+        assert _build.launches["moe_routed_experts"] == 0
+
+    def test_engine_decode_runs_the_routed_experts(self, cuda, monkeypatch):
+        """deepseek reduced, fp32: unbatched generate launches the kernel
+        once a MoE layer a decode step (prefill stays dense) and never its
+        plain version, and the paged batched engine's graphed decode gives
+        the same tokens through it."""
+        import dataclasses
+        import threading
+
+        import numpy as np
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels import moe_experts as ME
+        from repro_torch.models import model as M
+        from repro_torch.serving.engine import ServeEngine, StreamSpec
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("plain routed experts called on the card")
+
+        monkeypatch.setattr(ME, "moe_routed_experts_plain", refuse)
+        cfg = dataclasses.replace(get_config(MOE_ARCH).reduced(),
+                                  dtype="float32")
+        params = M.init_params(cfg, generator=torch.Generator(cuda)
+                               .manual_seed(0), device=cuda)
+        prompts = {f"s{i}": (np.arange(1, n + 1, dtype=np.int32)[None] * 7)
+                   % 128 for i, n in enumerate([3, 5, 9, 17])}
+        spec = lambda n, p: StreamSpec(name=n, priority=p, period_ms=8000.0,
+                                       deadline_ms=8000.0, prefill_ms=50.0,
+                                       decode_ms=5.0, decode_steps=6)
+        moe_layers = cfg.num_layers - cfg.first_dense_layers
+        ref = ServeEngine(cfg, params, max_seq=32, device=cuda)
+        want = {}
+        try:
+            _build.reset_launches()
+            for i, n in enumerate(prompts):
+                assert ref.admit(spec(n, 4 - i)).admitted
+                want[n] = ref.generate(n, prompts[n], steps=6).tokens
+            assert (_build.launches["moe_routed_experts"]
+                    == 4 * 6 * moe_layers)
+        finally:
+            ref.close()
+        eng = ServeEngine(cfg, params, max_seq=32, num_servers=2,
+                          batching=True, max_batch=4, paged=True, device=cuda)
+        try:
+            eng.precompile(prompt_buckets=(4, 8, 16, 32))
+            _build.reset_launches()
+            eng.set_tracing(True)
+            got = {}
+            for i, n in enumerate(prompts):
+                assert eng.admit(spec(n, 4 - i)).admitted
+            threads = [threading.Thread(
+                target=lambda n=n: got.__setitem__(n, eng.generate(
+                    n, prompts[n], steps=6))) for n in prompts]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            eng.set_tracing(False)
+            assert {n: r.tokens for n, r in got.items()} == want
+            assert _build.launches["moe_routed_experts"] > 0
+            read, possible = eng.experts_read()
+            assert possible == _build.launches["moe_routed_experts"] * \
+                cfg.num_experts
+            assert 0 < read <= possible
+        finally:
+            eng.close()
+
+
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
