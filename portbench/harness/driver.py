@@ -21,6 +21,7 @@ name the idle gaps of a trace.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import threading
 import time
 import weakref
@@ -246,14 +247,41 @@ def admit(eng, traffic: dict, num_streams: int) -> list[bool]:
     return out
 
 
+def port_base(port: dict):
+    """The base config that a configuration file's ``port`` names: the
+    ``CONFIG`` of the module ``repro_torch.configs.<arch>``, ``-`` read as
+    ``_``.  That is what ``registry.get_config`` returns for its own archs,
+    without its list of them, so a port-only module (whose ``CONFIG`` may
+    be an instance of a subclass of ``ModelConfig``, with keys the
+    registry's configs lack) is named the same way.  Both ``port_config``
+    and the CPU tests' cuts start here."""
+    from repro_torch.configs.registry import ModelConfig
+
+    arch = port.get("arch")
+    if not (isinstance(arch, str) and arch.replace("-", "_").isidentifier()):
+        raise ValueError(f"port {port!r}: 'arch' names no module of "
+                         f"repro_torch.configs")
+    name = "repro_torch.configs." + arch.replace("-", "_")
+    try:
+        module = importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise ValueError(f"port {port!r}: no module {name}") from None
+    base = getattr(module, "CONFIG", None)
+    if not isinstance(base, ModelConfig):
+        raise ValueError(f"port {port!r}: {name} has no CONFIG that is a "
+                         f"ModelConfig")
+    return base
+
+
 def port_config(conf: dict):
-    """The port's config of a configuration file."""
+    """The port's config of a configuration file: the base its ``port``
+    names, with the ``port.fields`` replaced."""
     import dataclasses
 
-    from repro_torch.configs.registry import get_config
-
     port = conf["port"]
-    return dataclasses.replace(get_config(port["arch"]), **port["fields"])
+    return dataclasses.replace(port_base(port), **port.get("fields", {}))
 
 
 @dataclass

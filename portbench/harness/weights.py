@@ -2,11 +2,27 @@
 
 The layout (tree, shapes, dtypes) comes from the port's initialiser run
 on the meta device, which allocates nothing; the numbers are drawn here,
-on the run's device, one ``torch.randn`` per leaf (a leaf of the layer
-stack holds every layer), in the dtype served, with the port's scales:
-1/sqrt(fan-in) for products, 0.02 for the embedding and the router, ones
-for norm scales.  Both the program and the plain reference read these
-tensors; neither derives them.
+on the run's device, one draw per leaf (a leaf of the layer stack holds
+every layer), in the dtype served, from one generator seeded by the run's
+seed, with the port's scales: 1/sqrt(fan-in) for products, 0.02 for the
+embedding and the router, ones for norm scales.  Both the program and the
+plain reference read these tensors; neither derives them.
+
+Mamba-2's own leaves (``models/ssm.py::init_mamba2``) are drawn as
+``mamba_ssm``'s ``Mamba2`` initialises them: ``A_log`` = log of uniform
+[1, 16]; ``dt_bias`` = the inverse softplus of dt, dt = exp of uniform
+[log 1e-3, log 1e-1] floored at 1e-4; ``ssm_D`` and ``gate_norm`` ones.
+The general rule would put A near -1 and dt near 0.7, so that each step
+halves the state, and the gated norm's scale near 1/sqrt(d_inner): the
+state would not carry from one chunk of the SSD scan into the next.  The
+mixer's other leaves (``in_proj``, ``conv_w``, ``conv_b``, ``out_proj``)
+keep the general rule, and a tree without those four names (the dense
+and MLA families) is drawn by it alone.
+
+The fan-in rule strips the leading axis of a stacked leaf only under the
+top-level key ``layers``: a family whose stacks sit elsewhere (zamba2's
+``groups``, shaped (G, PG, ...)) would get the wrong fan-in, and needs
+its key named in ``_std`` first.
 """
 
 from __future__ import annotations
@@ -23,10 +39,34 @@ def layout(cfg):
                          device="meta")
 
 
+# Mamba2 (mamba_ssm): A_init_range, dt_min, dt_max, dt_init_floor
+A_RANGE = (1.0, 16.0)
+DT_RANGE = (1e-3, 1e-1)
+DT_FLOOR = 1e-4
+ONES = ("scale", "ssm_D", "gate_norm")
+
+
+def _a_log(u):
+    """log A, A uniform in ``A_RANGE``, from ``u`` uniform in [0, 1)."""
+    lo, hi = A_RANGE
+    return torch.log(lo + (hi - lo) * u)
+
+
+def _dt_bias(u):
+    """softplus^-1(dt), log dt uniform in log ``DT_RANGE``, dt floored at
+    ``DT_FLOOR``, from ``u`` uniform in [0, 1)."""
+    lo, hi = (math.log(x) for x in DT_RANGE)
+    dt = torch.exp(lo + (hi - lo) * u).clamp(min=DT_FLOOR)
+    return dt + torch.log(-torch.expm1(-dt))
+
+
+UNIFORM = {"A_log": _a_log, "dt_bias": _dt_bias}
+
+
 def _std(path: tuple, shape: tuple) -> float | None:
-    """The draw's scale for the leaf at ``path`` (None: ones)."""
+    """The draw's scale for the normal leaf at ``path`` (None: ones)."""
     key = path[-1]
-    if key == "scale":
+    if key in ONES:
         return None
     if key in ("embed", "router"):
         return 0.02
@@ -64,8 +104,11 @@ def fill(params, seed: int) -> None:
     for path, t in _leaves(params):
         if gen is None:
             gen = torch.Generator(device=t.device).manual_seed(seed % 2**63)
-        std = _std(path, tuple(t.shape))
-        if std is None:
+        if path[-1] in UNIFORM:
+            u = torch.rand(t.shape, generator=gen, dtype=torch.float32,
+                           device=t.device)
+            t.copy_(UNIFORM[path[-1]](u))
+        elif (std := _std(path, tuple(t.shape))) is None:
             t.fill_(1.0)
         else:
             t.normal_(0.0, std, generator=gen)

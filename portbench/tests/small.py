@@ -34,8 +34,9 @@ def small_conf(conf: dict) -> dict:
 
 
 def port_cfg(conf: dict, dtype: str = "float32"):
-    """The port's config for a cut ``conf``."""
-    from repro_torch.configs.registry import get_config
+    """The port's config for a cut ``conf``: the base that
+    ``driver.port_config`` starts from, with the cut fields."""
+    from harness import driver as D
 
     c = conf
     f = dict(num_layers=c["num_hidden_layers"], d_model=c["hidden_size"],
@@ -57,7 +58,7 @@ def port_cfg(conf: dict, dtype: str = "float32"):
                  first_dense_layers=c["first_k_dense_replace"])
     else:
         f["head_dim"] = c["hidden_size"] // c["num_attention_heads"]
-    return dataclasses.replace(get_config(conf["port"]["arch"]), **f)
+    return dataclasses.replace(D.port_base(conf["port"]), **f)
 
 
 def small_traffic(traffic: dict) -> dict:
