@@ -1,0 +1,6 @@
+"""The reading of ``device_idle_share.rt``, in the granite-4.0-h-small cell,
+so that it moves ``tokens_per_s`` there."""
+
+from harness import spec as S
+
+read = S.load_module("metrics", "device_idle_share.rt").read

@@ -44,8 +44,9 @@ from repro_torch.kernels import _build
 TILE = 64
 # slots of one expert a row tile holds (csrc/moe_routed_experts.cu
 # kRowTile): each tile streams its expert's weights, so past an average of
-# one tile an expert the kernel reads more than moe_dense
-# (models/moe.py::moe_route)
+# one tile an expert the kernel reads more than moe_dense, and a call takes
+# this route only while T * K <= ROW_TILE * E (models/moe.py::moe_route:
+# 170 rows at E 64 / K 6, 115 at E 72 / K 10)
 ROW_TILE = 16
 # route codes of csrc/moe_routed_experts.cu
 ROUTES = {"scalar": 0, "tensor_cores": 1}

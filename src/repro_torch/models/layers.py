@@ -300,11 +300,13 @@ def _project(x, w):
 
 
 def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None,
-              mrope_positions=None, step: StepValues | None = None):
+              mrope_positions=None, step: StepValues | None = None,
+              scale: float | None = None):
     """GQA attention.  Rotary positions are ``positions`` (B, S), or
     ``mrope_positions`` (3, B, S) for a config with M-RoPE; ``step`` holds
     this step's shared values (:func:`step_values`), else they are computed
-    here.
+    here.  ``scale`` is the softmax scale, 1/sqrt(head_dim) when None (a
+    config such as granite-4.0-h's states its own).
 
     Training/prefill: ``layer_cache is None`` -> causal self-attention; if
     ``cache == 'build'`` also returns the (k, v) for cache construction.
@@ -329,7 +331,8 @@ def attention(cfg, p: Params, x, *, positions, cache=None, layer_cache=None,
         q = apply_rope(q, step.cos, step.sin)
         k = apply_rope(k, step.cos, step.sin)
 
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     if layer_cache is None:
         out = flash_attention(q, k, v, causal=True, scale=scale)
         new_cache = (k, v) if cache == "build" else None

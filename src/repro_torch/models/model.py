@@ -13,7 +13,9 @@ Counterpart of ``repro/models/model.py``.  The port has the dense GQA
 decoder, the MoE decoder (GQA or MLA attention, with dense prefix layers),
 the pure-SSM (Mamba-2) stack and the VLM backbone (M-RoPE, embedding
 inputs) in ``transformer``, the hybrid (Mamba-2 + shared attention) stack
-in ``hybrid`` and the whisper-style encoder-decoder in ``encdec``.
+in ``hybrid``, the hybrid Mamba-2 + attention stack with a MoE block after
+every mixer (granite-4.0-h) in ``hybrid_moe`` and the whisper-style
+encoder-decoder in ``encdec``.
 """
 
 from __future__ import annotations
@@ -23,17 +25,17 @@ from typing import Any
 import torch
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.models import encdec, hybrid, transformer
+from repro_torch.models import encdec, hybrid, hybrid_moe, transformer
 
 Params = Any
 
 
+# families with a module of their own; the rest are ``transformer``'s
+_FAMILIES = {"hybrid": hybrid, "hybrid_moe": hybrid_moe, "encdec": encdec}
+
+
 def _family_mod(cfg):
-    if cfg.family == "hybrid":
-        return hybrid
-    if cfg.family == "encdec":
-        return encdec
-    return transformer
+    return _FAMILIES.get(cfg.family, transformer)
 
 
 def init_params(cfg, *, generator, device=None) -> Params:
@@ -50,8 +52,7 @@ def cache_family(cfg) -> str | None:
     """The cache family (a ``serving.kvcache.FAMILIES`` key) this config
     pages under, or None when nothing resolves.  A declared
     ``cfg.cache_family`` always wins."""
-    mod = {"hybrid": hybrid, "encdec": encdec}.get(cfg.family, transformer)
-    return mod.cache_family(cfg)
+    return _family_mod(cfg).cache_family(cfg)
 
 
 def supports_paged(cfg) -> bool:
@@ -179,6 +180,15 @@ def param_count(cfg, *, active_only: bool = False) -> int:
         n_mamba = cfg.num_layers - g
         total += n_mamba * (_mamba_params(cfg) + d)
         total += _attn_params(cfg) + _mlp_params(d, cfg.d_ff, cfg.mlp_type) + 2 * d
+        return total
+
+    if cfg.family == "hybrid_moe":
+        routed = cfg.num_experts_per_tok if active_only else cfg.num_experts
+        moe = (routed * _mlp_params(d, cfg.moe_d_ff, "swiglu")
+               + _mlp_params(d, cfg.shared_d_ff, "swiglu") + d * cfg.num_experts)
+        for kind in cfg.layer_types:
+            mixer = _mamba_params(cfg) if kind == "mamba" else _attn_params(cfg)
+            total += mixer + moe + 2 * d
         return total
 
     if cfg.family == "encdec":

@@ -95,21 +95,39 @@ def router_topk(cfg, p: Params, x):
     return idx, weights.to(x.dtype), aux
 
 
+# the most bytes that moe_dense's (E, T, D) expert outputs take at once.
+# In one pass granite-4.0-h-small's 16 x 512-token prefill (E 72, D 4096,
+# bf16) would take 4.83 GB, and its capture ran the card out of memory;
+# deepseek-v2-lite's widest prefill (E 64, D 2048) is exactly this.
+DENSE_PASS_BYTES = 2**31
+
+
+def _dense_experts(experts: Params, tokens, combine):
+    """Every expert on ``tokens`` (T, D), mixed by ``combine`` (T, E)."""
+    # (T, D) @ (E, D, F) broadcasts the tokens over the expert axis
+    g = F.silu(torch.matmul(tokens, experts["w_gate"]))
+    u = torch.matmul(tokens, experts["w_up"])
+    y_all = torch.matmul(g * u, experts["w_down"])  # (E, T, D)
+    return torch.einsum("te,etd->td", combine, y_all)
+
+
 def moe_dense(cfg, p: Params, x):
     """All experts on all tokens (exact, dropless): (B,S,D) -> ((B,S,D),
-    aux)."""
+    aux).  The router sees every token at once; the experts take them in
+    passes whose (E, T, D) outputs fit ``DENSE_PASS_BYTES`` (one pass
+    while all of them fit)."""
     b, s, d = x.shape
     tokens = x.reshape(-1, d)
     idx, weights, aux = router_topk(cfg, p, tokens)
-    ex = p["experts"]
-    # (T, D) @ (E, D, F) broadcasts the tokens over the expert axis
-    g = F.silu(torch.matmul(tokens, ex["w_gate"]))
-    u = torch.matmul(tokens, ex["w_up"])
-    y_all = torch.matmul(g * u, ex["w_down"])  # (E, T, D)
     combine = torch.zeros((tokens.shape[0], cfg.num_experts), dtype=x.dtype,
                           device=x.device)
     combine.scatter_add_(1, idx, weights)
-    out = torch.einsum("te,etd->td", combine, y_all)
+    step = max(DENSE_PASS_BYTES // (cfg.num_experts * d * x.element_size()),
+               1)
+    parts = [_dense_experts(p["experts"], t, c) for t, c in
+             zip(tokens.split(step), combine.split(step))]
+    # one pass needs no copy into a joined output
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
     return out.reshape(b, s, d), aux
 
 
@@ -130,12 +148,14 @@ def moe_route(cfg, p: Params, x, rules=None) -> str:
     "expert_parallel" on a mesh whose model axis is above 1; else "routed"
     for a decode step (S == 1) that wants no gradient -- grad disabled, or
     no input requiring it -- on values a device holds, whose B * K slots
-    average at most one ROW_TILE an expert; else "dense" (training,
-    prefill, the meta tensors of static pricing, which hold no routing to
-    follow, and wide decode calls, where the kernel's row tiles would
-    stream an expert's weights more than once and dense's GEMMs read each
-    once: at deepseek-v2-lite's widths the routed layer is 4.6x faster at
-    1 row, even from 32 to 128 rows and 0.70x at 256, PERF.md)."""
+    average at most one ROW_TILE an expert (T * K <= 16 * E: 170 rows at
+    deepseek-v2-lite's E 64 / K 6, 115 at granite-4.0-h-small's E 72 /
+    K 10); else "dense" (training, prefill, the meta tensors of static
+    pricing, which hold no routing to follow, and wide decode calls, where
+    the kernel's row tiles would stream an expert's weights more than once
+    and dense's GEMMs read each once: at deepseek-v2-lite's widths the
+    routed layer is 4.6x faster at 1 row, even from 32 to 128 rows and
+    0.70x at 256, PERF.md)."""
     if not (rules is None or rules.mesh is None
             or shd.axis_size(rules.mesh, rules.model_axis) == 1):
         return "expert_parallel"

@@ -1598,6 +1598,114 @@ class TestCudaMoERoutedExperts:
             eng.close()
 
 
+@pytest.mark.cuda
+class TestCudaGranite:
+    """granite-4.0-h-small's widths: the routed experts at E 72, K 10,
+    D 4096, F 768; the slab step at 128 heads of P 64, N 128; and one
+    layer of each kind of its stack, where paged decode (block pools and
+    slab pools) gives dense decode's logits."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("rows", [1, 8, 16])
+    def test_routed_experts_against_plain(self, cuda, dtype, rows):
+        from repro_torch.configs.granite_4_0_h_small import CONFIG
+        from repro_torch.kernels import moe_experts as ME
+
+        cfg, p = _moe_layer(dtype, cuda, cfg=CONFIG)
+        x, idx, w = _routing(cfg, rows, dtype, cuda, seed=40 + rows)
+        assert ME.moe_experts_route(x, *_experts(p)) == (
+            "tensor_cores" if dtype == "bfloat16" else "scalar")
+        counter = ME.experts_counter(cuda)
+        before = counter.clone()
+        got = ME.moe_routed_experts(x, idx, w, *_experts(p))
+        torch.cuda.synchronize()
+        assert (counter - before).tolist() == [len(torch.unique(idx)), 72]
+        _close(got, ME.moe_routed_experts_plain(x, idx, w, *_experts(p)),
+               dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("slabs", [[7], [9, 3, 3, 1]])
+    def test_ssd_slab_decode(self, cuda, dtype, slabs):
+        h, p, n = 128, 64, 128
+        gen = torch.Generator().manual_seed(41)
+        rows = len(slabs)
+        pool = torch.randn((10, h, p, n), generator=gen).to(cuda)
+        xbc = torch.randn((rows, h * p + 2 * n), generator=gen).to(
+            getattr(torch, dtype)).to(cuda)
+        dt = torch.nn.functional.softplus(
+            torch.randn((rows, h), generator=gen)).to(cuda)
+        for row in range(1, rows):  # a repeated id repeats its row
+            if slabs[row] in slabs[:row]:
+                first = slabs.index(slabs[row])
+                xbc[row], dt[row] = xbc[first], dt[first]
+        x = xbc[:, :h * p].view(rows, h, p)
+        b = xbc[:, h * p:h * p + n].view(rows, 1, n)
+        c = xbc[:, h * p + n:].view(rows, 1, n)
+        a = -torch.linspace(1.0, 16.0, h, device=cuda)
+        ids = torch.tensor(slabs, dtype=torch.int32, device=cuda)
+        y, states = ssd_slab_decode(pool, ids, x, dt, a, b, c)
+        y_want, s_want = ssd_slab_decode_plain(pool, ids, x, dt, a, b, c)
+        _close(y, y_want, dtype)
+        _close(states, s_want, "float32")
+
+    def test_paged_decode_gives_dense_decode(self, cuda):
+        """One Mamba-2 layer and one attention layer, each with its MoE
+        block, at full width in bf16: a padded prefill of three rows, then
+        four decode steps dense and paged (permuted blocks and slabs).
+        The slab states are the dense states bit for bit (one kernel, slab
+        ids against 0..B-1); the logits agree to bf16's rounding, scaled
+        to their size (the two decode attention kernels split the KV
+        sweep on their own block sizes)."""
+        import dataclasses
+
+        from repro_torch.configs.granite_4_0_h_small import CONFIG
+        from repro_torch.models import model as M
+
+        cfg = dataclasses.replace(CONFIG, num_layers=2,
+                                  layer_types=("mamba", "attention"),
+                                  tie_embeddings=False)
+        gen = torch.Generator(cuda).manual_seed(0)
+        params = M.init_params(cfg, generator=gen, device=cuda)
+        m = params["layers"]["mamba"]["mamba"]
+        m["dt_bias"].copy_(torch.rand(m["dt_bias"].shape, generator=gen,
+                                      device=cuda) - 4.0)
+        tok = torch.Generator(cuda).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (3, 48), generator=tok,
+                             device=cuda)
+        lengths = torch.tensor([5, 48, 30], dtype=torch.int32, device=cuda)
+        bs, max_seq = 16, 64
+        with torch.inference_mode():
+            _, dense, _ = M.apply(cfg, params, {
+                "tokens": toks, "lengths": lengths, "max_seq": max_seq},
+                mode="prefill")
+            pools = M.init_paged_cache(cfg, 20, bs, num_slabs=7, device=cuda)
+            blocks = torch.randperm(20, generator=tok, device=cuda)[:12]
+            tables = blocks.view(3, 4).to(torch.int32)
+            slabs = torch.tensor([4, 0, 6], dtype=torch.int32, device=cuda)
+            for r in range(3):
+                for pool, leaf in zip(pools["attn"], dense["attn"]):
+                    pool[:, tables[r].long()] = leaf[:, r].reshape(
+                        1, 4, bs, *leaf.shape[3:])
+                for pool, leaf in zip(pools["mamba"], dense["mamba"]):
+                    pool[:, slabs[r].long()] = leaf[:, r]
+            for step in range(4):
+                nxt = torch.randint(0, cfg.vocab_size, (3, 1), generator=tok,
+                                    device=cuda)
+                pos = dense["pos"]
+                want, dense, _ = M.apply(cfg, params, {"tokens": nxt},
+                                         mode="decode", cache=dense)
+                got, _, _ = M.apply(cfg, params, {"tokens": nxt},
+                                    mode="decode", cache={
+                                        **pools, "pos": pos,
+                                        "block_tables": tables,
+                                        "slab_ids": slabs})
+                scale = float(want.abs().max())
+                torch.testing.assert_close(got, want, rtol=2e-2,
+                                           atol=2e-2 * scale)
+            assert torch.equal(pools["mamba"][1][0, slabs.long()],
+                               dense["mamba"][1][0])
+
+
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
